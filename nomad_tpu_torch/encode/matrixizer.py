@@ -1,0 +1,378 @@
+"""ClusterMatrix: an incrementally-maintained columnar mirror of cluster
+state, and the per-eval demand tensors shipped to the device kernels.
+
+Reference analog: the scheduler's per-node object walks
+(scheduler/rank.go BinPackIterator over RankedNode, nomad/state hot reads).
+Here the state store maintains this mirror incrementally (SURVEY.md section
+2.7 item 7) so an evaluation never rebuilds O(nodes) state from scratch —
+it only assembles small per-job tensors plus views of resident arrays.
+
+Axes and padding: the node axis is padded to power-of-two buckets (minimum
+8) so the kernels see a small, stable set of shapes across evals
+(SURVEY.md section 7 "dynamic shapes").
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from nomad_tpu_torch.encode.attrs import AttrTable
+
+# Resource dimension layout of the dense matrices.  Network bandwidth is a
+# first-class dimension: where the reference accounts MBits inside
+# NetworkIndex (structs/network.go:39,178), the dense design folds it into
+# the same capacity/used matrices so fit checks, plan validation and the
+# preemption kernel all cover bandwidth for free (ScoreFitBinPack still
+# scores cpu+mem only, matching funcs.go:259-279).
+RES_CPU, RES_MEM, RES_DISK, RES_NET = 0, 1, 2, 3
+NUM_RESOURCE_DIMS = 4
+
+
+def comparable_vec(cr) -> "np.ndarray":
+    """f32[R] dense resource vector of a ComparableResources."""
+    return np.array(
+        [cr.cpu_shares, cr.memory_mb, cr.disk_mb,
+         sum(n.mbits for n in cr.networks)], dtype=np.float32)
+
+_PORT_WORDS = 65536 // 32
+
+
+def pad_to_bucket(n: int, minimum: int = 8) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+class ClusterMatrix:
+    """Dense, incrementally-updated node-axis mirror.
+
+    Rows are stable: a node keeps its row for its lifetime; removed rows are
+    recycled.  All arrays are kept at `capacity_rows` (a power-of-two
+    bucket) and grown by re-bucketing when full.
+    """
+
+    def __init__(self, initial_rows: int = 8):
+        cap = pad_to_bucket(initial_rows)
+        self._n_rows = cap
+        self.row_of: Dict[str, int] = {}
+        self.node_ids: List[Optional[str]] = [None] * cap
+        self._free_rows: List[int] = list(range(cap - 1, -1, -1))
+
+        self.capacity = np.zeros((cap, NUM_RESOURCE_DIMS), dtype=np.float32)
+        self.used = np.zeros((cap, NUM_RESOURCE_DIMS), dtype=np.float32)
+        self.ready = np.zeros(cap, dtype=bool)
+        self.attrs = AttrTable(cap)
+        # used ports bitset per node (static collision + dynamic capacity)
+        self.port_words = np.zeros((cap, _PORT_WORDS), dtype=np.uint32)
+        self.dyn_port_lo = np.full(cap, 20000, dtype=np.int32)
+        self.dyn_port_hi = np.full(cap, 32000, dtype=np.int32)
+        # device-group id -> i32[N] instance capacity / committed usage
+        self.device_caps: Dict[str, np.ndarray] = {}
+        self.device_used: Dict[str, np.ndarray] = {}
+        # computed-class ordinal per row (-1 = empty row): lets blocked-eval
+        # class-eligibility reduce as a vectorized groupby instead of an
+        # O(N) Python node walk (reference EvalEligibility keying)
+        self.class_codes = np.full(cap, -1, dtype=np.int32)
+        self.class_names: List[str] = []
+        self._class_rank: Dict[str, int] = {}
+        # generation counter bumped on any mutation (device cache invalidation)
+        self.generation = 0
+        # authoritative live-alloc usage, keyed by node id so it survives node
+        # churn and alloc-before-node replay order:
+        #   node_id -> {alloc_id: (res_vec, ports)}
+        self._node_allocs: Dict[str, Dict[str, Tuple[np.ndarray, Tuple[int, ...]]]] = {}
+        self._alloc_node: Dict[str, str] = {}  # alloc_id -> node_id
+
+    # ------------------------------------------------------------- rows
+
+    @property
+    def n_rows(self) -> int:
+        return self._n_rows
+
+    def _grow(self) -> None:
+        old = self._n_rows
+        new = old * 2
+        self.capacity = np.vstack([self.capacity, np.zeros((old, NUM_RESOURCE_DIMS), np.float32)])
+        self.used = np.vstack([self.used, np.zeros((old, NUM_RESOURCE_DIMS), np.float32)])
+        self.ready = np.concatenate([self.ready, np.zeros(old, bool)])
+        self.port_words = np.vstack([self.port_words, np.zeros((old, _PORT_WORDS), np.uint32)])
+        self.dyn_port_lo = np.concatenate([self.dyn_port_lo, np.full(old, 20000, np.int32)])
+        self.dyn_port_hi = np.concatenate([self.dyn_port_hi, np.full(old, 32000, np.int32)])
+        self.node_ids.extend([None] * old)
+        self._free_rows.extend(range(new - 1, old - 1, -1))
+        self.class_codes = np.concatenate(
+            [self.class_codes, np.full(old, -1, np.int32)])
+        self.attrs.resize(new)
+        for k in self.device_caps:
+            self.device_caps[k] = np.concatenate(
+                [self.device_caps[k], np.zeros(old, np.int32)])
+        for k in self.device_used:
+            self.device_used[k] = np.concatenate(
+                [self.device_used[k], np.zeros(old, np.int32)])
+        self._n_rows = new
+
+    # ------------------------------------------------------------- nodes
+
+    def upsert_node(self, node) -> int:
+        row = self.row_of.get(node.id)
+        if row is None:
+            if not self._free_rows:
+                self._grow()
+            row = self._free_rows.pop()
+            self.row_of[node.id] = row
+            self.node_ids[row] = node.id
+        res = node.node_resources
+        rr = node.reserved_resources
+        self.capacity[row, RES_CPU] = res.cpu.cpu_shares - rr.cpu_shares
+        self.capacity[row, RES_MEM] = res.memory_mb - rr.memory_mb
+        self.capacity[row, RES_DISK] = res.disk_mb - rr.disk_mb
+        self.capacity[row, RES_NET] = sum(n.mbits for n in res.networks)
+        self.ready[row] = node.ready()
+        cc = getattr(node, "computed_class", "") or ""
+        code = self._class_rank.get(cc)
+        if code is None:
+            code = self._class_rank[cc] = len(self.class_names)
+            self.class_names.append(cc)
+        self.class_codes[row] = code
+        self.attrs.set_node_row(row, node)
+        # drivers become attr columns like the reference's driver.<name> attrs
+        for name, info in node.drivers.items():
+            healthy = info.get("detected") and info.get("healthy", True)
+            self.attrs.column(f"attr.driver.{name}").set(
+                row, "1" if healthy else None)
+        # host volumes: column per volume name, value "ro"/"rw"
+        for name, vol in node.host_volumes.items():
+            self.attrs.column(f"hostvol.{name}").set(
+                row, "ro" if vol.get("read_only") else "rw")
+        # CSI node plugins: column per plugin id, "1" = healthy
+        for pid, info in node.csi_node_plugins.items():
+            self.attrs.column(f"csiplugin.{pid}").set(
+                row, "1" if info.get("healthy") else None)
+        # device capacity: numeric count column per device-group id (clear
+        # stale groups first — re-registration may drop devices)
+        for col in self.device_caps.values():
+            col[row] = 0
+        for dev in node.node_resources.devices:
+            col = self.device_caps.setdefault(
+                dev.id, np.zeros(self._n_rows, dtype=np.int32))
+            # unhealthy instances don't count as schedulable capacity
+            col[row] = len(dev.healthy_ids())
+        self.dyn_port_lo[row] = res.min_dynamic_port
+        self.dyn_port_hi[row] = res.max_dynamic_port
+        words = np.zeros(_PORT_WORDS, dtype=np.uint32)
+        for p in rr.reserved_ports:
+            words[p >> 5] |= np.uint32(1 << (p & 31))
+        # re-apply this node's live-alloc usage (covers allocs that arrived
+        # before the node row existed, and node re-registration)
+        self.used[row] = 0
+        for col in self.device_used.values():
+            col[row] = 0
+        for vec, ports, devs in self._node_allocs.get(node.id, {}).values():
+            self.used[row] += vec
+            for p in ports:
+                words[p >> 5] |= np.uint32(1 << (p & 31))
+            for gid, cnt in devs.items():
+                col = self.device_used.setdefault(
+                    gid, np.zeros(self._n_rows, dtype=np.int32))
+                col[row] += cnt
+        self.port_words[row] = words
+        self.generation += 1
+        return row
+
+    def remove_node(self, node_id: str) -> None:
+        row = self.row_of.pop(node_id, None)
+        if row is None:
+            return
+        self.node_ids[row] = None
+        self.capacity[row] = 0
+        self.used[row] = 0
+        self.ready[row] = False
+        self.class_codes[row] = -1
+        self.port_words[row] = 0
+        for col in self.device_caps.values():
+            col[row] = 0
+        for col in self.device_used.values():
+            col[row] = 0
+        self.attrs.clear_row(row)
+        self._free_rows.append(row)
+        self.generation += 1
+
+    # ------------------------------------------------------------- allocs
+
+    @staticmethod
+    def _alloc_res_vec(alloc) -> np.ndarray:
+        return comparable_vec(alloc.comparable_resources())
+
+    @staticmethod
+    def _alloc_devices(alloc) -> Dict[str, int]:
+        """device group id -> instance count used by this alloc."""
+        out: Dict[str, int] = {}
+        for tr in alloc.allocated_resources.tasks.values():
+            for d in tr.devices:
+                gid = f"{d['vendor']}/{d['type']}/{d['name']}"
+                out[gid] = out.get(gid, 0) + len(d.get("device_ids", []))
+        return out
+
+    @staticmethod
+    def _alloc_ports(alloc) -> Tuple[int, ...]:
+        ports = []
+        for net in alloc.comparable_resources().networks:
+            for p in net.reserved_ports:
+                ports.append(p.value)
+            for p in net.dynamic_ports:
+                if p.value:
+                    ports.append(p.value)
+        for p in alloc.allocated_resources.shared_ports:
+            ports.append(p.value)
+        return tuple(ports)
+
+    def _untrack(self, alloc_id: str) -> None:
+        node_id = self._alloc_node.pop(alloc_id, None)
+        if node_id is None:
+            return
+        vec, ports, devs = self._node_allocs[node_id].pop(alloc_id)
+        row = self.row_of.get(node_id)
+        if row is not None:
+            self.used[row] -= vec
+            for p in ports:
+                self.port_words[row, p >> 5] &= ~np.uint32(1 << (p & 31))
+            for gid, n in devs.items():
+                col = self.device_used.get(gid)
+                if col is not None:
+                    col[row] -= n
+
+    def upsert_alloc(self, alloc) -> None:
+        """Track / untrack an allocation's resource usage on its node.
+        Terminal allocations contribute nothing (AllocsFit semantics,
+        funcs.go:174-178).  Usage is tracked even when the node row does not
+        exist yet (restore/replay order), and applied when the node appears.
+        """
+        self._untrack(alloc.id)
+        if not alloc.terminal_status() and alloc.node_id:
+            vec = self._alloc_res_vec(alloc)
+            ports = self._alloc_ports(alloc)
+            devs = self._alloc_devices(alloc)
+            self._node_allocs.setdefault(alloc.node_id, {})[alloc.id] = \
+                (vec, ports, devs)
+            self._alloc_node[alloc.id] = alloc.node_id
+            row = self.row_of.get(alloc.node_id)
+            if row is not None:
+                self.used[row] += vec
+                for p in ports:
+                    self.port_words[row, p >> 5] |= np.uint32(1 << (p & 31))
+                for gid, n in devs.items():
+                    col = self.device_used.setdefault(
+                        gid, np.zeros(self._n_rows, dtype=np.int32))
+                    col[row] += n
+        self.generation += 1
+
+    def remove_alloc(self, alloc_id: str) -> None:
+        if alloc_id in self._alloc_node:
+            self._untrack(alloc_id)
+            self.generation += 1
+
+    # ------------------------------------------------------------- views
+
+    def rows_for(self, node_ids: Sequence[str]) -> np.ndarray:
+        return np.array([self.row_of[i] for i in node_ids if i in self.row_of],
+                        dtype=np.int32)
+
+    def dc_mask(self, datacenters: Sequence[str]) -> np.ndarray:
+        col = self.attrs.column("node.datacenter")
+        want = set(datacenters)
+        return np.array([v in want for v in col.values], dtype=bool)
+
+    def free_dynamic_ports(self) -> np.ndarray:
+        """Count of free ports in each node's own dynamic range [lo, hi],
+        exact at bit granularity.  Nodes are grouped by their (lo, hi) range
+        (a handful of distinct values in practice) and each group gets a
+        masked vectorized popcount over its own word window."""
+        out = np.zeros(self._n_rows, dtype=np.int32)
+        ranges: Dict[Tuple[int, int], List[int]] = {}
+        for row in self.row_of.values():
+            key = (int(self.dyn_port_lo[row]), int(self.dyn_port_hi[row]))
+            ranges.setdefault(key, []).append(row)
+        for (lo, hi), rows in ranges.items():
+            rows_a = np.array(rows, dtype=np.int64)
+            w0, w1 = lo >> 5, (hi >> 5) + 1
+            words = self.port_words[rows_a, w0:w1].copy()
+            # mask off bits below lo in the first word / above hi in the last
+            words[:, 0] &= np.uint32(0xFFFFFFFF) << np.uint32(lo & 31)
+            hi_bit = hi & 31
+            last_mask = (np.uint64(1) << np.uint64(hi_bit + 1)) - np.uint64(1)
+            words[:, -1] &= np.uint32(last_mask)
+            byte_view = words.view(np.uint8)
+            used = _POPCOUNT_TABLE[byte_view].reshape(words.shape[0], -1).sum(axis=1)
+            out[rows_a] = (hi - lo + 1) - used
+        return out
+
+    def static_ports_free(self, ports: Sequence[int]) -> np.ndarray:
+        """bool[N]: True where none of `ports` is already claimed."""
+        if not ports:
+            return np.ones(self._n_rows, dtype=bool)
+        mask = np.ones(self._n_rows, dtype=bool)
+        for p in ports:
+            bit = (self.port_words[:, p >> 5] >> np.uint32(p & 31)) & np.uint32(1)
+            mask &= bit == 0
+        return mask
+
+
+_POPCOUNT_TABLE = np.array([bin(i).count("1") for i in range(256)], dtype=np.int64)
+
+
+@dataclass
+class EvalTensors:
+    """Everything one evaluation's placement pass needs, in dense form.
+
+    Shapes: N = padded node rows, G = padded distinct task groups,
+    S = padded placement slots (one per missing alloc instance).
+    """
+    # node axis (views/copies of ClusterMatrix state at snapshot time)
+    capacity: np.ndarray          # f32[N, R]
+    used: np.ndarray              # f32[N, R] — proposed usage basis for this eval
+    # per-task-group
+    feasible: np.ndarray          # bool[G, N] — constraints+driver+dc+ready+ports
+    affinity: np.ndarray          # f32[G, N] — normalized affinity sum per node
+    has_affinity: np.ndarray      # bool[G]
+    desired_count: np.ndarray     # i32[G]
+    penalty: np.ndarray           # bool[G, N] — rescheduling penalty nodes
+    proposed_tg_count: np.ndarray # i32[G, N] — existing co-placed allocs of (job, tg)
+    # spread scoring (zero-filled when the job has no spreads)
+    spread_weight: np.ndarray     # f32[G] — sum of |weights| (0 = no spread)
+    spread_boost: np.ndarray      # f32[G, N] — precomputed per-node spread boost
+    # per-placement-slot
+    demand: np.ndarray            # f32[S, R]
+    slot_tg: np.ndarray           # i32[S] — index into G
+    slot_active: np.ndarray       # bool[S]
+    # metadata
+    n_real_nodes: int = 0
+    slot_names: List[str] = field(default_factory=list)      # alloc names per slot
+    tg_names: List[str] = field(default_factory=list)
+    node_rows: Optional[np.ndarray] = None                   # row -> ClusterMatrix row
+
+
+def make_eval_tensors(n_nodes: int, n_groups: int, n_slots: int) -> EvalTensors:
+    """Allocate zero-filled EvalTensors with padded shapes."""
+    N = pad_to_bucket(max(n_nodes, 1))
+    G = pad_to_bucket(max(n_groups, 1), minimum=1)
+    S = pad_to_bucket(max(n_slots, 1), minimum=1)
+    R = NUM_RESOURCE_DIMS
+    return EvalTensors(
+        capacity=np.zeros((N, R), np.float32),
+        used=np.zeros((N, R), np.float32),
+        feasible=np.zeros((G, N), bool),
+        affinity=np.zeros((G, N), np.float32),
+        has_affinity=np.zeros(G, bool),
+        desired_count=np.ones(G, np.int32),
+        penalty=np.zeros((G, N), bool),
+        proposed_tg_count=np.zeros((G, N), np.int32),
+        spread_weight=np.zeros(G, np.float32),
+        spread_boost=np.zeros((G, N), np.float32),
+        demand=np.zeros((S, R), np.float32),
+        slot_tg=np.zeros(S, np.int32),
+        slot_active=np.zeros(S, bool),
+        n_real_nodes=n_nodes,
+    )

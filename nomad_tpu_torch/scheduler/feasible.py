@@ -1,0 +1,351 @@
+"""Feasibility: constraint programs over the dense attribute columns.
+
+Host twin of the device constraint kernel; semantics mirror
+scheduler/feasible.go:740-940 (resolveTarget/checkConstraint and the
+operator table at :806-841).  Every function returns a bool[N] mask over
+ClusterMatrix rows — vectorized numpy over hash/ordinal code columns for
+=, !=, <, <=, >, >=, is_set; regex/version/semver/set_contains evaluate a
+Python predicate over *distinct* values only and scatter (the analog of the
+reference's "escaped" constraint fallback, context.go:252-420).
+"""
+from __future__ import annotations
+
+import re
+from functools import lru_cache
+from typing import List, Optional
+
+import numpy as np
+
+from nomad_tpu_torch.encode.attrs import AttrTable, hash_code
+from nomad_tpu_torch.encode.matrixizer import ClusterMatrix
+from nomad_tpu_torch.structs.job import Constraint, Operand
+from nomad_tpu_torch.scheduler.version import version_matches
+
+
+@lru_cache(maxsize=4096)
+def _compiled_regex(pattern: str) -> Optional["re.Pattern"]:
+    try:
+        return re.compile(pattern)
+    except re.error:
+        return None
+
+
+def _set_contains_all(lval: str, rval: str) -> bool:
+    have = {s.strip() for s in lval.split(",")}
+    return all(s.strip() in have for s in rval.split(","))
+
+
+def _set_contains_any(lval: str, rval: str) -> bool:
+    have = {s.strip() for s in lval.split(",")}
+    return any(s.strip() in have for s in rval.split(","))
+
+
+def _ordered_mask(col, op: str, literal: str) -> np.ndarray:
+    """Lexical <,<=,>,>= against a literal via ordinal codes
+    (checkLexicalOrder semantics: plain string comparison)."""
+    ords = col.ordinals()
+    i, exact = col.ordinal_of(literal)
+    found = ords >= 0
+    if op == Operand.LT:
+        return found & (ords < i)
+    if op == Operand.LTE:
+        return found & ((ords < i) | (exact & (ords == i)))
+    if op == Operand.GT:
+        return found & ((ords > i) if exact else (ords >= i))
+    if op == Operand.GTE:
+        return found & (ords >= i)
+    raise ValueError(op)
+
+
+_MISSING = object()   # a referenced column that no node materializes
+
+
+def _resolve_side(cm: ClusterMatrix, target: str):
+    """-> (column | None, literal | None, missing: bool).  Mirrors
+    resolveTarget (feasible.go:769-802): non-interpolated targets are
+    literals; unresolvable or never-seen columns are 'missing' (nil)."""
+    col_name = AttrTable.target_to_column(target)
+    if col_name is None:
+        return None, target, False
+    if col_name == "__unresolvable__":
+        return None, None, True
+    col = cm.attrs.columns.get(col_name)
+    if col is None:
+        return None, None, True
+    return col, None, False
+
+
+def constraint_mask(cm: ClusterMatrix, c: Constraint) -> np.ndarray:
+    """bool[N] satisfaction mask for one constraint over all rows."""
+    n = cm.n_rows
+    op = c.operand
+    # equality aliases (reference checkConstraint, feasible.go:808-814:
+    # "=", "==" and "is" are one operator; "!=" and "not" likewise)
+    if op in ("==", "is"):
+        op = Operand.EQ
+    elif op == "not":
+        op = Operand.NEQ
+
+    # distinct_hosts / distinct_property are not node-static; handled by the
+    # stack against proposed allocations (checkConstraint returns true here,
+    # feasible.go:809-813)
+    if op in (Operand.DISTINCT_HOSTS, Operand.DISTINCT_PROPERTY):
+        return np.ones(n, dtype=bool)
+
+    lcol, llit, lmissing = _resolve_side(cm, c.ltarget)
+    rcol, rlit, rmissing = _resolve_side(cm, c.rtarget)
+
+    # ---- a side is nil on every row: collapse to a scalar per-row check
+    if lmissing or rmissing:
+        if lmissing and rmissing:
+            return np.full(n, _scalar_check(op, None, None), dtype=bool)
+        col, lit, col_is_lhs = (rcol, rlit, False) if lmissing else (lcol, llit, True)
+        if col is None:
+            v = lit
+            res = _scalar_check(op, v, None) if col_is_lhs else _scalar_check(op, None, v)
+            return np.full(n, res, dtype=bool)
+        vals = col.values
+        if col_is_lhs:
+            return np.array([_scalar_check(op, v, None) for v in vals], dtype=bool)
+        return np.array([_scalar_check(op, None, v) for v in vals], dtype=bool)
+
+    # ---- both literals: scalar result broadcast
+    if lcol is None and rcol is None:
+        return np.full(n, _scalar_check(op, llit, rlit), dtype=bool)
+
+    # ---- column vs column (rare): compare decoded values row-wise
+    if lcol is not None and rcol is not None:
+        lv, rv = lcol.values, rcol.values
+        return np.array([_scalar_check(op, lv[i], rv[i]) for i in range(n)],
+                        dtype=bool)
+
+    # ---- column vs literal (the common case)
+    swapped = lcol is None               # literal on the left, column right
+    col = rcol if swapped else lcol
+    lit = llit if swapped else rlit
+    if swapped and op in (Operand.LT, Operand.LTE, Operand.GT, Operand.GTE):
+        op = {Operand.LT: Operand.GT, Operand.LTE: Operand.GTE,
+              Operand.GT: Operand.LT, Operand.GTE: Operand.LTE}[op]
+
+    found = col.hash_codes != 0
+    if op == Operand.EQ:
+        return found & (col.hash_codes == hash_code(lit))
+    if op == Operand.NEQ:
+        # no found requirement: nil != literal is true (feasible.go:822)
+        return col.hash_codes != hash_code(lit)
+    if op in (Operand.LT, Operand.LTE, Operand.GT, Operand.GTE):
+        return _ordered_mask(col, op, lit)
+    if op == Operand.ATTRIBUTE_IS_SET:
+        return found.copy()
+    if op == Operand.ATTRIBUTE_IS_NOT_SET:
+        return ~found
+    # For the host-escape operators the *semantic* lhs/rhs matters: lVal is
+    # the subject (version string / haystack), rVal the spec (constraint /
+    # pattern / needle list) — checkConstraint (feasible.go:828-838).
+    if op == Operand.VERSION:
+        if swapped:   # literal is the version, column holds the spec
+            return col.host_mask(lambda spec: version_matches(lit, spec))
+        return col.host_mask(lambda v: version_matches(v, lit))
+    if op == Operand.SEMVER:
+        if swapped:
+            return col.host_mask(lambda spec: version_matches(lit, spec, semver=True))
+        return col.host_mask(lambda v: version_matches(v, lit, semver=True))
+    if op == Operand.REGEX:
+        if swapped:   # column holds the pattern, literal is the subject
+            return col.host_mask(
+                lambda pat: (rx := _compiled_regex(pat)) is not None
+                and rx.search(lit) is not None)
+        rx = _compiled_regex(lit)
+        return col.host_mask(lambda v: rx is not None and rx.search(v) is not None)
+    if op in (Operand.SET_CONTAINS, Operand.SET_CONTAINS_ALL):
+        if swapped:
+            return col.host_mask(lambda v: _set_contains_all(lit, v))
+        return col.host_mask(lambda v: _set_contains_all(v, lit))
+    if op == Operand.SET_CONTAINS_ANY:
+        if swapped:
+            return col.host_mask(lambda v: _set_contains_any(lit, v))
+        return col.host_mask(lambda v: _set_contains_any(v, lit))
+    return np.zeros(n, dtype=bool)   # unknown operator -> infeasible
+
+
+def _scalar_check(op: str, lval: Optional[str], rval: Optional[str]) -> bool:
+    lfound, rfound = lval is not None, rval is not None
+    if op in ("=", "==", "is", Operand.EQ):
+        return lfound and rfound and lval == rval
+    if op in ("!=", "not", Operand.NEQ):
+        return lval != rval
+    if op in (Operand.LT, Operand.LTE, Operand.GT, Operand.GTE):
+        if not (lfound and rfound):
+            return False
+        return {"<": lval < rval, "<=": lval <= rval,
+                ">": lval > rval, ">=": lval >= rval}[op]
+    if op == Operand.ATTRIBUTE_IS_SET:
+        return lfound
+    if op == Operand.ATTRIBUTE_IS_NOT_SET:
+        return not lfound
+    if op == Operand.VERSION:
+        return lfound and rfound and version_matches(lval, rval)
+    if op == Operand.SEMVER:
+        return lfound and rfound and version_matches(lval, rval, semver=True)
+    if op == Operand.REGEX:
+        rx = _compiled_regex(rval) if rfound else None
+        return lfound and rx is not None and rx.search(lval) is not None
+    if op in (Operand.SET_CONTAINS, Operand.SET_CONTAINS_ALL):
+        return lfound and rfound and _set_contains_all(lval, rval)
+    if op == Operand.SET_CONTAINS_ANY:
+        return lfound and rfound and _set_contains_any(lval, rval)
+    return False
+
+
+def constraints_mask(cm: ClusterMatrix, constraints: List[Constraint]) -> np.ndarray:
+    mask = np.ones(cm.n_rows, dtype=bool)
+    for c in constraints:
+        mask &= constraint_mask(cm, c)
+    return mask
+
+
+def driver_mask(cm: ClusterMatrix, drivers: List[str]) -> np.ndarray:
+    """DriverChecker (feasible.go:452): node must have each driver detected
+    and healthy — encoded as the attr.driver.<name> column being set."""
+    mask = np.ones(cm.n_rows, dtype=bool)
+    for d in drivers:
+        col = cm.attrs.columns.get(f"attr.driver.{d}")
+        mask &= (col.hash_codes != 0) if col is not None else False
+    return mask
+
+
+def csi_volume_mask(cm: ClusterMatrix, snapshot, namespace: str,
+                    job_id: str, volumes) -> np.ndarray:
+    """CSIVolumeChecker (feasible.go:212-358), dense: the volume-level
+    gates (exists, schedulable, free claims — with the same-job
+    write-claim exception) are scalars broadcast over the mask; the
+    node-level gates (healthy node plugin, MaxVolumes) use the
+    fingerprint column and one bulk claim-count pass."""
+    reqs = [r for r in volumes.values() if r.type == "csi"]
+    if not reqs:
+        return np.ones(cm.n_rows, dtype=bool)
+    if snapshot is None:
+        return np.zeros(cm.n_rows, dtype=bool)
+    mask = np.ones(cm.n_rows, dtype=bool)
+    counts = snapshot._store.csi_volume_counts_by_node() \
+        if hasattr(snapshot, "_store") else {}
+    for req in reqs:
+        vol = snapshot.csi_volume_by_id(namespace, req.source)
+        if vol is None:
+            return np.zeros(cm.n_rows, dtype=bool)
+        if req.read_only:
+            if not (vol.read_schedulable() and vol.has_free_read_claims()):
+                return np.zeros(cm.n_rows, dtype=bool)
+        else:
+            if not vol.write_schedulable():
+                return np.zeros(cm.n_rows, dtype=bool)
+            if not vol.has_free_write_claims():
+                # blocking write claims owned by this very job are fine
+                # (feasible.go:336-358); GC'd or foreign claims block
+                for alloc_id in vol.write_claims:
+                    a = snapshot.allocs.get(alloc_id) \
+                        if hasattr(snapshot, "allocs") else None
+                    if a is None or a.namespace != namespace \
+                            or a.job_id != job_id:
+                        return np.zeros(cm.n_rows, dtype=bool)
+        # node plugin healthy (fingerprint column)
+        col = cm.attrs.columns.get(f"csiplugin.{vol.plugin_id}")
+        if col is None:
+            return np.zeros(cm.n_rows, dtype=bool)
+        mask &= col.hash_codes == hash_code("1")
+        # MaxVolumes per node plugin
+        plug = snapshot.csi_plugin_by_id(vol.plugin_id)
+        if plug is not None:
+            for node_id, row in cm.row_of.items():
+                info = plug.nodes.get(node_id)
+                if info is None:
+                    continue
+                maxv = info.get("max_volumes", 0)
+                if maxv and counts.get(node_id, {}).get(
+                        vol.plugin_id, 0) >= maxv:
+                    mask[row] = False
+    return mask
+
+
+def device_place_cap(cm: ClusterMatrix, requests) -> np.ndarray:
+    """i32[N]: how many instances of this group an eval may place per
+    node = min over requests of floor(free_instances / count), counting
+    committed usage plus the engine's in-flight overlay."""
+    cap = np.full(cm.n_rows, 2**30, np.int64)
+    from nomad_tpu_torch.parallel.engine import get_engine
+    eng = get_engine()
+    for req in requests:
+        best = np.zeros(cm.n_rows, np.int64)
+        parts = req.name.split("/")
+        for gid, caps in cm.device_caps.items():
+            vendor, dtype, name = gid.split("/")
+            if len(parts) == 1:
+                match = parts[0] == dtype
+            elif len(parts) == 2:
+                match = parts[0] == dtype and parts[1] == name
+            else:
+                match = ((vendor, dtype, name) == tuple(parts))
+            if not match:
+                continue
+            free = caps.astype(np.int64) - cm.device_used.get(gid, 0)
+            if eng is not None:
+                inflight = eng.device_overlay(cm, gid)
+                if inflight is not None and \
+                        inflight.shape[0] == free.shape[0]:
+                    free = free - inflight
+            best = np.maximum(best, free // max(req.count, 1))
+        cap = np.minimum(cap, best)
+    return np.clip(cap, 0, 2**30).astype(np.int32)
+
+
+def host_volume_mask(cm: ClusterMatrix, volumes) -> np.ndarray:
+    """HostVolumeChecker (feasible.go:133): every requested host volume must
+    exist; a read-only node volume only satisfies read-only requests."""
+    mask = np.ones(cm.n_rows, dtype=bool)
+    for req in volumes.values():
+        if req.type != "host":
+            continue
+        col = cm.attrs.columns.get(f"hostvol.{req.source}")
+        if col is None:
+            return np.zeros(cm.n_rows, dtype=bool)
+        present = col.hash_codes != 0
+        if req.read_only:
+            mask &= present
+        else:
+            mask &= col.hash_codes == hash_code("rw")
+    return mask
+
+
+def device_mask(cm: ClusterMatrix, requests,
+                include_usage: bool = True) -> np.ndarray:
+    """DeviceChecker count feasibility (feasible.go:1192): every device
+    request must be satisfiable by some matching device group's capacity.
+    Matching follows NodeDeviceResource.ID semantics (type / type/name /
+    vendor/type/name)."""
+    mask = np.ones(cm.n_rows, dtype=bool)
+    for req in requests:
+        ok = np.zeros(cm.n_rows, dtype=bool)
+        parts = req.name.split("/")
+        for gid, caps in cm.device_caps.items():
+            vendor, dtype, name = gid.split("/")
+            if len(parts) == 1:
+                match = parts[0] == dtype
+            elif len(parts) == 2:
+                match = parts[0] == dtype and parts[1] == name
+            else:
+                match = ((vendor, dtype, name) == tuple(parts))
+            if match:
+                if include_usage:
+                    free = caps - cm.device_used.get(gid, 0)
+                    from nomad_tpu_torch.parallel.engine import get_engine
+                    eng = get_engine()
+                    if eng is not None:
+                        inflight = eng.device_overlay(cm, gid)
+                        if inflight is not None \
+                                and inflight.shape[0] == free.shape[0]:
+                            free = free - inflight
+                else:
+                    free = caps
+                ok |= free >= req.count
+        mask &= ok
+    return mask

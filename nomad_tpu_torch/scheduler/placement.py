@@ -1,0 +1,253 @@
+"""Placement materialization: PlaceResult rows -> Allocation objects.
+
+Port-offer construction stays on the host (SURVEY.md section 7 'hard
+parts': dynamic port assignment is inherently sequential; the device checks
+capacity/collisions, the host constructs the concrete offer — mirroring the
+reference split where the plan applier re-validates).
+"""
+from __future__ import annotations
+
+import uuid
+
+from nomad_tpu_torch.utils import generate_uuid
+from typing import Dict, List, Optional, Set
+
+import numpy as np
+
+from nomad_tpu_torch.encode.matrixizer import ClusterMatrix
+from nomad_tpu_torch.structs import Allocation, AllocClientStatus, AllocDesiredStatus, Job, TaskGroup
+from nomad_tpu_torch.structs.alloc import (
+    AllocatedResources,
+    AllocatedTaskResources,
+    AllocMetric,
+    RescheduleEvent,
+    RescheduleTracker,
+)
+from nomad_tpu_torch.structs.resources import NetworkPort, NetworkResource
+
+
+class PortClaims:
+    """In-plan port claims per node row (plan-local view on top of the
+    committed bitsets)."""
+
+    def __init__(self, cm: ClusterMatrix):
+        self.cm = cm
+        self.claimed: Dict[int, Set[int]] = {}
+
+    def _is_free(self, row: int, port: int, freed: Set[int]) -> bool:
+        if port in self.claimed.get(row, ()):
+            return False
+        if port in freed:
+            return True
+        bit = (self.cm.port_words[row, port >> 5] >> np.uint32(port & 31)) & 1
+        return not bit
+
+    def claim_static(self, row: int, port: int, freed: Set[int]) -> bool:
+        if not self._is_free(row, port, freed):
+            return False
+        self.claimed.setdefault(row, set()).add(port)
+        return True
+
+    def assign_dynamic(self, row: int, freed: Set[int]) -> Optional[int]:
+        """First free port in the node's dynamic range, via a vectorized
+        scan of the port bitset words (the naive per-port loop was O(range)
+        per assignment in the placement hot path)."""
+        lo = int(self.cm.dyn_port_lo[row])
+        hi = int(self.cm.dyn_port_hi[row])
+        w0, w1 = lo >> 5, (hi >> 5) + 1
+        words = self.cm.port_words[row, w0:w1].copy()
+        # freed ports clear first, plan-local claims override after — a
+        # port both freed (by a stop/eviction) and already claimed by this
+        # plan must stay used (mirrors _is_free's claimed-first ordering)
+        for p in freed:
+            if lo <= p <= hi:
+                words[(p >> 5) - w0] &= ~np.uint32(1 << (p & 31))
+        for p in self.claimed.get(row, ()):
+            if lo <= p <= hi:
+                words[(p >> 5) - w0] |= np.uint32(1 << (p & 31))
+        # mask bits outside [lo, hi] as used
+        words[0] |= ~(np.uint32(0xFFFFFFFF) << np.uint32(lo & 31))
+        hi_bit = hi & 31
+        last_mask = np.uint32(
+            (np.uint64(1) << np.uint64(hi_bit + 1)) - np.uint64(1))
+        words[-1] |= ~last_mask
+        free = np.flatnonzero(words != np.uint32(0xFFFFFFFF))
+        if len(free) == 0:
+            return None
+        w = int(free[0])
+        inv = int(~words[w] & np.uint32(0xFFFFFFFF))
+        bit = (inv & -inv).bit_length() - 1   # lowest free bit
+        p = ((w0 + w) << 5) + bit
+        self.claimed.setdefault(row, set()).add(p)
+        return p
+
+
+def build_allocation(
+    job: Job,
+    tg: TaskGroup,
+    name: str,
+    node_id: str,
+    node_name: str,
+    eval_id: str,
+    row: int,
+    ports: PortClaims,
+    freed_ports: Set[int],
+    metric: AllocMetric,
+    previous: Optional[Allocation] = None,
+    deployment_id: str = "",
+    is_canary: bool = False,
+    is_rescheduling: bool = False,
+    now: float = 0.0,
+    task_devices: Optional[Dict[str, List[dict]]] = None,
+) -> Optional[Allocation]:
+    """Construct the Allocation for one selected placement; returns None if
+    port assignment fails (caller treats as exhausted node).
+    `task_devices` carries pre-assigned device instances per task name
+    (scheduler/device.go AllocateDevice output)."""
+    tasks: Dict[str, AllocatedTaskResources] = {}
+    for t in tg.tasks:
+        nets = []
+        for net in t.resources.networks:
+            nets.append(_materialize_net(net, row, ports, freed_ports))
+            if nets[-1] is None:
+                return None
+        tasks[t.name] = AllocatedTaskResources(
+            cpu_shares=t.resources.cpu,
+            memory_mb=t.resources.memory_mb,
+            memory_max_mb=t.resources.memory_max_mb,
+            networks=[n for n in nets if n is not None],
+            devices=list((task_devices or {}).get(t.name, ())),
+        )
+    shared_nets = []
+    shared_ports: List[NetworkPort] = []
+    for net in tg.networks:
+        m = _materialize_net(net, row, ports, freed_ports)
+        if m is None:
+            return None
+        shared_nets.append(m)
+        shared_ports.extend(m.reserved_ports + m.dynamic_ports)
+
+    alloc = Allocation(
+        id=generate_uuid(),
+        namespace=job.namespace,
+        eval_id=eval_id,
+        name=name,
+        node_id=node_id,
+        node_name=node_name,
+        job_id=job.id,
+        job=job,
+        task_group=tg.name,
+        allocated_resources=AllocatedResources(
+            tasks=tasks,
+            shared_disk_mb=tg.ephemeral_disk.size_mb,
+            shared_networks=shared_nets,
+            shared_ports=shared_ports,
+        ),
+        desired_status=AllocDesiredStatus.RUN,
+        client_status=AllocClientStatus.PENDING,
+        metrics=metric,
+        deployment_id=deployment_id,
+        create_time=now,
+        modify_time=now,
+    )
+    if is_canary:
+        alloc.deployment_status = {"canary": True, "healthy": None}
+    if previous is not None:
+        alloc.previous_allocation = previous.id
+        if is_rescheduling:
+            events = list(previous.reschedule_tracker.events) \
+                if previous.reschedule_tracker else []
+            events.append(RescheduleEvent(
+                reschedule_time=now, prev_alloc_id=previous.id,
+                prev_node_id=previous.node_id))
+            alloc.reschedule_tracker = RescheduleTracker(events=events)
+    return alloc
+
+
+def materialize_bulk_allocs(
+    job: Job,
+    tg: TaskGroup,
+    names: List[str],
+    rows: np.ndarray,
+    scores: np.ndarray,
+    node_ids: List[str],
+    node_names: Dict[int, str],
+    eval_id: str,
+    deployment_id: str,
+    n_eval: int,
+    n_exh: int,
+    now: float,
+) -> List[Allocation]:
+    """Batch materialization for the bulk wavefront path: the resolved
+    sparse output (already expanded to per-alloc `rows`/`scores` by
+    native.expand_pairs) becomes Allocation records in one pass.
+
+    Bulk-eligible groups have no ports, devices, or networks, so every
+    alloc's resources are identical — ONE immutable AllocatedResources
+    template is shared across the batch (read-only everywhere downstream,
+    and it makes comparable_resources() memoization hit group-wide).
+    Per-row AllocMetric instances are likewise shared by allocs landing
+    on the same node.  uuids come from one native format_uuids call
+    instead of K generate_uuid round trips."""
+    from nomad_tpu_torch import native as _native
+
+    k_total = len(names)
+    ids = _native.format_uuids(k_total)
+    tasks = {
+        t.name: AllocatedTaskResources(
+            cpu_shares=t.resources.cpu,
+            memory_mb=t.resources.memory_mb,
+            memory_max_mb=t.resources.memory_max_mb,
+            networks=[], devices=[])
+        for t in tg.tasks}
+    shared_res = AllocatedResources(
+        tasks=tasks, shared_disk_mb=tg.ephemeral_disk.size_mb,
+        shared_networks=[], shared_ports=[])
+    metric_by_row: Dict[int, AllocMetric] = {}
+    out: List[Allocation] = []
+    for k in range(k_total):
+        row = int(rows[k])
+        m = metric_by_row.get(row)
+        if m is None:
+            m = AllocMetric()
+            m.nodes_evaluated = n_eval
+            m.nodes_exhausted = n_exh
+            nid = node_ids[row]
+            if nid:
+                m.populate_score_meta([{
+                    "node_id": nid,
+                    "norm_score": round(float(scores[k]), 6)}])
+            m.allocation_time_s = 0.0
+            metric_by_row[row] = m
+        out.append(Allocation(
+            id=ids[k],
+            namespace=job.namespace,
+            eval_id=eval_id,
+            name=names[k],
+            node_id=node_ids[row],
+            node_name=node_names.get(row, ""),
+            job_id=job.id,
+            job=job,
+            task_group=tg.name,
+            allocated_resources=shared_res,
+            desired_status=AllocDesiredStatus.RUN,
+            client_status=AllocClientStatus.PENDING,
+            metrics=m,
+            deployment_id=deployment_id,
+            create_time=now,
+            modify_time=now))
+    return out
+
+
+def _materialize_net(net: NetworkResource, row: int, ports: PortClaims,
+                     freed: Set[int]) -> Optional[NetworkResource]:
+    out = net.copy()
+    for p in out.reserved_ports:
+        if not ports.claim_static(row, p.value, freed):
+            return None
+    for p in out.dynamic_ports:
+        got = ports.assign_dynamic(row, freed)
+        if got is None:
+            return None
+        p.value = got
+    return out

@@ -1,0 +1,364 @@
+"""Host-side preemption orchestration around the dense kernel.
+
+Reference: scheduler/preemption.go Preemptor.  The device kernel
+(ops.preempt) answers met/picked for every node at once; this module
+builds the padded candidate matrices from the snapshot, ranks the eligible
+nodes (fit score after preemption + logistic preemption score, mirroring
+PreemptionScoringIterator rank.go:817-868), and applies the reference's
+final superset-filter pass (preemption.go:702-732) to the chosen node.
+
+Network preemption (PreemptForNetwork, preemption.go:270-454): bandwidth
+rides the RES_NET resource dimension, so the same greedy distance kernel
+frees MBits; static-port conflicts are resolved here by force-evicting the
+preemptible holders of the asked ports (ports held by non-preemptible
+allocs make the node ineligible, mirroring filteredReservedPorts).
+
+Device preemption (PreemptForDevice, preemption.go:472-555): per-node
+instance-count preemption in preempt_for_device() — group matching allocs
+by device group, take lowest-priority first until free+preempted instances
+cover the ask.
+
+Not yet modeled: per-job migrate max_parallel scoring penalty.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+
+from nomad_tpu_torch.encode.matrixizer import NUM_RESOURCE_DIMS, comparable_vec, pad_to_bucket
+from nomad_tpu_torch.ops.preempt import (
+    net_priority,
+    preempt_for_task_group_np,
+    preemption_score,
+)
+
+PRIORITY_DELTA = 10   # preemption.go:663-697: need >= 10 priority gap
+
+
+def _score_fit_np(capacity, util):
+    """Numpy twin of ops.fit.score_fit (binpack) for the host ranking
+    path — worker threads stay off the device."""
+    from nomad_tpu_torch.encode.matrixizer import RES_CPU, RES_MEM
+    cap = capacity[:, (RES_CPU, RES_MEM)].astype(np.float64)
+    use = util[:, (RES_CPU, RES_MEM)].astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        frac = 1.0 - use / cap
+    zero = cap <= 0.0
+    frac = np.where(zero & (use > 0.0), -np.inf, frac)
+    frac = np.where(zero & (use <= 0.0), 1.0, frac)
+    total = np.power(10.0, frac).sum(axis=-1)
+    return np.clip(20.0 - total, 0.0, 18.0).astype(np.float32)
+
+
+class Preemptor:
+    def __init__(self, snapshot, job_priority: int, seed: str = ""):
+        self.snapshot = snapshot
+        self.cm = snapshot.matrix
+        self.job_priority = job_priority
+        # per-eval decorrelation seed (the reference's seeded node shuffle,
+        # util.go:464-486): concurrent evals must not all rank the same
+        # victims first or only one plan per round survives the applier
+        self._seed = seed
+        self._built = False
+        self.already_preempted: Set[str] = set()
+
+    # ------------------------------------------------------------- build
+
+    def _build(self) -> None:
+        """Pad per-node preemptible-alloc matrices."""
+        cm = self.cm
+        N = cm.n_rows
+        per_node: List[List] = [[] for _ in range(N)]
+        for node_id, row in cm.row_of.items():
+            for a in self.snapshot.allocs_by_node(node_id):
+                if a.terminal_status():
+                    continue
+                prio = a.job.priority if a.job is not None else 50
+                if self.job_priority - prio < PRIORITY_DELTA:
+                    continue
+                per_node[row].append(a)
+        A = pad_to_bucket(max([len(x) for x in per_node] + [1]), minimum=4)
+        self.cand_allocs = per_node
+        self.cand_res = np.zeros((N, A, NUM_RESOURCE_DIMS), np.float32)
+        self.cand_prio = np.zeros((N, A), np.int32)
+        self.cand_valid = np.zeros((N, A), bool)
+        self._cand_index = {}          # alloc id -> (row, i)
+        for row, allocs in enumerate(per_node):
+            for i, a in enumerate(allocs):
+                cr = a.comparable_resources()
+                self.cand_res[row, i] = comparable_vec(cr)
+                self.cand_prio[row, i] = a.job.priority if a.job else 50
+                self.cand_valid[row, i] = True
+                self._cand_index[a.id] = (row, i)
+        self.max_steps = min(A, 32)
+        self._built = True
+
+    def invalidate(self, alloc_ids: Set[str]) -> None:
+        """Mark allocs chosen for preemption unusable for later slots."""
+        if not self._built:
+            return
+        for aid in alloc_ids:
+            loc = self._cand_index.get(aid)
+            if loc is not None:
+                self.cand_valid[loc[0], loc[1]] = False
+
+    # ------------------------------------------------------------- ports
+
+    def _port_forced_evictions(self, static_ports: List[int],
+                               rows: np.ndarray):
+        """For each port-conflicted row: which preemptible candidates hold
+        the asked ports.  Returns {row: set(cand idx)} for eligible rows;
+        rows where an asked port is held by a NON-preemptible alloc are
+        excluded (reference filteredReservedPorts, preemption.go:290-323).
+        """
+        want = set(static_ports)
+        out: Dict[int, Set[int]] = {}
+        for row in rows:
+            holders: Set[int] = set()
+            eligible = True
+            conflicted = {
+                p for p in want
+                if (self.cm.port_words[row, p >> 5] >> np.uint32(p & 31)) & 1}
+            if not conflicted:
+                continue
+            cand_port_sets = [
+                set(self.cm._alloc_ports(a)) for a in self.cand_allocs[row]]
+            for p in conflicted:
+                held_by = [i for i, ps in enumerate(cand_port_sets)
+                           if p in ps and self.cand_valid[row, i]]
+                if not held_by:
+                    eligible = False   # a higher-priority alloc owns it
+                    break
+                holders.update(held_by)
+            if eligible:
+                out[int(row)] = holders
+        return out
+
+    # ------------------------------------------------------------- find
+
+    def find(self, feasible: np.ndarray, demand: np.ndarray,
+             used: np.ndarray,
+             static_ports: Optional[List[int]] = None,
+             feasible_pre_ports: Optional[np.ndarray] = None,
+             device_blocked: Optional[np.ndarray] = None,
+             ) -> Optional[Tuple[int, List]]:
+        """-> (node row, allocs to preempt) or None.
+
+        `used` is the eval's current proposed usage matrix; remaining =
+        capacity - used per node.  When `static_ports` is given,
+        `feasible_pre_ports` is the mask before the port-availability
+        filter: port-conflicted nodes become eligible by force-evicting
+        the preemptible holders of the asked ports."""
+        if not self._built:
+            self._build()
+        cm = self.cm
+        remaining = cm.capacity - used
+
+        forced: Dict[int, Set[int]] = {}
+        feasible = np.asarray(feasible).copy()
+        if static_ports and feasible_pre_ports is not None:
+            port_rows = np.flatnonzero(feasible_pre_ports & ~feasible)
+            forced = self._port_forced_evictions(static_ports, port_rows)
+            for row in forced:
+                feasible[row] = True   # eligible again via eviction
+        # instance-exhausted device nodes: eligible targets — the actual
+        # device evictions are chosen later by preempt_for_device inside
+        # the placement (PreemptForDevice, preemption.go:472)
+        dev_rows = np.zeros(len(feasible), bool)
+        if device_blocked is not None:
+            dev_rows = np.asarray(device_blocked) & ~feasible
+            feasible |= dev_rows
+
+        met, picked, avail_after = preempt_for_task_group_np(
+            self.cand_res, self.cand_prio, self.cand_valid,
+            remaining.astype(np.float32), demand.astype(np.float32),
+            max_steps=self.max_steps)
+        met = np.asarray(met) & feasible
+        # nodes that fit without eviction are not preemption targets --
+        # unless a port eviction is what makes them usable
+        fits_plain = np.all(remaining >= demand, axis=-1)
+        no_ports_needed = np.array(
+            [r not in forced for r in range(len(fits_plain))])
+        met &= ~(fits_plain & no_ports_needed & ~dev_rows)
+        # port/device rows that fit resource-wise still need their evictions
+        met |= (np.array([r in forced for r in range(len(fits_plain))])
+                & fits_plain & feasible)
+        met |= dev_rows & fits_plain
+        picked = np.asarray(picked).copy()
+        # fold the forced port evictions into each row's pick set, and
+        # re-check resource sufficiency with the combined freed set (the
+        # kernel ran without knowing about the forced frees)
+        for row, holders in forced.items():
+            for i in holders:
+                picked[row, i] = True
+            freed = self.cand_res[row][picked[row]].sum(axis=0)
+            met[row] = bool(np.all(remaining[row] + freed >= demand))
+        if not met.any():
+            return None
+
+        # rank eligible nodes: mean of (binpack fit after preemption) and
+        # the logistic preemption score of the evicted set.  Fit for ALL
+        # nodes in one vectorized call — a per-row eager device op would
+        # cost one host<->device round trip per node
+        rows = np.flatnonzero(met)
+        freed_all = (self.cand_res * picked[:, :, None]).sum(axis=1)
+        util_after = used - freed_all + demand[None, :]
+        fit_all = _score_fit_np(cm.capacity, util_after) / 18.0
+        best_row, best_score = -1, -np.inf
+        row_scores = []
+        for row in rows:
+            evicted = [self.cand_allocs[row][i]
+                       for i in np.flatnonzero(picked[row])]
+            p_score = preemption_score(net_priority(
+                [a.job.priority if a.job else 50 for a in evicted]))
+            score = (float(fit_all[row]) + p_score) / 2.0
+            row_scores.append((score, int(row)))
+            if score > best_score:
+                best_score, best_row = score, int(row)
+        # every met row, best-first, for find_many: eviction sets on
+        # distinct rows are disjoint, so one kernel round can serve a
+        # whole batch of failed slots instead of one
+        row_scores.sort(reverse=True)
+        self._last_ranked = [(row, picked, forced, remaining)
+                             for _, row in row_scores]
+
+        protected = {self.cand_allocs[best_row][i].id
+                     for i in forced.get(best_row, ())}
+        evicted = [self.cand_allocs[best_row][i]
+                   for i in np.flatnonzero(picked[best_row])]
+        evicted = self._superset_filter(
+            evicted, remaining[best_row], demand, protected)
+        return best_row, evicted
+
+    def find_many(self, feasible: np.ndarray, demand: np.ndarray,
+                  used: np.ndarray, count: int,
+                  static_ports: Optional[List[int]] = None,
+                  feasible_pre_ports: Optional[np.ndarray] = None,
+                  device_blocked: Optional[np.ndarray] = None,
+                  ) -> List[Tuple[int, List]]:
+        """Up to `count` preemption assignments from ONE kernel round.
+        Eviction sets on distinct rows are disjoint (an alloc lives on one
+        node), so the round's ranked rows can serve `count` slots without
+        paying one device round trip per slot; later rounds (triggered by
+        the caller when this batch is exhausted) see updated usage and
+        invalidated candidates."""
+        first = self.find(feasible, demand, used,
+                          static_ports=static_ports,
+                          feasible_pre_ports=feasible_pre_ports,
+                          device_blocked=device_blocked)
+        if first is None:
+            return []
+        out: List[Tuple[int, List]] = [first]
+        row0 = first[0]
+        for row, picked, forced, remaining in getattr(
+                self, "_last_ranked", []):
+            if len(out) >= count:
+                break
+            if row == row0:
+                continue
+            evicted = [self.cand_allocs[row][i]
+                       for i in np.flatnonzero(picked[row])
+                       if self.cand_valid[row, i]]
+            if not evicted:
+                continue
+            protected = {self.cand_allocs[row][i].id
+                         for i in forced.get(row, ())}
+            evicted = self._superset_filter(
+                evicted, remaining[row], demand, protected)
+            out.append((row, evicted))
+        return out
+
+    # ------------------------------------------------------------- devices
+
+    def preempt_for_device(self, node, allocs, request,
+                           exclude: Optional[Set[str]] = None
+                           ) -> Optional[List]:
+        """PreemptForDevice (preemption.go:472-555) for one node: find the
+        lowest-priority allocs holding instances of a device group matching
+        `request` so that free + preempted instances cover request.count.
+        Returns the allocs to evict, or None."""
+        exclude = exclude or set()
+        from nomad_tpu_torch.scheduler.devices import _used_instances
+
+        live = [a for a in allocs
+                if not a.terminal_status() and a.id not in exclude]
+        used_by_group = _used_instances(live)   # gid -> set(instance ids)
+
+        best: Optional[Tuple[int, List]] = None   # (net_priority, allocs)
+        for dev in node.node_resources.devices:
+            if not dev.matches(request.name):
+                continue
+            # per-alloc instance counts on this device group (deduped view
+            # shared with assign_device_instances via _used_instances)
+            holders: List[Tuple[object, int]] = []
+            for a in live:
+                n_inst = 0
+                for tr in a.allocated_resources.tasks.values():
+                    for d in tr.devices:
+                        gid = f"{d['vendor']}/{d['type']}/{d['name']}"
+                        if gid == dev.id:
+                            n_inst += len(d.get("device_ids", []))
+                if n_inst == 0:
+                    continue
+                prio = a.job.priority if a.job is not None else 50
+                if self.job_priority - prio < PRIORITY_DELTA:
+                    continue
+                holders.append((a, n_inst))
+            free = len(dev.instance_ids) - len(used_by_group.get(dev.id, ()))
+            if free >= request.count:
+                return []          # no preemption needed on this group
+            # lowest priority first into the option, then the reference's
+            # refinement pass: sort picks by instance count descending and
+            # keep only what's needed (selectBestAllocs, preemption.go:556+)
+            holders.sort(key=lambda t: (
+                t[0].job.priority if t[0].job else 50, t[1]))
+            picked, got = [], free
+            for a, n_inst in holders:
+                picked.append((a, n_inst))
+                got += n_inst
+                if got >= request.count:
+                    break
+            if got < request.count:
+                continue
+            picked.sort(key=lambda t: -t[1])
+            filtered, covered = [], free
+            for a, n_inst in picked:
+                if covered >= request.count:
+                    break
+                filtered.append(a)
+                covered += n_inst
+            # net priority = sum of UNIQUE priorities in the option
+            # (selectBestAllocs, preemption.go:557-558); lowest wins
+            prios = {p.job.priority if p.job else 50 for p in filtered}
+            cand = (int(sum(prios)), filtered)
+            if best is None or cand[0] < best[0]:
+                best = cand
+        return best[1] if best is not None else None
+
+    # ------------------------------------------------------------- filter
+
+    def _superset_filter(self, picks: List, remaining: np.ndarray,
+                         ask: np.ndarray,
+                         protected: Optional[Set[str]] = None) -> List:
+        """Drop picks whose resources are already covered by the rest
+        (reference filterSuperset: iterate largest-first, keep only while
+        the remainder no longer satisfies the ask).  Allocs in `protected`
+        (port holders) are never dropped."""
+        protected = protected or set()
+
+        def vec(a):
+            cr = a.comparable_resources()
+            return comparable_vec(cr)
+
+        picks = sorted(picks, key=lambda a: -vec(a).sum())
+        kept = list(picks)
+        for a in picks:
+            if a.id in protected:
+                continue
+            trial = [x for x in kept if x.id != a.id]
+            avail = remaining + sum((vec(x) for x in trial),
+                                    np.zeros(NUM_RESOURCE_DIMS, np.float32))
+            if np.all(avail >= ask) and trial:
+                kept = trial
+        return kept

@@ -1,0 +1,376 @@
+"""DenseStack: compiles a job against the cluster mirror into PlaceInputs.
+
+Dense analog of scheduler/stack.go (GenericStack/SystemStack): where the
+reference wires an iterator chain per eval and pulls nodes through it, we
+compile the job's constraints/affinities/spreads once into padded tensors
+on the stack's device and hand them to ops.place.place_eval.  Job-level
+and task-group-level checkers are merged exactly like the reference's
+FeasibilityWrapper (feasible.go:1010-1174): job constraints apply to
+every group, task constraints/drivers fold into their group.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from nomad_tpu_torch.encode.attrs import AttrTable
+from nomad_tpu_torch.encode.matrixizer import (
+    ClusterMatrix,
+    NUM_RESOURCE_DIMS,
+    RES_CPU,
+    RES_DISK,
+    RES_MEM,
+    RES_NET,
+    pad_to_bucket,
+)
+from nomad_tpu_torch.convert import place_inputs_from_numpy
+from nomad_tpu_torch.device import resolve_device
+from nomad_tpu_torch.ops.place import PlaceInputs, PlaceResult, place_eval
+from nomad_tpu_torch.scheduler import feasible as fz
+from nomad_tpu_torch.structs.job import Constraint, Job, Operand, Spread, TaskGroup
+from nomad_tpu_torch.structs.config import (
+    SCHEDULER_ALGORITHM_SPREAD,
+    SchedulerConfiguration,
+)
+
+IMPLICIT_TARGET = "*"   # reference scheduler/spread.go implicitTarget
+
+
+def group_demand(tg: TaskGroup) -> np.ndarray:
+    """f32[R] total resource demand of one instance of the group."""
+    d = np.zeros(NUM_RESOURCE_DIMS, dtype=np.float32)
+    for t in tg.tasks:
+        d[RES_CPU] += t.resources.cpu
+        d[RES_MEM] += t.resources.memory_mb
+        d[RES_NET] += sum(n.mbits for n in t.resources.networks)
+    d[RES_DISK] = tg.ephemeral_disk.size_mb
+    d[RES_NET] += sum(n.mbits for n in tg.networks)
+    return d
+
+
+def group_static_ports(tg: TaskGroup) -> List[int]:
+    ports: List[int] = []
+    for net in tg.networks:
+        ports.extend(p.value for p in net.reserved_ports)
+    for t in tg.tasks:
+        for net in t.resources.networks:
+            ports.extend(p.value for p in net.reserved_ports)
+    return ports
+
+
+def group_dynamic_port_count(tg: TaskGroup) -> int:
+    n = sum(len(net.dynamic_ports) for net in tg.networks)
+    n += sum(len(net.dynamic_ports) for t in tg.tasks for net in t.resources.networks)
+    return n
+
+
+@dataclass
+class CompiledGroup:
+    """Per-task-group dense artifacts."""
+    tg: TaskGroup
+    feasible: np.ndarray          # bool[N] static part (no distinct_* yet)
+    affinity: np.ndarray          # f32[N]
+    has_affinity: bool
+    demand: np.ndarray            # f32[R]
+    spreads: List[Spread]
+    distinct_hosts_job: bool
+    distinct_hosts_tg: bool
+    distinct_property: List[Tuple[str, int, bool]]  # (target, limit, job-level)
+    # for port-aware preemption: the mask before port-availability filters,
+    # and the static ports the group asks for
+    feasible_pre_ports: Optional[np.ndarray] = None   # bool[N]
+    static_ports: List[int] = field(default_factory=list)
+    # nodes with device COUNT capacity but no free instances: preemption
+    # targets for PreemptForDevice
+    device_blocked: Optional[np.ndarray] = None       # bool[N]
+    # per-node placement capacity for this eval (instances the group may
+    # still place per node; -1 = unlimited)
+    place_cap: Optional[np.ndarray] = None            # i32[N]
+    # constraint-only feasibility (datacenter/constraints/driver/volumes,
+    # no readiness or capacity): the class-constant verdict that keys
+    # blocked-eval unblocking — a down node or exhausted device must not
+    # mark its whole class permanently ineligible
+    class_feasible: Optional[np.ndarray] = None       # bool[N]
+
+
+class DenseStack:
+    """Compiles one job against one ClusterMatrix generation."""
+
+    def __init__(self, cm: ClusterMatrix, config: Optional[SchedulerConfiguration] = None,
+                 snapshot=None, device=None):
+        self.cm = cm
+        self.device = resolve_device(device)   # where the kernels run
+        self.config = config or SchedulerConfiguration()
+        self.snapshot = snapshot   # state view for CSI volume/claim reads
+        self.spread_algorithm = (
+            self.config.effective_scheduler_algorithm() == SCHEDULER_ALGORITHM_SPREAD)
+
+    # ------------------------------------------------------------- compile
+
+    def compile_group(self, job: Job, tg: TaskGroup) -> CompiledGroup:
+        cm = self.cm
+        n = cm.n_rows
+        mask = cm.ready.copy()
+        mask &= cm.dc_mask(job.datacenters)
+
+        # job-level vs group-level matters for distinct_* scoping
+        # (feasible.go:566-620: job-level collides with any job alloc,
+        # group-level only with allocs of the same group)
+        job_constraints = list(job.constraints)
+        tg_constraints = list(tg.constraints)
+        drivers = []
+        dev_reqs = []
+        affinities = list(job.affinities) + list(tg.affinities)
+        for t in tg.tasks:
+            tg_constraints += list(t.constraints)
+            affinities += list(t.affinities)
+            drivers.append(t.driver)
+            dev_reqs.extend(t.resources.devices)
+        constraints = job_constraints + tg_constraints
+
+        distinct_hosts_job = any(c.operand == Operand.DISTINCT_HOSTS
+                                 for c in job_constraints)
+        distinct_hosts_tg = any(c.operand == Operand.DISTINCT_HOSTS
+                                for c in tg_constraints)
+        distinct_property = [
+            (c.ltarget, int(c.rtarget) if c.rtarget else 1, c in job_constraints)
+            for c in constraints if c.operand == Operand.DISTINCT_PROPERTY]
+
+        static = fz.constraints_mask(cm, constraints)
+        static &= fz.driver_mask(cm, drivers)
+        static &= fz.host_volume_mask(cm, tg.volumes)
+        class_feasible = cm.dc_mask(job.datacenters) & static
+        mask &= static
+        if any(v.type == "csi" for v in tg.volumes.values()):
+            mask &= fz.csi_volume_mask(cm, self.snapshot, job.namespace,
+                                       job.id, tg.volumes)
+
+        # device COUNT capacity gates feasibility (reference DeviceChecker,
+        # feasible.go:1192); instance AVAILABILITY applies after the
+        # preemption-eligibility snapshot so device preemption can still
+        # target instance-exhausted nodes
+        if dev_reqs:
+            mask &= fz.device_mask(cm, dev_reqs, include_usage=False)
+        feasible_pre_ports = mask.copy()
+        device_blocked = None
+        place_cap = None
+        if dev_reqs:
+            avail = fz.device_mask(cm, dev_reqs)
+            device_blocked = mask & ~avail
+            mask = mask & avail
+            # per-node instance budget for this eval: the kernel's
+            # place_cap carry stops it over-subscribing a node's free
+            # instances within one eval (deviceAllocator free counts)
+            place_cap = fz.device_place_cap(cm, dev_reqs)
+        static_ports = group_static_ports(tg)
+        if static_ports:
+            mask &= cm.static_ports_free(static_ports)
+        dyn = group_dynamic_port_count(tg)
+        if dyn:
+            mask &= cm.free_dynamic_ports() >= dyn
+
+        # affinity score: sum(weight * match) / sum(|weight|), rank.go:722-749
+        aff = np.zeros(n, dtype=np.float32)
+        has_aff = bool(affinities)
+        if has_aff:
+            total_w = sum(abs(a.weight) for a in affinities) or 1.0
+            for a in affinities:
+                m = fz.constraint_mask(
+                    cm, Constraint(a.ltarget, a.rtarget, a.operand))
+                aff += a.weight * m.astype(np.float32)
+            aff /= total_w
+
+        spreads = list(tg.spreads) + list(job.spreads)
+        return CompiledGroup(tg=tg, feasible=mask, affinity=aff,
+                             has_affinity=has_aff, demand=group_demand(tg),
+                             spreads=spreads,
+                             distinct_hosts_job=distinct_hosts_job,
+                             distinct_hosts_tg=distinct_hosts_tg,
+                             distinct_property=distinct_property,
+                             feasible_pre_ports=feasible_pre_ports,
+                             static_ports=static_ports,
+                             device_blocked=device_blocked,
+                             place_cap=place_cap,
+                             class_feasible=class_feasible)
+
+    # ------------------------------------------------------------- assemble
+
+    def build_inputs(
+        self,
+        job: Job,
+        groups: Sequence[CompiledGroup],
+        slots: Sequence[int],                      # tg index per placement slot
+        allocs_by_tg: Dict[str, List],             # existing (non-terminal) job allocs
+        penalty_nodes: Optional[Dict[str, set]] = None,   # tg name -> node ids
+        used_override: Optional[np.ndarray] = None,
+    ) -> PlaceInputs:
+        cm = self.cm
+        N = cm.n_rows
+        G = len(groups)
+        S = pad_to_bucket(max(len(slots), 1), minimum=1)
+        R = NUM_RESOURCE_DIMS
+        penalty_nodes = penalty_nodes or {}
+
+        feas = np.zeros((G, N), bool)
+        aff = np.zeros((G, N), np.float32)
+        has_aff = np.zeros(G, bool)
+        desired = np.ones(G, np.int32)
+        penalty = np.zeros((G, N), bool)
+        tg_count = np.zeros((G, N), np.int32)
+
+        K = max([len(g.spreads) for g in groups] + [1])
+        # distinct value space per (g, k): padded to the max across groups
+        vidx_all, desired_all, targeted_all, wfrac_all, counts_all, active_all = \
+            [], [], [], [], [], []
+        Vmax = 1
+        spread_specs = []
+        for gi, g in enumerate(groups):
+            per_k = []
+            for sp in g.spreads:
+                col_name = AttrTable.target_to_column(sp.attribute)
+                col = cm.attrs.columns.get(col_name) if col_name and col_name != "__unresolvable__" else None
+                values = col.distinct() if col is not None else []
+                Vmax = max(Vmax, len(values))
+                per_k.append((sp, col, values))
+            spread_specs.append(per_k)
+
+        vidx = np.full((G, K, N), 0, np.int32)
+        sdesired = np.full((G, K, Vmax + 1), -1.0, np.float32)
+        stargeted = np.zeros((G, K), bool)
+        swfrac = np.zeros((G, K), np.float32)
+        scounts = np.zeros((G, K, Vmax + 1), np.float32)
+        sactive = np.zeros((G, K), bool)
+
+        for gi, g in enumerate(groups):
+            feas[gi] = g.feasible
+            aff[gi] = g.affinity
+            has_aff[gi] = g.has_affinity
+            desired[gi] = max(g.tg.count, 1)
+            for nid in penalty_nodes.get(g.tg.name, ()):  # reschedule penalties
+                row = cm.row_of.get(nid)
+                if row is not None:
+                    penalty[gi, row] = True
+            # existing co-placements for anti-affinity + spread counts
+            existing = allocs_by_tg.get(g.tg.name, [])
+            for a in existing:
+                row = cm.row_of.get(a.node_id)
+                if row is not None:
+                    tg_count[gi, row] += 1
+            # distinct_hosts: co-hosted nodes infeasible (feasible.go:523-620);
+            # job-level collides with any job alloc, group-level with same group
+            if g.distinct_hosts_job or g.distinct_hosts_tg:
+                for tg_name, allocs in allocs_by_tg.items():
+                    if not g.distinct_hosts_job and tg_name != g.tg.name:
+                        continue
+                    for a in allocs:
+                        row = cm.row_of.get(a.node_id)
+                        if row is not None:
+                            feas[gi, row] = False
+            # distinct_property: value counts >= limit infeasible (propertyset.go)
+            for target, limit, job_level in g.distinct_property:
+                col_name = AttrTable.target_to_column(target)
+                col = cm.attrs.columns.get(col_name) if col_name else None
+                if col is None:
+                    continue
+                counts: Dict[str, int] = {}
+                for tg_name, allocs in allocs_by_tg.items():
+                    if not job_level and tg_name != g.tg.name:
+                        continue
+                    for a in allocs:
+                        row = cm.row_of.get(a.node_id)
+                        if row is not None and col.values[row] is not None:
+                            counts[col.values[row]] = counts.get(col.values[row], 0) + 1
+                for row in range(N):
+                    v = col.values[row]
+                    if v is not None and counts.get(v, 0) >= limit:
+                        feas[gi, row] = False
+
+            sum_w = sum(sp.weight for sp, _, _ in spread_specs[gi]) or 1
+            for ki, (sp, col, values) in enumerate(spread_specs[gi]):
+                sactive[gi, ki] = True
+                swfrac[gi, ki] = sp.weight / sum_w
+                rank = {v: i for i, v in enumerate(values)}
+                V = len(values)
+                if col is not None:
+                    vidx[gi, ki] = np.array(
+                        [rank.get(v, Vmax) if v is not None else Vmax
+                         for v in col.values], np.int32)
+                else:
+                    vidx[gi, ki] = Vmax
+                if sp.targets:
+                    stargeted[gi, ki] = True
+                    total = max(g.tg.count, 1)
+                    sum_desired = 0.0
+                    for t in sp.targets:
+                        dcount = (t.percent / 100.0) * total
+                        if t.value in rank:
+                            sdesired[gi, ki, rank[t.value]] = dcount
+                        sum_desired += dcount
+                    if 0 < sum_desired < total:
+                        # implicit target: remaining count for untargeted values
+                        rem = total - sum_desired
+                        for v, i in rank.items():
+                            if sdesired[gi, ki, i] < 0:
+                                sdesired[gi, ki, i] = rem
+                # initial counts from existing allocs of this tg
+                if col is not None:
+                    for a in allocs_by_tg.get(g.tg.name, []):
+                        row = cm.row_of.get(a.node_id)
+                        if row is not None and col.values[row] in rank:
+                            scounts[gi, ki, rank[col.values[row]]] += 1
+
+        place_cap = np.full((G, N), -1, np.int32)
+        for gi, g in enumerate(groups):
+            if g.place_cap is not None:
+                place_cap[gi] = g.place_cap
+
+        demand = np.zeros((S, R), np.float32)
+        slot_tg = np.zeros(S, np.int32)
+        slot_active = np.zeros(S, bool)
+        for si, gi in enumerate(slots):
+            demand[si] = groups[gi].demand
+            slot_tg[si] = gi
+            slot_active[si] = True
+
+        used = used_override if used_override is not None else self.cm.used
+        return place_inputs_from_numpy(dict(
+            capacity=cm.capacity, used=used.astype(np.float32),
+            feasible=feas, affinity=aff, has_affinity=has_aff,
+            desired_count=desired, penalty=penalty, tg_count=tg_count,
+            spread_vidx=vidx, spread_desired=sdesired, spread_targeted=stargeted,
+            spread_wfrac=swfrac, spread_counts=scounts, spread_active=sactive,
+            place_cap=place_cap,
+            demand=demand, slot_tg=slot_tg, slot_active=slot_active,
+        ), self.device)
+
+    def place(self, inputs: PlaceInputs, deltas=None) -> PlaceResult:
+        """Run the placement kernel.  Routed through the process-wide
+        PlacementEngine so concurrent evals coalesce into one device
+        dispatch; `deltas` is the sparse (row, f32[R]) usage-adjustment
+        list already applied to inputs.used (the engine re-applies it to a
+        dispatch-time basis in the batched path).
+
+        Sets `self.last_ticket`: the caller must hand it back to
+        `engine.complete()` once the resulting plan is submitted (the
+        generic scheduler does), releasing the in-flight usage overlay."""
+        from nomad_tpu_torch.parallel.engine import get_engine
+        eng = get_engine()
+        if eng is not None:
+            result, self.last_ticket = eng.place(
+                self.cm, inputs, deltas,
+                spread_algorithm=self.spread_algorithm)
+            return result
+        self.last_ticket = None
+        return place_eval(inputs, spread_algorithm=self.spread_algorithm)
+
+    def release(self) -> None:
+        """Release the in-flight usage contribution of the last place()."""
+        ticket = getattr(self, "last_ticket", None)
+        if ticket is not None:
+            from nomad_tpu_torch.parallel.engine import get_engine
+            eng = get_engine()
+            if eng is not None:
+                eng.complete(ticket)
+            self.last_ticket = None

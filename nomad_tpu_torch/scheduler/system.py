@@ -1,0 +1,185 @@
+"""System / sysbatch schedulers (reference: scheduler/scheduler_system.go:27-527
+and util.go diffSystemAllocsForNode:70).
+
+One allocation per eligible node per task group.  Feasibility is one dense
+mask over all nodes; the per-node resource check is a single vectorized
+fits_after call — no placement coupling across nodes (each node hosts its
+own instance), so no scan is needed.
+"""
+from __future__ import annotations
+
+import time as _time
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+
+from nomad_tpu_torch.device import resolve_device
+from nomad_tpu_torch.encode.matrixizer import comparable_vec
+
+from nomad_tpu_torch.scheduler.placement import PortClaims, build_allocation
+from nomad_tpu_torch.scheduler.reconcile import tasks_updated
+from nomad_tpu_torch.scheduler.stack import DenseStack
+from nomad_tpu_torch.scheduler.util import tainted_nodes
+from nomad_tpu_torch.structs import Allocation, AllocClientStatus, Evaluation, EvalStatus
+from nomad_tpu_torch.structs.alloc import AllocMetric, alloc_name
+from nomad_tpu_torch.structs.node import NodeStatus
+from nomad_tpu_torch.structs.plan import PlanResult
+
+
+class SystemScheduler:
+    sysbatch = False
+
+    def __init__(self, state, planner, device=None):
+        self.state = state
+        self.planner = planner
+        self.device = resolve_device(device)   # where the kernels run
+        self.eval: Optional[Evaluation] = None
+        self.failed_tg_allocs: Dict[str, AllocMetric] = {}
+        self.queued_allocs: Dict[str, int] = {}
+        self._preemptor = None
+
+    def process(self, ev: Evaluation) -> None:
+        self.eval = ev
+        job = self.state.job_by_id(ev.namespace, ev.job_id)
+        allocs = self.state.allocs_by_job(ev.namespace, ev.job_id)
+        plan = ev.make_plan(job)
+        cm = self.state.matrix
+
+        live: Dict[Tuple[str, str], Allocation] = {}
+        terminal_newest: Dict[Tuple[str, str], Allocation] = {}
+        for a in allocs:
+            key = (a.node_id, a.name)
+            if a.terminal_status():
+                prev = terminal_newest.get(key)
+                if prev is None or prev.create_index < a.create_index:
+                    terminal_newest[key] = a
+            else:
+                live[key] = a
+
+        stopped = job is None or job.stopped()
+        if stopped:
+            for a in live.values():
+                plan.append_stopped_alloc(a, "alloc not needed due to job being stopped")
+            if not plan.is_no_op():
+                self.planner.submit_plan(plan)
+            ev.queued_allocations = {}
+            return
+
+        tainted = tainted_nodes(self.state, allocs)
+
+        stack = DenseStack(cm, self.state.scheduler_config,
+                           snapshot=self.state, device=self.device)
+        groups = [stack.compile_group(job, tg) for tg in job.task_groups]
+        used = cm.used.copy()
+        ports = PortClaims(cm)
+        now = _time.time()
+        self.queued_allocs = {tg.name: 0 for tg in job.task_groups}
+
+        # stops: down nodes -> lost; draining -> migrate-stop
+        for key, a in list(live.items()):
+            node = tainted.get(a.node_id)
+            if a.node_id in tainted:
+                if node is None or node.status in (NodeStatus.DOWN,
+                                                   NodeStatus.DISCONNECTED):
+                    plan.append_stopped_alloc(
+                        a, "alloc was lost since its node is down",
+                        client_status=AllocClientStatus.LOST)
+                else:   # draining
+                    plan.append_stopped_alloc(a, "alloc is being migrated")
+                del live[key]
+                row = cm.row_of.get(a.node_id)
+                if row is not None:
+                    cr = a.comparable_resources()
+                    used[row] -= comparable_vec(cr)
+
+        for gi, tg in enumerate(job.task_groups):
+            g = groups[gi]
+            name = alloc_name(job.id, tg.name, 0)
+            feas = g.feasible
+            d = g.demand
+            for node_id, row in cm.row_of.items():
+                if not feas[row]:
+                    continue
+                key = (node_id, name)
+                cur = live.get(key)
+                if cur is not None:
+                    # update in place or destructively on job change
+                    if cur.job is not None and cur.job.version != job.version:
+                        old_tg = cur.job.lookup_task_group(tg.name)
+                        if old_tg is not None and not tasks_updated(old_tg, tg):
+                            u = cur.copy()
+                            u.job = job
+                            plan.append_alloc(u, job)
+                        else:
+                            plan.append_stopped_alloc(
+                                cur, "alloc not needed due to job update")
+                            cr = cur.comparable_resources()
+                            used[row] -= comparable_vec(cr)
+                            self._try_place(plan, job, tg, name, node_id, row,
+                                            used, d, ports, now)
+                    continue
+                if self.sysbatch:
+                    t = terminal_newest.get(key)
+                    if t is not None and t.ran_successfully():
+                        continue   # sysbatch doesn't rerun completed nodes
+                elif terminal_newest.get(key) is not None and \
+                        terminal_newest[key].client_status == AllocClientStatus.COMPLETE:
+                    continue       # system alloc completed on purpose
+                self._try_place(plan, job, tg, name, node_id, row, used, d,
+                                ports, now)
+
+        ev.queued_allocations = dict(self.queued_allocs)
+        if not plan.is_no_op():
+            self.planner.submit_plan(plan)
+
+    def _try_place(self, plan, job, tg, name, node_id, row, used, d, ports, now):
+        cm = self.state.matrix
+        preempted = []
+        if not np.all(used[row] + d <= cm.capacity[row]):
+            preempted = self._try_preempt(plan, job, row, d, used)
+            if preempted is None:
+                m = self.failed_tg_allocs.setdefault(tg.name, AllocMetric())
+                m.exhausted_node(node_id, "resources")
+                self.queued_allocs[tg.name] = self.queued_allocs.get(tg.name, 0) + 1
+                return
+        node = self.state.node_by_id(node_id)
+        metric = AllocMetric()
+        metric.nodes_evaluated = 1
+        alloc = build_allocation(
+            job=job, tg=tg, name=name, node_id=node_id,
+            node_name=node.name if node else "", eval_id=self.eval.id,
+            row=row, ports=ports, freed_ports=set(), metric=metric, now=now)
+        if alloc is None:
+            m = self.failed_tg_allocs.setdefault(tg.name, AllocMetric())
+            m.exhausted_node(node_id, "ports")
+            return
+        if preempted:
+            alloc.preempted_allocations = [a.id for a in preempted]
+            for a in preempted:
+                plan.append_preempted_alloc(a, alloc.id)
+                cr = a.comparable_resources()
+                used[row] -= comparable_vec(cr)
+        used[row] += d
+        plan.append_alloc(alloc, None)
+
+    def _try_preempt(self, plan, job, row, d, used):
+        """System jobs preempt lower-priority work by default (reference
+        SystemScheduler + PreemptionConfig.SystemSchedulerEnabled)."""
+        if not self.state.scheduler_config.preemption_enabled(
+                "sysbatch" if self.sysbatch else "system"):
+            return None
+        if self._preemptor is None:
+            from nomad_tpu_torch.scheduler.preemption import Preemptor
+            self._preemptor = Preemptor(self.state, job.priority)
+        feas = np.zeros(self.state.matrix.n_rows, bool)
+        feas[row] = True
+        found = self._preemptor.find(feas, d, used)
+        if found is None:
+            return None
+        _, evicted = found
+        self._preemptor.invalidate({a.id for a in evicted})
+        return evicted
+
+
+class SysBatchScheduler(SystemScheduler):
+    sysbatch = True

@@ -1,0 +1,234 @@
+"""Allocation model (reference: nomad/structs/structs.go Allocation:9466,
+AllocMetric:10341, DesiredTransition, RescheduleTracker).
+"""
+from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from nomad_tpu_torch.structs.resources import ComparableResources, Resources
+from nomad_tpu_torch.structs.job import Job
+
+
+class AllocDesiredStatus:
+    RUN = "run"
+    STOP = "stop"
+    EVICT = "evict"
+
+
+class AllocClientStatus:
+    PENDING = "pending"
+    RUNNING = "running"
+    COMPLETE = "complete"
+    FAILED = "failed"
+    LOST = "lost"
+    UNKNOWN = "unknown"
+
+
+@dataclass
+class TaskState:
+    state: str = "pending"            # pending | running | dead
+    failed: bool = False
+    restarts: int = 0
+    started_at: float = 0.0
+    finished_at: float = 0.0
+    events: List[dict] = field(default_factory=list)
+
+
+@dataclass
+class DesiredTransition:
+    """Server-set hints for the scheduler (reference structs.DesiredTransition)."""
+    migrate: Optional[bool] = None
+    reschedule: Optional[bool] = None
+    force_reschedule: Optional[bool] = None
+
+    def should_migrate(self) -> bool:
+        return bool(self.migrate)
+
+    def should_force_reschedule(self) -> bool:
+        return bool(self.force_reschedule)
+
+
+@dataclass
+class RescheduleEvent:
+    reschedule_time: float = 0.0
+    prev_alloc_id: str = ""
+    prev_node_id: str = ""
+    delay_s: float = 0.0
+
+
+@dataclass
+class RescheduleTracker:
+    events: List[RescheduleEvent] = field(default_factory=list)
+
+
+@dataclass
+class AllocatedTaskResources:
+    cpu_shares: int = 0
+    reserved_cores: tuple = ()
+    memory_mb: int = 0
+    memory_max_mb: int = 0
+    networks: List = field(default_factory=list)
+    devices: List[dict] = field(default_factory=list)  # [{vendor,type,name,device_ids}]
+
+
+@dataclass
+class AllocatedResources:
+    """Reference structs.AllocatedResources: per-task + shared (disk/ports)."""
+    tasks: Dict[str, AllocatedTaskResources] = field(default_factory=dict)
+    shared_disk_mb: int = 0
+    shared_networks: List = field(default_factory=list)
+    shared_ports: List = field(default_factory=list)   # List[NetworkPort]
+
+    def comparable(self) -> ComparableResources:
+        c = ComparableResources()
+        for tr in self.tasks.values():
+            c.add(ComparableResources(
+                cpu_shares=tr.cpu_shares,
+                reserved_cores=tuple(tr.reserved_cores),
+                memory_mb=tr.memory_mb,
+                memory_max_mb=tr.memory_max_mb,
+                networks=list(tr.networks),
+            ))
+        c.disk_mb = self.shared_disk_mb
+        c.networks.extend(self.shared_networks)
+        return c
+
+
+@dataclass
+class AllocMetric:
+    """Placement telemetry surfaced in `alloc status -verbose`
+    (reference structs.AllocMetric / PopulateScoreMetaData)."""
+    nodes_evaluated: int = 0
+    nodes_filtered: int = 0
+    nodes_available: Dict[str, int] = field(default_factory=dict)   # per-dc
+    class_filtered: Dict[str, int] = field(default_factory=dict)
+    constraint_filtered: Dict[str, int] = field(default_factory=dict)
+    nodes_exhausted: int = 0
+    class_exhausted: Dict[str, int] = field(default_factory=dict)
+    dimension_exhausted: Dict[str, int] = field(default_factory=dict)
+    quota_exhausted: List[str] = field(default_factory=list)
+    scores: Dict[str, float] = field(default_factory=dict)          # node.class -> score
+    score_meta: List[dict] = field(default_factory=list)            # top-K [{node_id, scores{}, norm_score}]
+    allocation_time_s: float = 0.0
+    coalesced_failures: int = 0
+
+    TOP_K = 5
+
+    def exhausted_node(self, node_id: str, dimension: str) -> None:
+        self.nodes_exhausted += 1
+        if dimension:
+            self.dimension_exhausted[dimension] = self.dimension_exhausted.get(dimension, 0) + 1
+
+    def filter_node(self, reason: str) -> None:
+        self.nodes_filtered += 1
+        if reason:
+            self.constraint_filtered[reason] = self.constraint_filtered.get(reason, 0) + 1
+
+    def populate_score_meta(self, entries: List[dict]) -> None:
+        """Keep top-K by normalized score (reference kheap-backed
+        PopulateScoreMetaData, structs.go:10341)."""
+        self.score_meta = heapq.nlargest(self.TOP_K, entries,
+                                         key=lambda e: e.get("norm_score", 0.0))
+
+    def copy(self) -> "AllocMetric":
+        m = AllocMetric()
+        m.__dict__.update({k: (dict(v) if isinstance(v, dict) else list(v) if isinstance(v, list) else v)
+                           for k, v in self.__dict__.items()})
+        return m
+
+
+@dataclass
+class Allocation:
+    id: str = ""
+    namespace: str = "default"
+    eval_id: str = ""
+    name: str = ""                 # "<job>.<group>[<index>]"
+    node_id: str = ""
+    node_name: str = ""
+    job_id: str = ""
+    job: Optional[Job] = None
+    task_group: str = ""
+    allocated_resources: AllocatedResources = field(default_factory=AllocatedResources)
+    desired_status: str = AllocDesiredStatus.RUN
+    desired_description: str = ""
+    desired_transition: DesiredTransition = field(default_factory=DesiredTransition)
+    client_status: str = AllocClientStatus.PENDING
+    client_description: str = ""
+    task_states: Dict[str, TaskState] = field(default_factory=dict)
+    deployment_id: str = ""
+    deployment_status: Optional[dict] = None    # {healthy: bool, timestamp, canary: bool}
+    reschedule_tracker: Optional[RescheduleTracker] = None
+    previous_allocation: str = ""
+    next_allocation: str = ""
+    followup_eval_id: str = ""
+    # when the reconciler marked this alloc unknown (node disconnected);
+    # 0.0 = not disconnected.  Drives max_client_disconnect expiry.
+    disconnected_at: float = 0.0
+    preempted_by_allocation: str = ""
+    preempted_allocations: List[str] = field(default_factory=list)
+    metrics: AllocMetric = field(default_factory=AllocMetric)
+    alloc_modify_index: int = 0
+    create_index: int = 0
+    modify_index: int = 0
+    create_time: float = 0.0
+    modify_time: float = 0.0
+
+    # ----- status helpers (reference Allocation.TerminalStatus etc.) -----
+
+    def terminal_status(self) -> bool:
+        """Desired-status stop/evict, or a terminal client status."""
+        if self.desired_status in (AllocDesiredStatus.STOP, AllocDesiredStatus.EVICT):
+            return True
+        return self.client_terminal_status()
+
+    def client_terminal_status(self) -> bool:
+        return self.client_status in (AllocClientStatus.COMPLETE,
+                                      AllocClientStatus.FAILED,
+                                      AllocClientStatus.LOST)
+
+    def server_terminal_status(self) -> bool:
+        return self.desired_status in (AllocDesiredStatus.STOP, AllocDesiredStatus.EVICT)
+
+    def ran_successfully(self) -> bool:
+        return self.client_status == AllocClientStatus.COMPLETE
+
+    def migrate_status(self) -> bool:
+        return self.desired_transition.should_migrate()
+
+    def comparable_resources(self) -> ComparableResources:
+        # memoized per allocated_resources object (called several times
+        # per alloc in the placement/apply hot path); the cache key is the
+        # object identity, so replacing allocated_resources invalidates it
+        ar = self.allocated_resources
+        cached = getattr(self, "_cmp_cache", None)
+        if cached is not None and cached[0] is ar:
+            return cached[1]
+        c = ar.comparable()
+        self._cmp_cache = (ar, c)
+        return c
+
+    def index(self) -> int:
+        """Parse the bracketed index out of the alloc name."""
+        l, r = self.name.rfind("["), self.name.rfind("]")
+        if l == -1 or r == -1:
+            return -1
+        return int(self.name[l + 1:r])
+
+    def is_canary(self) -> bool:
+        return bool(self.deployment_status and self.deployment_status.get("canary"))
+
+    def is_healthy(self) -> bool:
+        return bool(self.deployment_status and self.deployment_status.get("healthy") is True)
+
+    def is_unhealthy(self) -> bool:
+        return bool(self.deployment_status and self.deployment_status.get("healthy") is False)
+
+    def copy(self) -> "Allocation":
+        import copy as _copy
+        return _copy.deepcopy(self)
+
+
+def alloc_name(job_id: str, group: str, index: int) -> str:
+    return f"{job_id}.{group}[{index}]"

@@ -1,0 +1,114 @@
+"""Plan model (reference: nomad/structs/structs.go Plan:11118, PlanResult:11375,
+PlanAnnotations/DesiredUpdates).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from nomad_tpu_torch.structs.alloc import Allocation, AllocDesiredStatus, AllocClientStatus
+from nomad_tpu_torch.structs.job import Job
+from nomad_tpu_torch.utils import generate_uuid
+
+
+@dataclass
+class DesiredUpdates:
+    """Per-task-group diff annotation for dry-run `plan` output."""
+    ignore: int = 0
+    place: int = 0
+    migrate: int = 0
+    stop: int = 0
+    in_place_update: int = 0
+    destructive_update: int = 0
+    canary: int = 0
+    preemptions: int = 0
+
+
+@dataclass
+class PlanAnnotations:
+    desired_tg_updates: Dict[str, DesiredUpdates] = field(default_factory=dict)
+    preempted_allocs: List[dict] = field(default_factory=list)
+
+
+@dataclass
+class Plan:
+    """The scheduler's proposed state mutation, submitted to the leader's
+    plan applier for optimistic-concurrency validation."""
+    eval_id: str = ""
+    eval_token: str = ""
+    # unique per submission; the applied-results entry carries it so a
+    # raft log replay after leader failover commits each plan at most once
+    plan_id: str = field(default_factory=generate_uuid)
+    priority: int = 50
+    job: Optional[Job] = None
+    all_at_once: bool = False
+    node_update: Dict[str, List[Allocation]] = field(default_factory=dict)      # stops/evicts
+    node_allocation: Dict[str, List[Allocation]] = field(default_factory=dict)  # placements
+    node_preemptions: Dict[str, List[Allocation]] = field(default_factory=dict)
+    deployment: Optional[object] = None          # Deployment to upsert
+    deployment_updates: List[dict] = field(default_factory=list)
+    annotations: Optional[PlanAnnotations] = None
+    snapshot_index: int = 0
+    # in-flight overlay tickets of the PlacementEngine covering this
+    # plan's placements; the applier releases them atomically with the
+    # commit (closing the committed+overlaid double-count window)
+    engine_tickets: List[int] = field(default_factory=list)
+
+    def append_stopped_alloc(self, alloc: Allocation, desired_desc: str,
+                             client_status: str = "", followup_eval_id: str = "") -> None:
+        """Reference Plan.AppendStoppedAlloc."""
+        a = alloc.copy()
+        a.desired_status = AllocDesiredStatus.STOP
+        a.desired_description = desired_desc
+        if client_status:
+            a.client_status = client_status
+        if followup_eval_id:
+            a.followup_eval_id = followup_eval_id
+        a.job = None  # stripped for plan size; restored from state on apply
+        self.node_update.setdefault(alloc.node_id, []).append(a)
+
+    def append_alloc(self, alloc: Allocation, job: Optional[Job] = None) -> None:
+        """Reference Plan.AppendAlloc: the job is attached only when the
+        caller passes an updated one (plan normalization); otherwise the
+        alloc keeps the job it already carries."""
+        if job is not None:
+            alloc.job = job
+        self.node_allocation.setdefault(alloc.node_id, []).append(alloc)
+
+    def append_preempted_alloc(self, alloc: Allocation, preempting_alloc_id: str) -> None:
+        a = alloc.copy()
+        a.desired_status = AllocDesiredStatus.EVICT
+        a.preempted_by_allocation = preempting_alloc_id
+        a.desired_description = (f"Preempted by alloc ID {preempting_alloc_id}")
+        a.job = None
+        self.node_preemptions.setdefault(alloc.node_id, []).append(a)
+
+    def is_no_op(self) -> bool:
+        return (not self.node_update and not self.node_allocation
+                and not self.deployment and not self.deployment_updates
+                and not self.node_preemptions)
+
+
+@dataclass
+class PlanResult:
+    """What the plan applier actually committed (possibly a partial commit)."""
+    node_update: Dict[str, List[Allocation]] = field(default_factory=dict)
+    node_allocation: Dict[str, List[Allocation]] = field(default_factory=dict)
+    node_preemptions: Dict[str, List[Allocation]] = field(default_factory=dict)
+    deployment: Optional[object] = None
+    deployment_updates: List[dict] = field(default_factory=list)
+    rejected_nodes: List[str] = field(default_factory=list)
+    refresh_index: int = 0
+    alloc_index: int = 0
+    # set when placements were dropped by the namespace quota check:
+    # the QuotaSpec name that was exhausted.  The scheduler blocks the
+    # eval keyed on this quota instead of burning plan retries — an
+    # over-quota placement only becomes feasible when the quota is
+    # raised or live allocs stop.
+    quota_limit_reached: str = ""
+
+    def full_commit(self, plan: Plan) -> tuple:
+        """Reference PlanResult.FullCommit: (full, expected, actual) placements."""
+        expected = sum(len(v) for v in plan.node_allocation.values())
+        actual = sum(len(v) for v in self.node_allocation.values())
+        return expected == actual, expected, actual

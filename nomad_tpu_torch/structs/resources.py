@@ -1,0 +1,222 @@
+"""Resource model + host-side fit/score reference semantics.
+
+Reference: nomad/structs/structs.go (Resources/AllocatedResources/
+ComparableResources, :3964+) and nomad/structs/funcs.go:166-297 (AllocsFit,
+ScoreFitBinPack, ScoreFitSpread).  The host-side functions here define the
+*semantics contract*; the vectorized device versions in `nomad_tpu_torch.ops.fit`
+are golden-tested against them.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field, replace
+from typing import Dict, List, Optional, Tuple
+
+MB = 1  # all memory/disk figures are in megabytes, cpu in MHz shares
+
+
+@dataclass
+class NetworkPort:
+    label: str = ""
+    value: int = 0          # static port number, or assigned dynamic port
+    to: int = 0             # mapped port inside the task namespace
+    host_network: str = "default"
+
+
+@dataclass
+class NetworkResource:
+    mode: str = "host"      # "host" | "bridge" | "none" | "cni/*"
+    device: str = ""
+    cidr: str = ""
+    ip: str = ""
+    mbits: int = 0
+    dns: Optional[dict] = None
+    reserved_ports: List[NetworkPort] = field(default_factory=list)
+    dynamic_ports: List[NetworkPort] = field(default_factory=list)
+
+    def copy(self) -> "NetworkResource":
+        return replace(
+            self,
+            reserved_ports=[replace(p) for p in self.reserved_ports],
+            dynamic_ports=[replace(p) for p in self.dynamic_ports],
+        )
+
+
+@dataclass
+class DeviceRequest:
+    """A task's request for devices (reference structs.RequestedDevice)."""
+    name: str = ""            # "vendor/type/model", "type/model" or "type"
+    count: int = 1
+    constraints: List = field(default_factory=list)   # List[Constraint]
+    affinities: List = field(default_factory=list)    # List[Affinity]
+
+
+@dataclass
+class NodeDevice:
+    """An instance group of devices on a node (reference structs.NodeDeviceResource).
+    `unhealthy_ids` is fed by the client's device fingerprint stream
+    (reference plugins/device/device.go:25-37 Fingerprint — per-instance
+    Healthy flags): unhealthy instances stay listed (operators see them)
+    but are excluded from scheduling capacity and assignment."""
+    vendor: str = ""
+    type: str = ""            # e.g. "gpu", "fpga"
+    name: str = ""            # model name
+    instance_ids: List[str] = field(default_factory=list)
+    attributes: Dict[str, object] = field(default_factory=dict)
+    unhealthy_ids: List[str] = field(default_factory=list)
+
+    @property
+    def id(self) -> str:
+        return f"{self.vendor}/{self.type}/{self.name}"
+
+    def healthy_ids(self) -> List[str]:
+        bad = set(self.unhealthy_ids)
+        return [i for i in self.instance_ids if i not in bad]
+
+    def matches(self, requested: str) -> bool:
+        """Match semantics of structs.NodeDeviceResource.ID matching:
+        request may be 'type', 'type/name' or 'vendor/type/name'."""
+        parts = requested.split("/")
+        if len(parts) == 1:
+            return parts[0] == self.type
+        if len(parts) == 2:
+            return parts[0] == self.type and parts[1] == self.name
+        if len(parts) == 3:
+            return (parts[0] == self.vendor and parts[1] == self.type
+                    and parts[2] == self.name)
+        return False
+
+
+@dataclass
+class Resources:
+    """Per-task requested resources (reference structs.Resources)."""
+    cpu: int = 100               # MHz shares
+    cores: int = 0               # reserved whole cores (exclusive)
+    memory_mb: int = 300
+    memory_max_mb: int = 0       # oversubscription ceiling (0 = disabled)
+    disk_mb: int = 0             # task-level disk is summed at group level
+    networks: List[NetworkResource] = field(default_factory=list)
+    devices: List[DeviceRequest] = field(default_factory=list)
+
+    def copy(self) -> "Resources":
+        return replace(
+            self,
+            networks=[n.copy() for n in self.networks],
+            devices=[replace(d, constraints=list(d.constraints),
+                             affinities=list(d.affinities)) for d in self.devices],
+        )
+
+
+@dataclass
+class ComparableResources:
+    """Flattened, comparable resource totals (reference
+    structs.ComparableResources / AllocatedResources.Comparable)."""
+    cpu_shares: int = 0
+    reserved_cores: Tuple[int, ...] = ()
+    memory_mb: int = 0
+    memory_max_mb: int = 0
+    disk_mb: int = 0
+    networks: List[NetworkResource] = field(default_factory=list)
+
+    def add(self, other: "ComparableResources") -> None:
+        self.cpu_shares += other.cpu_shares
+        self.reserved_cores = tuple(sorted(set(self.reserved_cores) | set(other.reserved_cores)))
+        self.memory_mb += other.memory_mb
+        self.memory_max_mb += other.memory_max_mb if other.memory_max_mb else other.memory_mb
+        self.disk_mb += other.disk_mb
+        self.networks.extend(other.networks)
+
+    def superset(self, other: "ComparableResources") -> Tuple[bool, str]:
+        """Is self a superset of other?  Returns (ok, exhausted-dimension)."""
+        if self.cpu_shares < other.cpu_shares:
+            return False, "cpu"
+        if self.memory_mb < other.memory_mb:
+            return False, "memory"
+        if self.disk_mb < other.disk_mb:
+            return False, "disk"
+        return True, ""
+
+
+def allocs_fit_host(node, allocs, check_devices: bool = False):
+    """Host reference of structs.AllocsFit (funcs.go:166-233).
+
+    Returns (fit: bool, dimension: str, used: ComparableResources).
+    `node` is a structs.Node; `allocs` iterable of Allocation (terminal ones
+    are ignored).  Port accounting lives in the dense path: per-node port
+    bitsets in nomad_tpu_torch.encode.matrixizer.ClusterMatrix and host claim
+    assignment in nomad_tpu_torch.scheduler.placement.PortClaims.
+    """
+    used = ComparableResources()
+    seen_cores: set = set()
+    core_overlap = False
+    for alloc in allocs:
+        if alloc.terminal_status():
+            continue
+        cr = alloc.comparable_resources()
+        for core in cr.reserved_cores:
+            if core in seen_cores:
+                core_overlap = True
+            seen_cores.add(core)
+        used.add(cr)
+    if core_overlap:
+        return False, "cores", used
+
+    avail = node.comparable_resources()
+    reserved = node.comparable_reserved_resources()
+    avail.cpu_shares -= reserved.cpu_shares
+    avail.memory_mb -= reserved.memory_mb
+    avail.disk_mb -= reserved.disk_mb
+    ok, dim = avail.superset(used)
+    if not ok:
+        return False, dim, used
+
+    if check_devices:
+        from nomad_tpu_torch.scheduler.devices import device_accounter_fits
+        if not device_accounter_fits(node, allocs):
+            return False, "device oversubscribed", used
+
+    return True, "", used
+
+
+def _free_ratio(used: float, capacity: float) -> float:
+    """1 - used/capacity with IEEE-style handling of capacity <= 0 (a fully
+    reserved node): any usage -> -inf (overfit, clamps to the worst score),
+    zero usage -> 1.0 (nothing used of nothing).  The Go reference divides
+    straight through and relies on float Inf/NaN falling out of the clamp;
+    we pin the 0/0 case to a defined value instead."""
+    if capacity <= 0.0:
+        return 1.0 if used <= 0.0 else float("-inf")
+    return 1.0 - used / capacity
+
+
+def _free_percentages(node, util: ComparableResources) -> Tuple[float, float]:
+    """`node` is either a structs.Node or a bare ComparableResources of
+    usable capacity (funcs.go ScoreFit takes *ComparableResources — direct
+    callers pass reservation-adjusted totals themselves)."""
+    if hasattr(node, "comparable_reserved_resources"):
+        reserved = node.comparable_reserved_resources()
+        res = node.comparable_resources()
+        node_cpu = float(res.cpu_shares) - float(reserved.cpu_shares)
+        node_mem = float(res.memory_mb) - float(reserved.memory_mb)
+    else:
+        node_cpu = float(node.cpu_shares)
+        node_mem = float(node.memory_mb)
+    return (_free_ratio(float(util.cpu_shares), node_cpu),
+            _free_ratio(float(util.memory_mb), node_mem))
+
+
+MAX_FIT_SCORE = 18.0  # reference scheduler/rank.go binPackingMaxFitScore
+
+
+def score_fit_binpack_host(node, util: ComparableResources) -> float:
+    """BestFit v3 (funcs.go:259-279): 20 - (10^freeCpu + 10^freeMem), in [0,18]."""
+    free_cpu, free_mem = _free_percentages(node, util)
+    total = math.pow(10, free_cpu) + math.pow(10, free_mem)
+    return min(18.0, max(0.0, 20.0 - total))
+
+
+def score_fit_spread_host(node, util: ComparableResources) -> float:
+    """Worst Fit (funcs.go:286-297): (10^freeCpu + 10^freeMem) - 2, in [0,18]."""
+    free_cpu, free_mem = _free_percentages(node, util)
+    total = math.pow(10, free_cpu) + math.pow(10, free_mem)
+    return min(18.0, max(0.0, total - 2.0))
