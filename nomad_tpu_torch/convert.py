@@ -20,8 +20,9 @@ from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.encode.matrixizer import ClusterMatrix
 from nomad_tpu_torch.ops.place import PLACE_INPUT_DTYPES, PlaceInputs
 
-_NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
-              torch.bool: np.bool_}
+# numpy dtype of each torch dtype a PlaceInputs field has
+NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
+             torch.bool: np.bool_}
 
 
 def place_inputs_from_numpy(fields: Dict[str, np.ndarray], device=None) -> PlaceInputs:
@@ -31,7 +32,7 @@ def place_inputs_from_numpy(fields: Dict[str, np.ndarray], device=None) -> Place
     out = {}
     for name, dtype in PLACE_INPUT_DTYPES.items():
         arr = np.ascontiguousarray(np.asarray(fields[name]),
-                                   dtype=_NP_DTYPES[dtype])
+                                   dtype=NP_DTYPES[dtype])
         out[name] = torch.from_numpy(arr).to(dev)
     return PlaceInputs(**out)
 

@@ -29,6 +29,7 @@ import numpy as np
 
 from nomad_tpu_torch.encode.matrixizer import comparable_vec, NUM_RESOURCE_DIMS
 
+from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.state.store import AppliedPlanResults, StateStore
 from nomad_tpu_torch.structs import Allocation, Node
 from nomad_tpu_torch.structs.namespace import alloc_quota_usage, usage_add
@@ -40,8 +41,11 @@ class PlanApplier:
     """Serialized: one plan at a time, guarded by a lock (the reference
     serializes via the single planApply goroutine)."""
 
-    def __init__(self, store: StateStore, commit_fn=None):
+    def __init__(self, store: StateStore, commit_fn=None, device=None):
         self.store = store
+        # the device of the schedulers whose plans this applies: their
+        # engine (get_engine(device)) holds the plans' overlay tickets
+        self.device = resolve_device(device)
         # commit_fn(AppliedPlanResults) -> index routes the commit through
         # the Raft/FSM write path (reference: applyPlan raft.Apply of an
         # ApplyPlanResultsRequest, plan_apply.go:204); None = direct store
@@ -440,7 +444,7 @@ class PlanApplier:
         overlay count it makes concurrent kernels see phantom usage."""
         if plan.engine_tickets:
             from nomad_tpu_torch.parallel.engine import get_engine
-            eng = get_engine()
+            eng = get_engine(self.device)
             if eng is not None:
                 eng.complete_many(plan.engine_tickets)
         if applied is None:

@@ -1,21 +1,28 @@
 // place_bulk.cu — bulk wavefront placement of `count` identical slots of
-// one task group, for Hopper (sm_90a).
+// one task group (K1), and the chained batch of such evals (K4), for
+// Hopper (sm_90a).
 //
-// Replaces: nomad_tpu/ops/place.py `place_bulk_jit` (with `_bulk_loop`,
-// `bulk_wave_grid`, `bulk_run_lengths`, `_bulk_scores`, `_bulk_tail` and
-// ops/fit.py `score_fit`/`free_fractions`).  The plain PyTorch version is
-// nomad_tpu_torch/ops/place.py `place_bulk_plain`; the two must agree
-// exactly on every integer output.
+// Replaces: nomad_tpu/ops/place.py `place_bulk_jit` (K1, with
+// `_bulk_loop`, `bulk_wave_grid`, `bulk_run_lengths`, `_bulk_scores`,
+// `_bulk_tail` and ops/fit.py `score_fit`/`free_fractions`) and
+// `_place_bulk_batch` (K4; jitted as `place_bulk_batch_jit` and, with the
+// usage basis donated, `place_bulk_batch_donate_jit`).  The plain PyTorch
+// versions are nomad_tpu_torch/ops/place.py `place_bulk_plain` and
+// `place_bulk_batch_plain`; they must agree exactly on every integer
+// output.
 //
 // What bounds it on this card: not bytes (one wave reads ~44 bytes a
 // row, ~0.7 MB at 16K rows, a fraction of a microsecond at 3.35 TB/s)
 // but latency.  The loop over waves is sequential with a data-dependent
 // trip count, and every wave has three dependent block-wide steps
 // (reductions for s*/top-2, a sort of the wave set, a prefix scan over
-// it), each separated by barriers.
+// it), each separated by barriers.  K4 chains E evals, each of which
+// must see the placements of the one before it, so the evals are
+// sequential too.
 //
 // Design: ONE persistent block of 1024 threads runs every wave inside
-// the kernel (no per-wave launch, no host round trip).  Thread t owns
+// the kernel (no per-wave launch, no host round trip); K4's block also
+// loops over the E evals, so a whole chain is one launch.  Thread t owns
 // rows t, t+1024, ...; it evaluates that row's [M]-column fill grid on
 // the fly (nothing [N, M] is materialized) and stops a row's run at its
 // first failing column or at the remaining count (a run is only ever
@@ -28,6 +35,18 @@
 // cumulative cap.  Per-row state (used, co-placement count, assign,
 // wave-start score) lives in global memory, which one block reads back
 // through L1/L2.
+//
+// K4 per eval: read the light block (has_aff, desired, count, demand,
+// D delta rows and values) and the heavy row f32[4N] (feasible > 0.5,
+// affinity, penalty > 0.5, coll0 value-encoded); build the eval's delta
+// matrix (zeros, then each delta added in order, rows outside [0, N)
+// dropped) and add it into the chain carry; run the wavefront and the
+// final score pass; write packed row e (dense [2N+4], or sparse
+// [3*SPARSE_CAP+4] with the first SPARSE_CAP assigned rows in row order
+// from a block prefix count); subtract the delta matrix again — the
+// reference's op order, so deltas stay scoped to their eval.  With
+// exact_out the block also adds f32(assign) * demand into the exact
+// carry, which is the donated usage basis itself, updated in place.
 //
 // Numerics: compiled without fast math and with -fmad=false; powf (not
 // __powf); operations in the reference's order (fit/18,
@@ -49,6 +68,7 @@ constexpr int RES_CPU = 0;
 constexpr int RES_MEM = 1;
 constexpr int W = R + 3;          // packed output width
 constexpr unsigned long long NO_KEY = ~0ull;
+constexpr int SPARSE_CAP = 128;   // ops/place.py SPARSE_CAP
 
 __device__ __forceinline__ float free_frac(float cap, float use) {
   float frac = 1.0f - use / cap;
@@ -196,53 +216,69 @@ __device__ int block_exclusive_scan(int v, int* sh, int* total) {
   return warp_prefix + x - v;
 }
 
+// K1's node fields, as the wrapper passes them
+struct K1Fields {
+  const uint8_t* feas;
+  const uint8_t* pen;
+  const float* aff;
+  const int* coll0;
+  __device__ bool feasible(int i) const { return feas[i] != 0; }
+  __device__ bool penalty(int i) const { return pen[i] != 0; }
+  __device__ float affinity(int i) const { return aff[i]; }
+  __device__ int coll(int i) const { return coll0[i]; }
+};
+
+// K4's node fields: one eval's packed heavy row f32[4N]
+// (ops/place.py pack_bulk_heavy), booleans as > 0.5, coll0 value-encoded
+struct K4Fields {
+  const float* h;
+  int n;
+  __device__ bool feasible(int i) const { return h[i] > 0.5f; }
+  __device__ float affinity(int i) const { return h[n + i]; }
+  __device__ bool penalty(int i) const { return h[2 * n + i] > 0.5f; }
+  __device__ int coll(int i) const { return (int)h[3 * n + i]; }
+};
+
+struct BulkShared {
+  float f[NW];
+  float f2[NW];
+  int i[NW];
+};
+
+template <class F>
 __device__ __forceinline__ void load_row(Row& r, int i, const float* cap,
-                                         const float* used, const int* coll,
-                                         const uint8_t* feas,
-                                         const uint8_t* pen, const float* aff,
+                                         const float* used, int us,
+                                         const int* coll, const F& fl,
                                          bool has_aff) {
 #pragma unroll
   for (int d = 0; d < R; ++d) {
     r.cap[d] = cap[i * R + d];
-    r.used[d] = used[i * W + d];
+    r.used[d] = used[(size_t)i * us + d];
   }
   r.coll = (float)coll[i];
-  r.feas = feas[i] != 0;
-  r.pen = pen[i] != 0;
-  r.aff = aff[i];
+  r.feas = fl.feasible(i);
+  r.pen = fl.penalty(i);
+  r.aff = fl.affinity(i);
   r.aff_on = has_aff && (r.aff != 0.0f);
 }
 
-__global__ void __launch_bounds__(NT, 1)
-place_bulk_kernel(const float* __restrict__ capacity,
-                  const float* __restrict__ used0,
-                  const uint8_t* __restrict__ feasible,
-                  const float* __restrict__ affinity, int has_affinity,
-                  int desired, const uint8_t* __restrict__ penalty,
-                  const int* __restrict__ coll0,
-                  const float* __restrict__ demand, int count, int spread,
-                  int max_waves, int fill_grid, int n, int p,
-                  float* __restrict__ out, int* __restrict__ scratch) {
-  extern __shared__ unsigned long long keys[];   // p entries
-  __shared__ float sh_f[NW];
-  __shared__ float sh_f2[NW];
-  __shared__ int sh_i[NW];
-
+// The wavefront loop (`_bulk_loop`) of one eval.  `used` (row stride
+// `us`) is updated in place; coll/assign/cur_buf are i32/i32/f32[n]
+// scratch, keys p entries of shared memory.  Every thread returns the
+// placed and wave counts.
+template <class F>
+__device__ void bulk_wavefront(const float* __restrict__ capacity,
+                               float* __restrict__ used, int us, const F& fl,
+                               int* __restrict__ coll, int* __restrict__ assign,
+                               float* __restrict__ cur_buf,
+                               unsigned long long* keys, BulkShared& sh,
+                               bool has_aff, float desired_div,
+                               const float* dem, int count, int spread,
+                               int max_waves, int fill_grid, int n, int p,
+                               int* placed_out, int* waves_out) {
   const int tid = threadIdx.x;
-  int* coll = scratch;                                   // i32[n]
-  int* assign = scratch + n;                             // i32[n]
-  float* cur_buf = reinterpret_cast<float*>(scratch + 2 * n);  // f32[n]
-  float* used = out;                                     // cols [0, R) of out
-  const bool has_aff = has_affinity != 0;
-  const float desired_div = fmaxf((float)desired, 1.0f);
-  float dem[R];
-#pragma unroll
-  for (int d = 0; d < R; ++d) dem[d] = demand[d];
-
   for (int i = tid; i < n; i += NT) {
-#pragma unroll
-    for (int d = 0; d < R; ++d) used[i * W + d] = used0[i * R + d];
-    coll[i] = coll0[i];
+    coll[i] = fl.coll(i);
     assign[i] = 0;
   }
   __syncthreads();
@@ -255,7 +291,7 @@ place_bulk_kernel(const float* __restrict__ capacity,
     int anyfit = 0;
     for (int i = tid; i < n; i += NT) {
       Row r;
-      load_row(r, i, capacity, used, coll, feasible, penalty, affinity, has_aff);
+      load_row(r, i, capacity, used, us, coll, fl, has_aff);
       bool f1, f2;
       float s1, s2;
       grid_cell(r, dem, 1.0f, desired_div, spread, &f1, &s1);
@@ -266,10 +302,10 @@ place_bulk_kernel(const float* __restrict__ capacity,
       if (f2) smax = fmaxf(smax, s2);
       anyfit |= f1 ? 1 : 0;
     }
-    block_top2(a, b, sh_f, sh_f2);
+    block_top2(a, b, sh.f, sh.f2);
     const float top1 = a, top2 = b;
-    const float s_star = block_max(smax, sh_f);
-    const int any_fit = block_sum(anyfit, sh_i);
+    const float s_star = block_max(smax, sh.f);
+    const int any_fit = block_sum(anyfit, sh.i);
     waves += 1;
     if (!any_fit) {          // the reference's last, empty wave
       stuck = true;
@@ -279,7 +315,7 @@ place_bulk_kernel(const float* __restrict__ capacity,
     // -- wave set: strict (cur > s*) if any, else the tie set (cur == max)
     int nstrict = 0;
     for (int i = tid; i < n; i += NT) nstrict += (cur_buf[i] > s_star) ? 1 : 0;
-    const bool any_strict = block_sum(nstrict, sh_i) > 0;
+    const bool any_strict = block_sum(nstrict, sh.i) > 0;
 
     // -- run lengths of the wave rows, as sort keys
     const int remaining = count - placed;
@@ -293,7 +329,7 @@ place_bulk_kernel(const float* __restrict__ capacity,
         if (in_wave) {
           const float second = (cur == top1) ? top2 : top1;
           Row r;
-          load_row(r, j, capacity, used, coll, feasible, penalty, affinity, has_aff);
+          load_row(r, j, capacity, used, us, coll, fl, has_aff);
           int run = 0;
           for (int m = 1; m <= run_cap; ++m) {
             bool f;
@@ -333,7 +369,7 @@ place_bulk_kernel(const float* __restrict__ capacity,
       if (key != NO_KEY) local += (int)(key & 0xFFull);
     }
     int total_base;
-    int prefix = block_exclusive_scan(local, sh_i, &total_base);
+    int prefix = block_exclusive_scan(local, sh.i, &total_base);
     for (int k = lo; k < hi; ++k) {
       const unsigned long long key = keys[k];
       if (key == NO_KEY) continue;
@@ -346,7 +382,7 @@ place_bulk_kernel(const float* __restrict__ capacity,
 #pragma unroll
         for (int d = 0; d < R; ++d) {
           float inc = af * dem[d];
-          used[row * W + d] = used[row * W + d] + inc;
+          used[(size_t)row * us + d] = used[(size_t)row * us + d] + inc;
         }
         coll[row] += alloc;
         assign[row] += alloc;
@@ -355,28 +391,186 @@ place_bulk_kernel(const float* __restrict__ capacity,
     placed += min(remaining, total_base);
     __syncthreads();
   }
+  *placed_out = placed;
+  *waves_out = waves;
+}
 
-  // -- final scores + eval/exhaustion counts (_bulk_tail)
+// Final scores + eval/exhaustion counts (`_bulk_tail`): scores[i * ss]
+// gets row i's m = 1 score (-inf where it no longer fits); every thread
+// returns the two block-wide counts.
+template <class F>
+__device__ void bulk_tail(const float* __restrict__ capacity,
+                          const float* __restrict__ used, int us, const F& fl,
+                          const int* __restrict__ coll, BulkShared& sh,
+                          bool has_aff, float desired_div, const float* dem,
+                          int spread, int n, float* scores, int ss,
+                          int* n_eval_out, int* n_exh_out) {
   int n_eval = 0, n_exh = 0;
-  for (int i = tid; i < n; i += NT) {
+  for (int i = threadIdx.x; i < n; i += NT) {
     Row r;
-    load_row(r, i, capacity, used, coll, feasible, penalty, affinity, has_aff);
+    load_row(r, i, capacity, used, us, coll, fl, has_aff);
     bool f;
     float s;
     grid_cell(r, dem, 1.0f, desired_div, spread, &f, &s);
-    out[i * W + R] = (float)assign[i];
-    out[i * W + R + 1] = f ? s : -INFINITY;
-    out[i * W + R + 2] = 0.0f;
+    scores[(size_t)i * ss] = f ? s : -INFINITY;
     n_eval += r.feas ? 1 : 0;
     n_exh += (r.feas && !f) ? 1 : 0;
   }
-  n_eval = block_sum(n_eval, sh_i);
-  n_exh = block_sum(n_exh, sh_i);
+  *n_eval_out = block_sum(n_eval, sh.i);
+  *n_exh_out = block_sum(n_exh, sh.i);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+place_bulk_kernel(const float* __restrict__ capacity,
+                  const float* __restrict__ used0,
+                  const uint8_t* __restrict__ feasible,
+                  const float* __restrict__ affinity, int has_affinity,
+                  int desired, const uint8_t* __restrict__ penalty,
+                  const int* __restrict__ coll0,
+                  const float* __restrict__ demand, int count, int spread,
+                  int max_waves, int fill_grid, int n, int p,
+                  float* __restrict__ out, int* __restrict__ scratch) {
+  extern __shared__ unsigned long long keys[];   // p entries
+  __shared__ BulkShared sh;
+
+  const int tid = threadIdx.x;
+  int* coll = scratch;                                   // i32[n]
+  int* assign = scratch + n;                             // i32[n]
+  float* cur_buf = reinterpret_cast<float*>(scratch + 2 * n);  // f32[n]
+  float* used = out;                                     // cols [0, R) of out
+  const bool has_aff = has_affinity != 0;
+  const float desired_div = fmaxf((float)desired, 1.0f);
+  const K1Fields fl{feasible, penalty, affinity, coll0};
+  float dem[R];
+#pragma unroll
+  for (int d = 0; d < R; ++d) dem[d] = demand[d];
+
+  for (int i = tid; i < n; i += NT) {
+#pragma unroll
+    for (int d = 0; d < R; ++d) used[i * W + d] = used0[i * R + d];
+  }
+  __syncthreads();
+
+  int placed, waves, n_eval, n_exh;
+  bulk_wavefront(capacity, used, W, fl, coll, assign, cur_buf, keys, sh,
+                 has_aff, desired_div, dem, count, spread, max_waves,
+                 fill_grid, n, p, &placed, &waves);
+  bulk_tail(capacity, used, W, fl, coll, sh, has_aff, desired_div, dem,
+            spread, n, out + R + 1, W, &n_eval, &n_exh);
+  for (int i = tid; i < n; i += NT) {
+    out[i * W + R] = (float)assign[i];
+    out[i * W + R + 2] = 0.0f;
+  }
+  __syncthreads();
   if (tid == 0) {
     out[0 * W + R + 2] = (float)placed;
     out[1 * W + R + 2] = (float)n_eval;
     out[2 * W + R + 2] = (float)n_exh;
     out[3 * W + R + 2] = (float)waves;
+  }
+}
+
+// K4: E chained bulk evals.  `used` f32[n, R] is the chain carry (starts
+// as used0); with exact_out, used0 itself is the exact carry, updated in
+// place (the donated basis).  scratch: i32[3n]; delta: f32[n, R].
+__global__ void __launch_bounds__(NT, 1)
+place_bulk_batch_kernel(const float* __restrict__ capacity,
+                        float* used0, const float* __restrict__ heavy,
+                        const float* __restrict__ dyn, int E, int n, int D,
+                        int sparse, int spread, int max_waves, int fill_grid,
+                        int exact_out, int p, float* used,
+                        float* __restrict__ out, int* __restrict__ scratch,
+                        float* __restrict__ delta) {
+  extern __shared__ unsigned long long keys[];   // p entries
+  __shared__ BulkShared sh;
+
+  const int tid = threadIdx.x;
+  int* coll = scratch;
+  int* assign = scratch + n;
+  float* cur_buf = reinterpret_cast<float*>(scratch + 2 * n);
+  const int Ll = 3 + R + D * (R + 1);
+  const int out_w = sparse ? 3 * SPARSE_CAP + 4 : 2 * n + 4;
+
+  for (int i = tid; i < n * R; i += NT) used[i] = used0[i];
+  __syncthreads();
+
+  for (int e = 0; e < E; ++e) {
+    const float* l = dyn + (size_t)e * Ll;
+    const K4Fields fl{heavy + (size_t)e * 4 * n, n};
+    const bool has_aff = l[0] > 0.5f;
+    const int desired = (int)l[1];
+    const int count = (int)l[2];
+    const float desired_div = fmaxf((float)desired, 1.0f);
+    float dem[R];
+#pragma unroll
+    for (int d = 0; d < R; ++d) dem[d] = l[3 + d];
+    float* o = out + (size_t)e * out_w;
+
+    // -- this eval's deltas, scoped to it: used + delta_mat
+    if (D > 0) {
+      for (int i = tid; i < n * R; i += NT) delta[i] = 0.0f;
+      __syncthreads();
+      if (tid == 0) {
+        for (int k = 0; k < D; ++k) {
+          const int r = (int)l[3 + R + k];
+          if (r < 0 || r >= n) continue;
+          for (int d = 0; d < R; ++d)
+            delta[r * R + d] = delta[r * R + d] + l[3 + R + D + k * R + d];
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < n * R; i += NT) used[i] = used[i] + delta[i];
+      __syncthreads();
+    }
+
+    int placed, waves, n_eval, n_exh;
+    bulk_wavefront(capacity, used, R, fl, coll, assign, cur_buf, keys, sh,
+                   has_aff, desired_div, dem, count, spread, max_waves,
+                   fill_grid, n, p, &placed, &waves);
+    // sparse rows read the scores back from cur_buf
+    bulk_tail(capacity, used, R, fl, coll, sh, has_aff, desired_div, dem,
+              spread, n, sparse ? cur_buf : o + n, 1, &n_eval, &n_exh);
+    __syncthreads();
+
+    if (sparse) {
+      // first SPARSE_CAP rows with assign > 0, in row order
+      int base = 0;
+      for (int c0 = 0; c0 < n; c0 += NT) {
+        const int i = c0 + tid;
+        const int m = (i < n && assign[i] > 0) ? 1 : 0;
+        int total;
+        const int pos = base + block_exclusive_scan(m, sh.i, &total);
+        if (m && pos < SPARSE_CAP) {
+          o[pos] = (float)i;
+          o[SPARSE_CAP + pos] = (float)assign[i];
+          o[2 * SPARSE_CAP + pos] = cur_buf[i];
+        }
+        base += total;
+      }
+      for (int k = min(base, SPARSE_CAP) + tid; k < SPARSE_CAP; k += NT) {
+        o[k] = (float)n;
+        o[SPARSE_CAP + k] = 0.0f;
+        o[2 * SPARSE_CAP + k] = 0.0f;
+      }
+    } else {
+      for (int i = tid; i < n; i += NT) o[i] = (float)assign[i];
+    }
+    if (tid == 0) {
+      o[out_w - 4] = (float)placed;
+      o[out_w - 3] = (float)n_eval;
+      o[out_w - 2] = (float)n_exh;
+      o[out_w - 1] = (float)waves;
+    }
+
+    // -- back the deltas out of the carry; exact carry += assign * demand
+    for (int i = tid; i < n * R; i += NT) {
+      if (D > 0) used[i] = used[i] - delta[i];
+      if (exact_out) {
+        const float inc = (float)assign[i / R] * dem[i % R];
+        used0[i] = used0[i] + inc;
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -399,5 +593,25 @@ extern "C" int place_bulk_launch(const float* capacity, const float* used0,
   place_bulk_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
       capacity, used0, feasible, affinity, has_affinity, desired, penalty,
       coll0, demand, count, spread, max_waves, fill_grid, n, p, out, scratch);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int place_bulk_batch_launch(const float* capacity, float* used0,
+                                       const float* heavy, const float* dyn,
+                                       int E, int n, int D, int sparse,
+                                       int spread, int max_waves,
+                                       int fill_grid, int exact_out,
+                                       float* used, float* out, int* scratch,
+                                       float* delta, void* stream) {
+  int p = 2;
+  while (p < n) p <<= 1;
+  const size_t smem = (size_t)p * sizeof(unsigned long long);
+  cudaError_t err = cudaFuncSetAttribute(
+      place_bulk_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  place_bulk_batch_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
+      capacity, used0, heavy, dyn, E, n, D, sparse, spread, max_waves,
+      fill_grid, exact_out, p, used, out, scratch, delta);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,10 @@
 
 - fit.py    vectorized AllocsFit + BestFit-v3 scoring over the node axis
             (device functions of the two kernels below)
-- place.py  the placement kernels: the bulk wavefront (K1, csrc/place_bulk.cu)
-            and the sequential slot scan (K2, csrc/place_scan.cu), each
-            with its plain PyTorch version
+- place.py  the placement kernels: the bulk wavefront (K1, csrc/place_bulk.cu),
+            the sequential slot scan (K2, csrc/place_scan.cu) and their
+            chained batches over the packed transport (K4, K3, same
+            sources), each with its plain PyTorch version
 - preempt.py the host (numpy) preemption ranking
 """
 

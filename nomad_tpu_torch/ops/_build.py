@@ -23,19 +23,30 @@ from typing import Dict, List, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-KERNELS = ("place_bulk", "place_scan")
+KERNELS = ("place_bulk", "place_scan", "world_scatter")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argument types of each kernel's C entry point (pointers and the stream
-# as c_void_p, ints as c_int); every entry point returns cudaError_t
-_ARGTYPES: Dict[str, List] = {
-    "place_bulk": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                   _P, _P, _P],
-    "place_scan": [_P] * 18 + [_I] * 6 + [_P] * 6,
+# C entry points of each kernel source and their argument types
+# (pointers and the stream as c_void_p, ints as c_int); every entry
+# point returns cudaError_t
+_ARGTYPES: Dict[str, Dict[str, List]] = {
+    "place_bulk": {
+        "place_bulk_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _P, _P, _P],
+        "place_bulk_batch_launch": [_P] * 4 + [_I] * 8 + [_P] * 5,
+    },
+    "place_scan": {
+        "place_scan_launch": [_P] * 18 + [_I] * 6 + [_P] * 6,
+        "place_batch_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P] * 6,
+    },
+    "world_scatter": {
+        "set_rows_launch": [_P, _P, _P, _I, _I, _P],
+        "add_rank1_launch": [_P, _P, _P, _P, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -110,8 +121,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(_lib_path(name))
-            fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
+            for entry, argtypes in _ARGTYPES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
     return lib

@@ -1,18 +1,26 @@
-"""The dense placement kernels: sequential scan (K2) and bulk wavefront (K1).
+"""The dense placement kernels: sequential scan (K2), bulk wavefront
+(K1), and their chained batches over the packed transport (K3, K4).
 
-Torch port of the reference's ops/place.py single-eval kernels
-(`place_eval_packed_jit` / `place_eval_jit` and `place_bulk_jit`).  Each
-kernel has two forms here:
+Torch port of the reference's ops/place.py kernels
+(`place_eval_packed_jit` / `place_eval_jit`, `place_bulk_jit`,
+`place_batch_packed_jit`, `_place_bulk_batch`).  Each kernel has two
+forms here:
 
-* a plain PyTorch version (`place_eval_plain`, `place_bulk_plain`),
-  written from the JAX functions step for step: Python loops over slots
-  or waves with tensor ops inside.  It is the specification, the CPU
-  path, and what the CUDA kernel is held against on the card;
-* a wrapper (`place_eval_packed` / `place_eval`, `place_bulk`) that
-  launches the hand-written CUDA kernel (csrc/place_scan.cu,
-  csrc/place_bulk.cu) for CUDA tensors, takes the plain version for CPU
-  tensors, and raises for anything else.  `launches` counts kernel
-  launches only.
+* a plain PyTorch version (`place_eval_plain`, `place_bulk_plain`,
+  `place_batch_packed_plain`, `place_bulk_batch_plain`), written from
+  the JAX functions step for step: Python loops over evals, slots or
+  waves with tensor ops inside.  It is the specification, the CPU path,
+  and what the CUDA kernel is held against on the card;
+* a wrapper (`place_eval_packed` / `place_eval`, `place_bulk`,
+  `place_batch_packed`, `place_bulk_batch`) that launches the
+  hand-written CUDA kernel (csrc/place_scan.cu, csrc/place_bulk.cu) for
+  CUDA tensors, takes the plain version for CPU tensors, and raises for
+  anything else.  `launches` counts kernel launches only.
+
+The packed transports (`pack_heavy`/`pack_light`,
+`pack_bulk_heavy`/`pack_bulk_light`) are host (numpy) functions with the
+reference's layouts: integers value-encoded as f32 (exact below 2^24),
+booleans as 0/1.
 
 Semantics (tie-breaking, packed layouts, value-encoded integers) are the
 reference's: argmax takes the lowest node row among equal maxima, top-K
@@ -51,7 +59,8 @@ BULK_MAX_ROWS = 16384
 SCAN_MAX_SPREADS = 64
 
 # kernel launches per wrapper (the plain versions never count)
-launches = {"place_bulk": 0, "place_scan": 0}
+launches = {"place_bulk": 0, "place_scan": 0, "place_batch": 0,
+            "place_bulk_batch": 0}
 
 
 def fill_grid_for(max_count: int) -> int:
@@ -527,3 +536,421 @@ def unpack_bulk(packed: np.ndarray):
     scores = packed[:, R + 1]
     s = np.rint(packed[:4, R + 2]).astype(np.int32)
     return assign, int(s[0]), int(s[1]), int(s[2]), scores, int(s[3]), used
+
+
+# --------------------------------------------------------------------------
+# The packed transports (host side, numpy; the reference's layouts)
+# --------------------------------------------------------------------------
+
+def heavy_dims(inp: PlaceInputs):
+    """(G, N, K, Vp1) of one eval's inputs."""
+    G, N = inp.feasible.shape
+    K = inp.spread_wfrac.shape[1]
+    Vp1 = inp.spread_desired.shape[2]
+    return G, N, K, Vp1
+
+
+_HEAVY_FIELDS = ("feasible", "affinity", "penalty", "tg_count", "place_cap",
+                 "spread_vidx", "spread_desired", "spread_counts",
+                 "has_affinity", "desired_count", "spread_targeted",
+                 "spread_wfrac", "spread_active")
+
+
+def heavy_len(G: int, N: int, K: int, Vp1: int) -> int:
+    return 5 * G * N + G * K * N + 2 * G * K * Vp1 + 2 * G + 3 * G * K
+
+
+def pack_heavy(inp: PlaceInputs) -> np.ndarray:
+    """Flatten one eval's G x N-scale tensors (numpy-backed inputs) into
+    one f32 vector."""
+    return np.concatenate(
+        [np.asarray(getattr(inp, f), np.float32).ravel()
+         for f in _HEAVY_FIELDS])
+
+
+def heavy_digest(inp: PlaceInputs) -> bytes:
+    """Content fingerprint of the heavy block without materializing the
+    packed array (the common case is a cache hit)."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    for f in _HEAVY_FIELDS:
+        h.update(np.ascontiguousarray(getattr(inp, f)).tobytes())
+    return h.digest()
+
+
+def light_len(S: int, R: int, D: int) -> int:
+    return S * (R + 2) + D * (R + 1)
+
+
+def pack_light(inp: PlaceInputs, deltas, D: int,
+               S: Optional[int] = None) -> np.ndarray:
+    """Flatten one eval's slot tensors + sparse usage deltas.  `deltas` is
+    [(row, f32[R])]; inactive delta slots encode row = N (dropped by the
+    kernel).  `S` pads the slot axis to a canonical bucket (padded slots
+    are inactive)."""
+    S_in, R = inp.demand.shape
+    S = S_in if S is None else S
+    N = inp.feasible.shape[1]
+    out = np.zeros(light_len(S, R, D), np.float32)
+    o = 0
+    out[o:o + S_in * R] = np.asarray(inp.demand, np.float32).ravel()
+    o += S * R
+    out[o:o + S_in] = np.asarray(inp.slot_tg, np.float32)
+    o += S
+    out[o:o + S_in] = np.asarray(inp.slot_active, np.float32)
+    o += S
+    rows = np.full(D, N, np.float32)
+    vals = np.zeros((D, R), np.float32)
+    for d, (row, vec) in enumerate(deltas[:D]):
+        rows[d] = row
+        vals[d] = vec
+    out[o:o + D] = rows
+    o += D
+    out[o:o + D * R] = vals.ravel()
+    return out
+
+
+def pack_bulk_heavy(feasible, affinity, penalty, coll0) -> np.ndarray:
+    """f32[4N]: one bulk eval's node-axis tensors."""
+    return np.concatenate([
+        np.asarray(feasible, np.float32),
+        np.asarray(affinity, np.float32),
+        np.asarray(penalty, np.float32),
+        np.asarray(coll0, np.float32)])
+
+
+def bulk_heavy_digest(feasible, affinity, penalty, coll0) -> bytes:
+    """Content fingerprint of one bulk request's node-axis tensors.
+    All-zero fields hash as a 1-byte marker and bools hash bit-packed;
+    tag bytes frame each variable-length segment so (full||marker) and
+    (marker||full) streams cannot collide."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.packbits(np.asarray(feasible, bool)).tobytes())
+    for tag, a in ((b"\x01", affinity), (b"\x02", coll0)):
+        if np.any(a):
+            h.update(tag + b"F")
+            h.update(np.ascontiguousarray(a).tobytes())
+        else:
+            h.update(tag + b"0")
+    if np.any(penalty):
+        h.update(b"\x03F")
+        h.update(np.packbits(np.asarray(penalty, bool)).tobytes())
+    else:
+        h.update(b"\x030")
+    return h.digest()
+
+
+def bulk_light_len(R: int, D: int) -> int:
+    return 3 + R + D * (R + 1)
+
+
+def pack_bulk_light(has_affinity, desired, count, demand, deltas,
+                    N: int, D: int) -> np.ndarray:
+    R = demand.shape[0]
+    out = np.empty(bulk_light_len(R, D), np.float32)
+    out[0] = float(bool(has_affinity))
+    out[1] = float(desired)
+    out[2] = float(count)
+    out[3:3 + R] = np.asarray(demand, np.float32)
+    rows = np.full(D, N, np.float32)
+    vals = np.zeros((D, R), np.float32)
+    for d, (row, vec) in enumerate(deltas[:D]):
+        rows[d] = row
+        vals[d] = vec
+    out[3 + R:3 + R + D] = rows
+    out[3 + R + D:] = vals.ravel()
+    return out
+
+
+# sparse bulk output: the assignments of a count <= SPARSE_CAP eval fit in
+# SPARSE_CAP (row, count) pairs + the scores at those rows
+SPARSE_CAP = 128
+
+
+def unpack_bulk_batch(packed: np.ndarray, n_rows: int,
+                      sparse: bool = False):
+    """Host inverse of the batched bulk kernel's per-eval rows (both
+    formats; sparse rows densify here): returns (assign i32[E, N],
+    scores f32[E, N], placed i32[E], n_eval i32[E], n_exh i32[E],
+    waves i32[E]).  Sparse scores are -inf at unassigned rows."""
+    E, W = packed.shape
+    s = np.rint(packed[:, -4:]).astype(np.int32)
+    if sparse:
+        rows = np.rint(packed[:, :SPARSE_CAP]).astype(np.int64)
+        counts = np.rint(
+            packed[:, SPARSE_CAP:2 * SPARSE_CAP]).astype(np.int32)
+        rscores = packed[:, 2 * SPARSE_CAP:3 * SPARSE_CAP]
+        assign = np.zeros((E, n_rows), np.int32)
+        scores = np.full((E, n_rows), -np.inf, np.float32)
+        e_idx = np.repeat(np.arange(E), SPARSE_CAP)
+        r_idx = rows.ravel()
+        c = counts.ravel()
+        keep = c > 0
+        assign[e_idx[keep], r_idx[keep]] = c[keep]
+        scores[e_idx[keep], r_idx[keep]] = rscores.ravel()[keep]
+        return assign, scores, s[:, 0], s[:, 1], s[:, 2], s[:, 3]
+    N = (W - 4) // 2
+    assign = np.rint(packed[:, :N]).astype(np.int32)
+    scores = packed[:, N:2 * N]
+    return assign, scores, s[:, 0], s[:, 1], s[:, 2], s[:, 3]
+
+
+# --------------------------------------------------------------------------
+# K3: the chained scan batch over the packed transport
+# --------------------------------------------------------------------------
+
+def _unpack_heavy(h: torch.Tensor, G: int, N: int, K: int, Vp1: int):
+    """Inverse of pack_heavy on a device row; returns a field dict."""
+    o = 0
+
+    def take(n, shape):
+        nonlocal o
+        v = h[o:o + n].reshape(shape)
+        o += n
+        return v
+    i32 = torch.int32
+    return dict(
+        feasible=take(G * N, (G, N)) > 0.5,
+        affinity=take(G * N, (G, N)),
+        penalty=take(G * N, (G, N)) > 0.5,
+        tg_count=take(G * N, (G, N)).to(i32),
+        place_cap=take(G * N, (G, N)).to(i32),
+        spread_vidx=take(G * K * N, (G, K, N)).to(i32),
+        spread_desired=take(G * K * Vp1, (G, K, Vp1)),
+        spread_counts=take(G * K * Vp1, (G, K, Vp1)),
+        has_affinity=take(G, (G,)) > 0.5,
+        desired_count=take(G, (G,)).to(i32),
+        spread_targeted=take(G * K, (G, K)) > 0.5,
+        spread_wfrac=take(G * K, (G, K)),
+        spread_active=take(G * K, (G, K)) > 0.5,
+    )
+
+
+def _unpack_light(l: torch.Tensor, S: int, R: int, D: int):
+    o = 0
+
+    def take(n, shape):
+        nonlocal o
+        v = l[o:o + n].reshape(shape)
+        o += n
+        return v
+    demand = take(S * R, (S, R))
+    slot_tg = take(S, (S,)).to(torch.int32)
+    slot_active = take(S, (S,)) > 0.5
+    delta_rows = take(D, (D,)).to(torch.int64)
+    delta_vals = take(D * R, (D, R))
+    return demand, slot_tg, slot_active, delta_rows, delta_vals
+
+
+def _scatter_add_rows(x: torch.Tensor, rows: torch.Tensor,
+                      vals: torch.Tensor) -> torch.Tensor:
+    """x.at[rows].add(vals, mode="drop"), deltas added one after another
+    in their order (rows outside [0, N) dropped); returns a new tensor."""
+    x = x.clone()
+    N = x.shape[0]
+    for k in torch.nonzero((rows >= 0) & (rows < N)).flatten().tolist():
+        r = int(rows[k])
+        x[r] = x[r] + vals[k]
+    return x
+
+
+def place_batch_packed_plain(capacity: torch.Tensor, used0: torch.Tensor,
+                             heavy: torch.Tensor, dyn: torch.Tensor,
+                             dims: Tuple[int, ...],
+                             spread_algorithm: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3 (`place_batch_packed_jit`): E chained evals,
+    each scanning its S slots against the usage its predecessors left.
+    heavy f32[E, Lh] (pack_heavy rows), dyn f32[E * Ll] (pack_light
+    blocks), dims (G, N, K, Vp1, S, D).  Each eval's deltas are added
+    into the carry and stay there for the later evals.  Returns (packed
+    f32[E, S, 5 + 2*TOP_K], final used f32[N, R])."""
+    G, N, K, Vp1, S, D = dims
+    R = capacity.shape[1]
+    E = heavy.shape[0]
+    light = dyn.reshape(E, -1)
+    used = used0
+    outs = []
+    for e in range(E):
+        f = _unpack_heavy(heavy[e], G, N, K, Vp1)
+        demand, slot_tg, slot_active, delta_rows, delta_vals = \
+            _unpack_light(light[e], S, R, D)
+        used = _scatter_add_rows(used, delta_rows, delta_vals)
+        inp = PlaceInputs(capacity=capacity, used=used, demand=demand,
+                          slot_tg=slot_tg, slot_active=slot_active, **f)
+        packed, used = place_eval_plain(inp, spread_algorithm)
+        outs.append(packed)
+    return torch.stack(outs), used
+
+
+def place_batch_packed(capacity: torch.Tensor, used0: torch.Tensor,
+                       heavy: torch.Tensor, dyn: torch.Tensor,
+                       dims: Tuple[int, ...], spread_algorithm: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 wrapper, same arguments and outputs as
+    `place_batch_packed_plain`.  CUDA tensors launch csrc/place_scan.cu
+    (`place_batch_launch`); CPU tensors take the plain version."""
+    dev = _device_of(capacity)
+    if dev.type == "cpu":
+        return place_batch_packed_plain(capacity, used0, heavy, dyn, dims,
+                                        spread_algorithm)
+    G, N, K, Vp1, S, D = (int(x) for x in dims)
+    R = capacity.shape[1]
+    E = heavy.shape[0]
+    if R != NUM_RESOURCE_DIMS:
+        raise ValueError(f"place_batch: R={R}, kernel takes {NUM_RESOURCE_DIMS}")
+    if N < TOP_K:
+        raise ValueError(f"place_batch: N={N} < TOP_K={TOP_K}")
+    if not 1 <= K <= SCAN_MAX_SPREADS:
+        raise ValueError(f"place_batch: K={K}, kernel takes 1..{SCAN_MAX_SPREADS}")
+    if E < 1:
+        raise ValueError("place_batch: empty batch")
+    f32 = torch.float32
+    _check("place_batch.capacity", capacity, dev, f32, (N, R))
+    _check("place_batch.used0", used0, dev, f32, (N, R))
+    _check("place_batch.heavy", heavy, dev, f32, (E, heavy_len(G, N, K, Vp1)))
+    _check("place_batch.dyn", dyn, dev, f32, (E * light_len(S, R, D),))
+    lib = _build.load("place_scan")
+    packed = torch.empty((E, S, PACKED_WIDTH), dtype=f32, device=dev)
+    used = torch.empty((N, R), dtype=f32, device=dev)
+    tg_count = torch.empty((G, N), dtype=torch.int32, device=dev)
+    place_cap = torch.empty((G, N), dtype=torch.int32, device=dev)
+    counts = torch.empty((G, K, Vp1), dtype=f32, device=dev)
+    rc = lib.place_batch_launch(
+        _ptr(capacity), _ptr(used0), _ptr(heavy), _ptr(dyn), E, G, N, K,
+        Vp1, S, D, int(bool(spread_algorithm)), _ptr(packed), _ptr(used),
+        _ptr(tg_count), _ptr(place_cap), _ptr(counts), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"place_batch kernel launch failed: CUDA error {rc}")
+    launches["place_batch"] += 1
+    return packed, used
+
+
+# --------------------------------------------------------------------------
+# K4: the chained bulk batch over the packed transport
+# --------------------------------------------------------------------------
+
+def place_bulk_batch_plain(capacity: torch.Tensor, used0: torch.Tensor,
+                           heavy: torch.Tensor, dyn: torch.Tensor, D: int,
+                           sparse_out: bool = False,
+                           spread_algorithm: bool = False,
+                           max_waves: int = 65536,
+                           fill_grid: int = _FILL_GRID,
+                           exact_out: bool = False):
+    """Plain version of K4 (`_place_bulk_batch`): E chained wavefront
+    bulk evals.  heavy f32[E, 4N] (pack_bulk_heavy rows), dyn f32[E * Ll]
+    (pack_bulk_light blocks).  Each eval's deltas are scoped to it: the
+    carry gets `+ delta_mat` before its wavefront and `- delta_mat`
+    after, so only placements chain forward.
+
+    Returns (packed, used_final) — packed per eval dense [2N+4] (assign,
+    scores, placed/n_eval/n_exh/waves) or, with sparse_out, [3*SPARSE_CAP
+    + 4] (rows, counts, scores, scalars; count <= SPARSE_CAP only).  With
+    exact_out it returns (packed, used_final, used_exact): used_exact is
+    used0 + sum_e f32(assign_e) * demand_e, written into `used0` itself
+    (the donated basis, updated in place)."""
+    N, R = capacity.shape
+    E = heavy.shape[0]
+    light = dyn.reshape(E, -1)
+    f32 = torch.float32
+    used = used0.clone()
+    exact = used0
+    outs = []
+    for e in range(E):
+        h, l = heavy[e], light[e]
+        feasible = h[:N] > 0.5
+        affinity = h[N:2 * N]
+        penalty = h[2 * N:3 * N] > 0.5
+        coll0 = h[3 * N:].to(torch.int32)
+        has_aff = bool(l[0] > 0.5)
+        desired = int(l[1].to(torch.int32))
+        count = int(l[2].to(torch.int32))
+        demand = l[3:3 + R]
+        delta_rows = l[3 + R:3 + R + D].to(torch.int64)
+        delta_vals = l[3 + R + D:].reshape(D, R)
+        delta_mat = _scatter_add_rows(torch.zeros_like(used), delta_rows,
+                                      delta_vals)
+        leaf = place_bulk_plain(capacity, used + delta_mat, feasible,
+                                affinity, has_aff, desired, penalty, coll0,
+                                demand, count, spread_algorithm, max_waves,
+                                fill_grid)
+        used_f = leaf[:, :R]
+        assign_f = leaf[:, R]
+        scores = leaf[:, R + 1]
+        scalars = leaf[:4, R + 2]
+        if sparse_out:
+            mask = assign_f > 0
+            rows = torch.nonzero(mask).flatten()[:SPARSE_CAP]
+            k = rows.shape[0]
+            rows_o = torch.full((SPARSE_CAP,), float(N), dtype=f32,
+                                device=used.device)
+            counts_o = torch.zeros(SPARSE_CAP, dtype=f32, device=used.device)
+            scores_o = torch.zeros(SPARSE_CAP, dtype=f32, device=used.device)
+            rows_o[:k] = rows.to(f32)
+            counts_o[:k] = assign_f[rows]
+            scores_o[:k] = scores[rows]
+            out = torch.cat([rows_o, counts_o, scores_o, scalars])
+        else:
+            out = torch.cat([assign_f, scores, scalars])
+        outs.append(out)
+        used = used_f - delta_mat
+        if exact_out:
+            exact.add_(assign_f[:, None] * demand)
+    packed = torch.stack(outs)
+    if exact_out:
+        return packed, used, exact
+    return packed, used
+
+
+def place_bulk_batch(capacity: torch.Tensor, used0: torch.Tensor,
+                     heavy: torch.Tensor, dyn: torch.Tensor, D: int,
+                     sparse_out: bool = False, spread_algorithm: bool = False,
+                     max_waves: int = 65536, fill_grid: int = _FILL_GRID,
+                     exact_out: bool = False):
+    """K4 wrapper, same arguments and outputs as `place_bulk_batch_plain`
+    (with exact_out, `used0` is the donated basis and receives the exact
+    carry in place).  CUDA tensors launch csrc/place_bulk.cu
+    (`place_bulk_batch_launch`); CPU tensors take the plain version."""
+    dev = _device_of(capacity)
+    if dev.type == "cpu":
+        return place_bulk_batch_plain(capacity, used0, heavy, dyn, D,
+                                      sparse_out, spread_algorithm,
+                                      max_waves, fill_grid, exact_out)
+    N, R = capacity.shape
+    E = heavy.shape[0]
+    if R != NUM_RESOURCE_DIMS:
+        raise ValueError(f"place_bulk_batch: R={R}, kernel takes "
+                         f"{NUM_RESOURCE_DIMS}")
+    if not 4 <= N <= BULK_MAX_ROWS:
+        raise ValueError(
+            f"place_bulk_batch: N={N}; the kernel sorts each wave in shared "
+            f"memory and takes 4..{BULK_MAX_ROWS} rows")
+    if fill_grid not in FILL_GRID_BUCKETS:
+        raise ValueError(f"place_bulk_batch: fill_grid={fill_grid}; the "
+                         f"kernel takes one of {FILL_GRID_BUCKETS}")
+    if E < 1:
+        raise ValueError("place_bulk_batch: empty batch")
+    f32 = torch.float32
+    _check("place_bulk_batch.capacity", capacity, dev, f32, (N, R))
+    _check("place_bulk_batch.used0", used0, dev, f32, (N, R))
+    _check("place_bulk_batch.heavy", heavy, dev, f32, (E, 4 * N))
+    _check("place_bulk_batch.dyn", dyn, dev, f32, (E * bulk_light_len(R, D),))
+    lib = _build.load("place_bulk")
+    width = 3 * SPARSE_CAP + 4 if sparse_out else 2 * N + 4
+    packed = torch.empty((E, width), dtype=f32, device=dev)
+    used = torch.empty((N, R), dtype=f32, device=dev)
+    scratch = torch.empty((3, N), dtype=torch.int32, device=dev)
+    delta = torch.empty((N if D else 1, R), dtype=f32, device=dev)
+    rc = lib.place_bulk_batch_launch(
+        _ptr(capacity), _ptr(used0), _ptr(heavy), _ptr(dyn), E, N, int(D),
+        int(bool(sparse_out)), int(bool(spread_algorithm)), int(max_waves),
+        int(fill_grid), int(bool(exact_out)), _ptr(used), _ptr(packed),
+        _ptr(scratch), _ptr(delta), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"place_bulk_batch kernel launch failed: CUDA error {rc}")
+    launches["place_bulk_batch"] += 1
+    if exact_out:
+        return packed, used, used0
+    return packed, used

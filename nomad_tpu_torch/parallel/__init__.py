@@ -1,2 +1,3 @@
-"""Scale-out layer of the port.  This slice holds only the engine seam
-(`engine.get_engine`); the batching engine and the mesh come later."""
+"""Scale-out layer of the port: the batching PlacementEngine
+(`engine.get_engine`, one per device) and its device-resident world
+(`world.DeviceWorld`).  Single-device; the serving mesh comes later."""

@@ -267,13 +267,13 @@ def csi_volume_mask(cm: ClusterMatrix, snapshot, namespace: str,
     return mask
 
 
-def device_place_cap(cm: ClusterMatrix, requests) -> np.ndarray:
+def device_place_cap(cm: ClusterMatrix, requests, device=None) -> np.ndarray:
     """i32[N]: how many instances of this group an eval may place per
     node = min over requests of floor(free_instances / count), counting
-    committed usage plus the engine's in-flight overlay."""
+    committed usage plus the in-flight overlay of `device`'s engine."""
     cap = np.full(cm.n_rows, 2**30, np.int64)
     from nomad_tpu_torch.parallel.engine import get_engine
-    eng = get_engine()
+    eng = get_engine(device)
     for req in requests:
         best = np.zeros(cm.n_rows, np.int64)
         parts = req.name.split("/")
@@ -317,7 +317,7 @@ def host_volume_mask(cm: ClusterMatrix, volumes) -> np.ndarray:
 
 
 def device_mask(cm: ClusterMatrix, requests,
-                include_usage: bool = True) -> np.ndarray:
+                include_usage: bool = True, device=None) -> np.ndarray:
     """DeviceChecker count feasibility (feasible.go:1192): every device
     request must be satisfiable by some matching device group's capacity.
     Matching follows NodeDeviceResource.ID semantics (type / type/name /
@@ -338,7 +338,7 @@ def device_mask(cm: ClusterMatrix, requests,
                 if include_usage:
                     free = caps - cm.device_used.get(gid, 0)
                     from nomad_tpu_torch.parallel.engine import get_engine
-                    eng = get_engine()
+                    eng = get_engine(device)
                     if eng is not None:
                         inflight = eng.device_overlay(cm, gid)
                         if inflight is not None \

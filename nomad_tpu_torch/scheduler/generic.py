@@ -226,7 +226,7 @@ class GenericScheduler:
                     self._stack = None
                 if self._ext_tickets:
                     from nomad_tpu_torch.parallel.engine import get_engine
-                    eng = get_engine()
+                    eng = get_engine(self.device)
                     if eng is not None:
                         for t in self._ext_tickets:
                             eng.complete(t)
@@ -324,7 +324,7 @@ class GenericScheduler:
         import contextlib
 
         from nomad_tpu_torch.parallel.engine import get_engine
-        eng = get_engine()
+        eng = get_engine(self.device)
         device_eval = any(t.resources.devices
                           for tg in self.job.task_groups
                           for t in tg.tasks)
@@ -371,7 +371,7 @@ class GenericScheduler:
         # plans) minus what this plan stops; `deltas` mirrors every
         # adjustment sparsely for the batching engine
         from nomad_tpu_torch.parallel.engine import get_engine
-        _eng = get_engine()
+        _eng = get_engine(self.device)
         used = _eng.basis_for(cm) if _eng is not None \
             and cm.used.shape[0] == cm.capacity.shape[0] else cm.used.copy()
         deltas: List[Tuple[int, np.ndarray]] = []
@@ -439,7 +439,7 @@ class GenericScheduler:
         bulk_results: List[Tuple[int, List[PlacementRequest], object]] = []
         scan_requests: List[PlacementRequest] = []
         from nomad_tpu_torch.parallel.engine import get_engine
-        eng = get_engine()
+        eng = get_engine(self.device)
         pending_bulk: List[Tuple[int, List[PlacementRequest], object]] = []
         bulk_chain: List[Tuple[int, np.ndarray]] = []
         for gi, prs in by_group.items():
@@ -457,10 +457,8 @@ class GenericScheduler:
                 scan_requests.extend(prs)
                 continue
             if eng is not None:
-                fut = self._place_bulk_begin(eng, cm, g, prs,
-                                             allocs_by_tg, penalty_nodes,
-                                             deltas, stack)
-                pending_bulk.append((gi, prs, fut))
+                pending_bulk.append((gi, prs, self._bulk_spec(
+                    cm, g, prs, allocs_by_tg, penalty_nodes, deltas, stack)))
                 continue
             bulk, ticket = self._place_bulk(cm, job, g, prs, allocs_by_tg,
                                             penalty_nodes,
@@ -475,6 +473,13 @@ class GenericScheduler:
             demand_g = g.demand.astype(np.float32)
             bulk_chain.extend((int(r), np.float32(bulk[0][r]) * demand_g)
                               for r in np.flatnonzero(bulk[0]))
+        if pending_bulk:
+            # every bulk group of the eval enters the engine's queue at
+            # once, so they chain in one dispatch
+            futs = eng.place_bulk_begin_many(
+                cm, [spec for _, _, spec in pending_bulk])
+            pending_bulk = [(gi, prs, fut) for (gi, prs, _), fut
+                            in zip(pending_bulk, futs)]
         for gi, prs, fut in pending_bulk:
             assign, placed, n_eval, n_exh, scores, ticket = fut.result()
             bulk_results.append(
@@ -499,7 +504,7 @@ class GenericScheduler:
         slots = [tg_index[pr.task_group] for pr in slot_requests]
         result = None
         if slots:
-            inputs = stack.build_inputs(
+            inputs = stack.build_host_inputs(
                 job, groups, slots, allocs_by_tg,
                 penalty_nodes=penalty_nodes, used_override=used)
             result = stack.place(inputs, deltas)
@@ -801,57 +806,34 @@ class GenericScheduler:
                 coll0[row] += 1
         return penalty, coll0
 
-    def _place_bulk_begin(self, eng, cm, g, prs, allocs_by_tg,
-                          penalty_nodes, deltas, stack):
-        """Enqueue one group's wavefront placement; returns the engine
-        Future (see engine.place_bulk_begin for ordering semantics)."""
+    def _bulk_spec(self, cm, g, prs, allocs_by_tg, penalty_nodes, deltas,
+                   stack) -> dict:
+        """One group's engine bulk request (engine.place_bulk_begin_many
+        fields)."""
         penalty, coll0 = self._bulk_node_fields(cm, g, allocs_by_tg,
                                                 penalty_nodes)
-        return eng.place_bulk_begin(
-            cm, feasible=g.feasible,
-            affinity=g.affinity.astype(np.float32),
-            has_affinity=bool(g.has_affinity),
-            desired=max(g.tg.count, 1), penalty=penalty,
-            coll0=coll0, demand=g.demand.astype(np.float32),
-            count=len(prs), deltas=deltas,
-            spread_algorithm=stack.spread_algorithm,
-            # namespace = wave-lane key: evals from different namespaces
-            # are independent waves and may score concurrently on the
-            # 2-D mesh's wave columns
-            wave_key=self.job.namespace)
-
-    def _place_bulk(self, cm, job, g, prs, allocs_by_tg, penalty_nodes,
-                    deltas, stack):
-        """Wavefront placement of len(prs) identical slots of group `g`.
-        With the engine present (a later slice of the port) this
-        coalesces with concurrent bulk evals into one chained device
-        dispatch.  `deltas` are this eval's usage adjustments: its stops,
-        preplacements and the placements of its earlier bulk groups.
-        Returns ((assign i32[N], placed,
-        nodes_evaluated, nodes_exhausted, scores f32[N]), overlay ticket
-        or None); without the engine the group runs on the wavefront
-        kernel (ops.place.place_bulk) on the scheduler's device."""
-        from nomad_tpu_torch.ops.place import place_bulk, unpack_bulk
-        from nomad_tpu_torch.parallel.engine import get_engine
-
-        eng = get_engine()
-        N = cm.n_rows
-        penalty, coll0 = self._bulk_node_fields(cm, g, allocs_by_tg,
-                                                penalty_nodes)
-
-        if eng is not None:
-            assign, placed, n_eval, n_exh, scores, ticket = \
-                eng.place_bulk(
-                    cm, feasible=g.feasible,
+        return dict(feasible=g.feasible,
                     affinity=g.affinity.astype(np.float32),
                     has_affinity=bool(g.has_affinity),
                     desired=max(g.tg.count, 1), penalty=penalty,
                     coll0=coll0, demand=g.demand.astype(np.float32),
                     count=len(prs), deltas=deltas,
-                    spread_algorithm=stack.spread_algorithm,
-                    wave_key=job.namespace)
-            return ((assign, placed, n_eval, n_exh, scores), ticket)
+                    spread_algorithm=stack.spread_algorithm)
 
+    def _place_bulk(self, cm, job, g, prs, allocs_by_tg, penalty_nodes,
+                    deltas, stack):
+        """Engine-off wavefront placement of len(prs) identical slots of
+        group `g` on the wavefront kernel (ops.place.place_bulk) on the
+        scheduler's device; with the engine, groups go through
+        engine.place_bulk_begin_many instead.  `deltas` are this eval's
+        usage adjustments: its stops, preplacements and the placements of
+        its earlier bulk groups.  Returns ((assign i32[N], placed,
+        nodes_evaluated, nodes_exhausted, scores f32[N]), None)."""
+        from nomad_tpu_torch.ops.place import place_bulk, unpack_bulk
+
+        N = cm.n_rows
+        penalty, coll0 = self._bulk_node_fields(cm, g, allocs_by_tg,
+                                                penalty_nodes)
         base = cm.used.copy()
         for row, vec in deltas:       # this eval's stops/preplacements
             if row < N:

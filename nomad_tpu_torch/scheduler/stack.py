@@ -25,9 +25,14 @@ from nomad_tpu_torch.encode.matrixizer import (
     RES_NET,
     pad_to_bucket,
 )
-from nomad_tpu_torch.convert import place_inputs_from_numpy
+from nomad_tpu_torch.convert import NP_DTYPES, place_inputs_from_numpy
 from nomad_tpu_torch.device import resolve_device
-from nomad_tpu_torch.ops.place import PlaceInputs, PlaceResult, place_eval
+from nomad_tpu_torch.ops.place import (
+    PLACE_INPUT_DTYPES,
+    PlaceInputs,
+    PlaceResult,
+    place_eval,
+)
 from nomad_tpu_torch.scheduler import feasible as fz
 from nomad_tpu_torch.structs.job import Constraint, Job, Operand, Spread, TaskGroup
 from nomad_tpu_torch.structs.config import (
@@ -36,6 +41,12 @@ from nomad_tpu_torch.structs.config import (
 )
 
 IMPLICIT_TARGET = "*"   # reference scheduler/spread.go implicitTarget
+
+
+def _to_device(inputs: PlaceInputs, device) -> PlaceInputs:
+    """Host (numpy) PlaceInputs as torch tensors on `device`."""
+    return place_inputs_from_numpy(
+        {name: getattr(inputs, name) for name in PLACE_INPUT_DTYPES}, device)
 
 
 def group_demand(tg: TaskGroup) -> np.ndarray:
@@ -152,18 +163,19 @@ class DenseStack:
         # preemption-eligibility snapshot so device preemption can still
         # target instance-exhausted nodes
         if dev_reqs:
-            mask &= fz.device_mask(cm, dev_reqs, include_usage=False)
+            mask &= fz.device_mask(cm, dev_reqs, include_usage=False,
+                                   device=self.device)
         feasible_pre_ports = mask.copy()
         device_blocked = None
         place_cap = None
         if dev_reqs:
-            avail = fz.device_mask(cm, dev_reqs)
+            avail = fz.device_mask(cm, dev_reqs, device=self.device)
             device_blocked = mask & ~avail
             mask = mask & avail
             # per-node instance budget for this eval: the kernel's
             # place_cap carry stops it over-subscribing a node's free
             # instances within one eval (deviceAllocator free counts)
-            place_cap = fz.device_place_cap(cm, dev_reqs)
+            place_cap = fz.device_place_cap(cm, dev_reqs, device=self.device)
         static_ports = group_static_ports(tg)
         if static_ports:
             mask &= cm.static_ports_free(static_ports)
@@ -197,7 +209,7 @@ class DenseStack:
 
     # ------------------------------------------------------------- assemble
 
-    def build_inputs(
+    def build_host_inputs(
         self,
         job: Job,
         groups: Sequence[CompiledGroup],
@@ -206,6 +218,9 @@ class DenseStack:
         penalty_nodes: Optional[Dict[str, set]] = None,   # tg name -> node ids
         used_override: Optional[np.ndarray] = None,
     ) -> PlaceInputs:
+        """The eval's PlaceInputs as host numpy arrays (the dtypes of
+        PLACE_INPUT_DTYPES): what the placement engine packs, hashes and
+        uploads through its device cache."""
         cm = self.cm
         N = cm.n_rows
         G = len(groups)
@@ -335,7 +350,7 @@ class DenseStack:
             slot_active[si] = True
 
         used = used_override if used_override is not None else self.cm.used
-        return place_inputs_from_numpy(dict(
+        fields = dict(
             capacity=cm.capacity, used=used.astype(np.float32),
             feasible=feas, affinity=aff, has_affinity=has_aff,
             desired_count=desired, penalty=penalty, tg_count=tg_count,
@@ -343,34 +358,41 @@ class DenseStack:
             spread_wfrac=swfrac, spread_counts=scounts, spread_active=sactive,
             place_cap=place_cap,
             demand=demand, slot_tg=slot_tg, slot_active=slot_active,
-        ), self.device)
+        )
+        return PlaceInputs(**{
+            name: np.ascontiguousarray(fields[name], dtype=NP_DTYPES[dt])
+            for name, dt in PLACE_INPUT_DTYPES.items()})
 
     def place(self, inputs: PlaceInputs, deltas=None) -> PlaceResult:
-        """Run the placement kernel.  Routed through the process-wide
-        PlacementEngine so concurrent evals coalesce into one device
-        dispatch; `deltas` is the sparse (row, f32[R]) usage-adjustment
-        list already applied to inputs.used (the engine re-applies it to a
-        dispatch-time basis in the batched path).
+        """Run the placement kernel on host (numpy) inputs.  Routed
+        through the device's PlacementEngine (unless NOMAD_TPU_ENGINE=0)
+        so concurrent evals coalesce into one device dispatch; the engine
+        uploads the inputs through its device cache.  `deltas` is the
+        sparse (row, f32[R]) usage-adjustment list already applied to
+        inputs.used (the engine re-applies it to a dispatch-time basis).
+        Without the engine the inputs go to the device and the
+        single-eval kernel.
 
         Sets `self.last_ticket`: the caller must hand it back to
         `engine.complete()` once the resulting plan is submitted (the
         generic scheduler does), releasing the in-flight usage overlay."""
         from nomad_tpu_torch.parallel.engine import get_engine
-        eng = get_engine()
+        eng = get_engine(self.device)
         if eng is not None:
             result, self.last_ticket = eng.place(
                 self.cm, inputs, deltas,
                 spread_algorithm=self.spread_algorithm)
             return result
         self.last_ticket = None
-        return place_eval(inputs, spread_algorithm=self.spread_algorithm)
+        return place_eval(_to_device(inputs, self.device),
+                          spread_algorithm=self.spread_algorithm)
 
     def release(self) -> None:
         """Release the in-flight usage contribution of the last place()."""
         ticket = getattr(self, "last_ticket", None)
         if ticket is not None:
             from nomad_tpu_torch.parallel.engine import get_engine
-            eng = get_engine()
+            eng = get_engine(self.device)
             if eng is not None:
                 eng.complete(ticket)
             self.last_ticket = None

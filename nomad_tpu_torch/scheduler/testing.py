@@ -5,7 +5,8 @@ evals, and self-applies plans through the real PlanApplier (the reference
 harness applies via UpsertPlanResults).  `reject_plan` forces the
 state-refresh / partial-commit path like the reference's RejectPlan hook.
 `device` (default "cuda") is where every scheduler it builds runs its
-kernels; tests pass device="cpu" to run the plain PyTorch versions.
+kernels, and the plan applier releases engine tickets on that device's
+engine; tests pass device="cpu" to run the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ class Harness:
     def __init__(self, store: Optional[StateStore] = None, device=None):
         self.device = resolve_device(device)
         self.store = store or StateStore()
-        self.applier = PlanApplier(self.store)
+        self.applier = PlanApplier(self.store, device=self.device)
         self.applier.on_preempted = self._preemption_evals
         self.plans: List[Plan] = []
         self.results: List[PlanResult] = []

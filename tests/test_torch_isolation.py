@@ -86,3 +86,9 @@ def test_kernel_wrappers_refuse_other_devices():
     cap = torch.zeros((8, 4), device="meta")
     with pytest.raises(ValueError):
         tp.place_bulk(cap, cap, None, None, False, 1, None, None, None, 1)
+
+
+def test_scan_covers_the_engine_modules():
+    scanned = {os.path.relpath(p, REPO) for p in _py_files()}
+    for mod in ("knobs.py", "parallel/world.py", "parallel/engine.py"):
+        assert os.path.join("nomad_tpu_torch", mod) in scanned, mod

@@ -1,15 +1,19 @@
 """The port's scheduler slice, end to end on the CPU.
 
 1. Parity: the same 1,000-node world (nodes inserted in the same order, so
-   rows match) and the same job stream go through the reference Harness,
-   run in its own engine-off configuration (NOMAD_TPU_ENGINE=0), and the
-   port's Harness(device="cpu").  Per-job {task group: {row: count}} maps,
+   rows match) and the same job stream go through the reference Harness
+   and the port's Harness(device="cpu"), both in the engine-off
+   configuration (NOMAD_TPU_ENGINE=0; tests/test_torch_engine.py runs the
+   same stream engine-on).  Per-job {task group: {row: count}} maps,
    failed task groups, blocked/follow-up eval counts and the committed
    usage matrix must agree.
 2. A parametrized mirror of tests/test_generic_sched.py against the port.
 3. The one place the port departs from the reference's engine-off path:
    bulk groups of one eval chain (ROADMAP.md queue C), and so match the
    reference run with its engine on.
+
+The mirror runs in the default configuration (engine on); the fixture
+below stops the CPU engine those Harnesses make.
 """
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ import nomad_tpu_torch.mock as port_mock
 import nomad_tpu_torch.scheduler.testing as port_testing
 import nomad_tpu_torch.structs.job as port_job
 from nomad_tpu_torch import mock
+from nomad_tpu_torch.parallel.engine import stop_engines
 from nomad_tpu_torch.scheduler.testing import Harness
 from nomad_tpu_torch.structs import AllocClientStatus, AllocDesiredStatus, EvalStatus
 from nomad_tpu_torch.structs.evaluation import EvalTrigger
@@ -32,6 +37,12 @@ torch.set_num_threads(1)
 
 N_NODES = 1000
 RACKS = 20
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _stop_engines():
+    yield
+    stop_engines()
 
 
 # --------------------------------------------------------------- parity
@@ -127,10 +138,10 @@ def parity_runs():
     mp.setenv("NOMAD_TPU_ENGINE", "0")
     try:
         ref = _drive(ref_mock, ref_job, ref_testing.Harness, {})
+        port = _drive(port_mock, port_job, port_testing.Harness,
+                      {"device": "cpu"})
     finally:
         mp.undo()
-    port = _drive(port_mock, port_job, port_testing.Harness,
-                  {"device": "cpu"})
     return ref, port
 
 
@@ -424,7 +435,8 @@ def test_engine_off_bulk_groups_chain_where_the_reference_overcommits():
     filling node is over-committed, the applier rejects it and the eval
     fails.  The port chains the groups, and so places exactly what the
     reference places with its engine on (which chains the groups of one
-    eval through its FIFO dispatch)."""
+    eval through its FIFO dispatch).  Both engine-off runs pin
+    NOMAD_TPU_ENGINE=0."""
     from nomad_tpu.scheduler.generic import SetStatusError as RefSetStatusError
 
     mp = pytest.MonkeyPatch()
@@ -432,13 +444,13 @@ def test_engine_off_bulk_groups_chain_where_the_reference_overcommits():
     try:
         with pytest.raises(RefSetStatusError, match="maximum attempts"):
             _c2m_filling(ref_mock, ref_job, ref_testing.Harness, {})
+        h, maps = _c2m_filling(port_mock, port_job, port_testing.Harness,
+                               {"device": "cpu"})
         mp.setenv("NOMAD_TPU_ENGINE", "1")
         ref_h, ref_maps = _c2m_filling(ref_mock, ref_job,
                                        ref_testing.Harness, {})
     finally:
         mp.undo()
-    h, maps = _c2m_filling(port_mock, port_job, port_testing.Harness,
-                           {"device": "cpu"})
     assert sum(c for m in maps.values() for tg in m.values()
                for c in tg.values()) == 2000
     assert maps == ref_maps
