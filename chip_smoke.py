@@ -11,9 +11,15 @@ Phases, all run in this order:
            the shapes the main path gives it (N = 16,384 node rows, the
            bucket of a 10,000-node cluster): integer outputs equal, float
            outputs within the tests' tolerances (K1, K2) or bit-equal
-           (K3, K4, K5, K6); CUDA-event times of the kernel, of the plain
+           (K3, K4, K5, K6), K4 also at the bench spine's longest chain
+           (512 groups); CUDA-event times of the kernel, of the plain
            version and, for K5, of the one PyTorch call that computes the
-           same function
+           same function.  Then K1 and K4 past the shared-memory sort,
+           at 32,768 and 131,072 rows (20,000- and 100,000-node
+           clusters, K4 also on a fresh cluster where each wave sorts
+           every ready row), and the stage probe's units K8a-K8f at the
+           bench's shape (N = 10,000, M = 16, R = 4), each against its
+           plain version, K8f also against the K8a->K8e kernel chain
   slice    the engine-off path (NOMAD_TPU_ENGINE=0): the scheduler's
            eval-to-commit path through the entry points a user calls
            (Harness(device="cuda") -> GenericScheduler -> DenseStack ->
@@ -53,6 +59,14 @@ Phases, all run in this order:
            stopped), committed usage equals the live allocs' sum within
            capacity and the engine's device basis equals its host
            snapshot.
+  bench    the port's bench entry point (nomad_tpu_torch/bench.py) on
+           the card: bench_c2m_1m at 10,000 nodes with 1,000 jobs
+           (100,000 allocs, 48 workers), whose stage probe launches
+           K8a-K8f; bench_scan_spread at full size (10,000 nodes, 60
+           spread service jobs of count 100, K3); and
+           bench_kernel_100k_nodes (K4 over 131,072 rows).  Every alloc
+           committed, device_stages present, the steady-state and fused
+           checks clean, the device basis equal to its host snapshot.
 
 Output: the card's name and power limit (nvidia-smi), per-phase lines, a
 `{"kernels": [...]}` line, and as the last line
@@ -110,19 +124,20 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
 
 # --------------------------------------------------------------- inputs
 
-def bulk_inputs(seed: int, main_path: bool):
-    """Seeded K1 inputs over N_ROWS rows; rows past N_NODES are padding
+def bulk_inputs(seed: int, main_path: bool, n_rows: int = N_ROWS,
+                n_nodes: int = N_NODES):
+    """Seeded K1 inputs over n_rows rows; rows past n_nodes are padding
     (infeasible, zero capacity).  main_path: the C2M group on a partly
     loaded uniform cluster; otherwise heterogeneous nodes with
     affinities, penalties, co-placements and count 200."""
     rng = np.random.default_rng(seed)
-    n = N_NODES
-    cap = np.zeros((N_ROWS, 4), np.float32)
-    used = np.zeros((N_ROWS, 4), np.float32)
-    feas = np.zeros(N_ROWS, bool)
-    aff = np.zeros(N_ROWS, np.float32)
-    pen = np.zeros(N_ROWS, bool)
-    coll = np.zeros(N_ROWS, np.int32)
+    n = n_nodes
+    cap = np.zeros((n_rows, 4), np.float32)
+    used = np.zeros((n_rows, 4), np.float32)
+    feas = np.zeros(n_rows, bool)
+    aff = np.zeros(n_rows, np.float32)
+    pen = np.zeros(n_rows, bool)
+    coll = np.zeros(n_rows, np.int32)
     if main_path:
         cap[:n] = [4000, 8192, 102400, 1000]
         used[:n, 0] = rng.integers(0, 40, n) * 30
@@ -411,6 +426,8 @@ def phase_kernels():
     entries["place_bulk_batch"] = check_batch_bulk()
     entries.update(check_world_scatter())
     entries["preempt"] = check_preempt()
+    check_bulk_large()
+    entries.update(check_stage_probe())
     return entries
 
 
@@ -424,10 +441,10 @@ def _bitwise(name, got, ref):
                              f"{float(diff.max()) if diff.size else 0})")
 
 
-def _deltas(rng, k):
+def _deltas(rng, k, n_nodes=N_NODES):
     """k usage deltas on distinct rows (a stop, a preplacement) plus one
     repeated row, integer sizes as real allocs have."""
-    rows = rng.choice(N_NODES, k, replace=False)
+    rows = rng.choice(n_nodes, k, replace=False)
     out = [(int(r), (rng.integers(-3, 4, 4) * np.array([100, 256, 0, 0]))
             .astype(np.float32)) for r in rows]
     out.append((out[0][0], np.array([100, 0, 0, 0], np.float32)))
@@ -507,7 +524,8 @@ def check_batch_scan():
                 bound_ms=bound, bound_by=by, library_ms=None)
 
 
-def batch_bulk_inputs(seed: int, E: int = 16):
+def batch_bulk_inputs(seed: int, E: int = 16, n_rows: int = N_ROWS,
+                      n_nodes: int = N_NODES):
     """K4 inputs: an E-eval chain of C2M groups (count 10, 30 MHz/60 MB)
     on the partly loaded 10,000-node cluster, with random feasibility
     and co-placements, half of them with deltas, then one count-0 pad (a
@@ -515,33 +533,40 @@ def batch_bulk_inputs(seed: int, E: int = 16):
     (capacity, used0, heavy, dyn, D)."""
     from nomad_tpu_torch.ops import place as tp
     rng = np.random.default_rng(seed)
-    a = bulk_inputs(seed, main_path=True)
+    a = bulk_inputs(seed, True, n_rows, n_nodes)
     heavy, lights = [], []
     for e in range(E):
         feas = a["feas"].copy()
-        feas[:N_NODES] = rng.random(N_NODES) < 0.95
-        coll = np.zeros(N_ROWS, np.int32)
-        coll[rng.choice(N_NODES, 20, replace=False)] = 1
+        feas[:n_nodes] = rng.random(n_nodes) < 0.95
+        coll = np.zeros(n_rows, np.int32)
+        coll[rng.choice(n_nodes, 20, replace=False)] = 1
         heavy.append(tp.pack_bulk_heavy(feas, a["aff"], a["pen"], coll))
-        deltas = _deltas(rng, 3) if e % 2 else []
+        deltas = _deltas(rng, 3, n_nodes) if e % 2 else []
         lights.append(tp.pack_bulk_light(False, 10, 10, a["demand"], deltas,
-                                          N_ROWS, DELTA_BUCKET))
+                                          n_rows, DELTA_BUCKET))
     heavy.append(heavy[0])
     lights.append(np.zeros_like(lights[0]))
     return (a["cap"], a["used"], np.stack(heavy), np.concatenate(lights),
             DELTA_BUCKET)
 
 
-def c2m_eval_inputs(seed: int):
+def c2m_eval_inputs(seed: int, n_rows: int = N_ROWS, n_nodes: int = N_NODES,
+                    fresh: bool = False, E: int = 10, count: int = 10):
     """K4 at the main path's shape: one C2M eval's ten groups as the
     engine ships them (every ready row feasible, no co-placements yet,
-    no deltas, so D = 0).  Returns (capacity, used0, heavy, dyn, D)."""
+    no deltas, so D = 0).  fresh: an empty cluster, on which every ready
+    row ties, so each wave's set is the whole cluster (the largest sort);
+    E and count give bench.py bench_kernel_100k_nodes' shape (8 evals of
+    count 512).  Returns (capacity, used0, heavy, dyn, D)."""
     from nomad_tpu_torch.ops import place as tp
-    a = bulk_inputs(seed, main_path=True)
+    a = bulk_inputs(seed, True, n_rows, n_nodes)
+    if fresh:
+        a["used"][:] = 0.0
     h = tp.pack_bulk_heavy(a["feas"], a["aff"], a["pen"], a["coll"])
-    light = tp.pack_bulk_light(False, 10, 10, a["demand"], [], N_ROWS, 0)
-    return (a["cap"], a["used"], np.stack([h] * 10),
-            np.concatenate([light] * 10), 0)
+    light = tp.pack_bulk_light(False, count, count, a["demand"], [], n_rows,
+                               0)
+    return (a["cap"], a["used"], np.stack([h] * E),
+            np.concatenate([light] * E), 0)
 
 
 def _batch_bulk_case(label, inputs, sparse, exact, fill_grid):
@@ -576,23 +601,45 @@ def _batch_bulk_case(label, inputs, sparse, exact, fill_grid):
                                      light[e, 3:7])
         _bitwise(f"place_bulk_batch {label} exact vs host rank-1",
                  outs[0][2], host)
-    log(f"kernels: place_bulk_batch {label}, N={N_ROWS}: placed "
+    log(f"kernels: place_bulk_batch {label}, N={n}: placed "
         f"{int(res[2].sum())}, bit-equal")
     return res
+
+
+# the longest chain the bench's spine gives one K4 launch: the engine's
+# max_batch (C2M-100K averaged about 210 groups a launch, C2M-1M up to 410)
+BENCH_CHAIN = 512
 
 
 def check_batch_bulk():
     """K4 kernel vs plain on the card, bit for bit: an E = 16 chain with
     deltas and a count-0 pad, sparse and dense output, exact carry off
-    and on (the sparse, no-carry form timed); and the main path's shape,
+    and on (the sparse, no-carry form timed); the main path's shape,
     one C2M eval's ten groups with no deltas (D = 0), sparse, with the
-    exact carry the donated dispatch adopts."""
+    exact carry the donated dispatch adopts; and the bench spine's
+    longest chain, BENCH_CHAIN groups with deltas, sparse, with the
+    exact carry (timed)."""
     import torch
     from nomad_tpu_torch.ops import place as tp
+    t = lambda x: torch.from_numpy(np.array(x)).cuda()   # noqa: E731
     fill_grid = tp.fill_grid_for(10)
     main = c2m_eval_inputs(14)
     _batch_bulk_case("E=10 C2M eval, D=0, sparse, exact carry (main path)",
                      main, True, True, fill_grid)
+    bench_chain = batch_bulk_inputs(15, BENCH_CHAIN - 1)
+    res = _batch_bulk_case(
+        f"E={BENCH_CHAIN} C2M chain with deltas and a count-0 pad, sparse, "
+        f"exact carry (the bench spine's longest K4 launch)",
+        bench_chain, True, True, fill_grid)
+    b_args = tuple(t(x) for x in bench_chain[:4]) + (bench_chain[4],)
+    kw = dict(sparse_out=True, fill_grid=fill_grid, exact_out=True)
+    b_ms = time_cuda(lambda: tp.place_bulk_batch(*b_args, **kw), reps=5)
+    b_plain_ms = time_cuda(lambda: tp.place_bulk_batch_plain(*b_args, **kw),
+                           reps=2, warmup=1)
+    bound, by = _k4_bound(bench_chain, res, fill_grid, True)
+    log(f"kernels: place_bulk_batch E={BENCH_CHAIN} bench chain: kernel "
+        f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms, bound {bound:.6f} ms "
+        f"({by})")
     chain = batch_bulk_inputs(12)
     cap, used, heavy, dyn, D = chain
     E, n = heavy.shape[0], cap.shape[0]
@@ -605,7 +652,6 @@ def check_batch_bulk():
             res = _batch_bulk_case(label, chain, sparse, exact, fill_grid)
             if sparse and not exact:
                 timed = res
-    t = lambda x: torch.from_numpy(np.array(x)).cuda()
     kw = dict(sparse_out=True, fill_grid=fill_grid)
     args = (t(cap), t(used), t(heavy), t(dyn), D)
     kern = lambda: tp.place_bulk_batch(*args, **kw)
@@ -829,6 +875,202 @@ def check_preempt():
                 jax_function="preempt_for_task_group",
                 launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=None)
+
+
+# row counts past the shared-memory sort: the ClusterMatrix buckets of a
+# 20,000-node and of a 100,000-node cluster
+LARGE_WORLDS = ((32768, 20000), (131072, 100000))
+
+
+def _k4_bound(inputs, res, fill_grid, sparse):
+    """K4's bound on this run's data: each input read and each output
+    written once, and the grid cells the evals' waves need."""
+    from nomad_tpu_torch.ops import place as tp
+    cap, used, heavy, dyn, D = inputs
+    E, n = heavy.shape[0], cap.shape[0]
+    assign, _, placed, _, _, waves = res
+    width = 3 * tp.SPARSE_CAP + 4 if sparse else 2 * n + 4
+    nbytes = n * 16 * 3 + heavy.nbytes + dyn.nbytes + E * width * 4
+    cells = sum(bulk_cells(n, int(waves[e]), int(np.count_nonzero(assign[e])),
+                           fill_grid) for e in range(E) if placed[e] > 0)
+    return _bound(nbytes, cells * OPS_PER_CELL)
+
+
+def check_bulk_large():
+    """K1 and K4 past the shared-memory sort (the repair of the
+    16,384-row ceiling), at the row counts of a 20,000- and a
+    100,000-node cluster, against their plain versions: K1 integers
+    equal and floats within the tests' tolerances, K4 bit-equal.  K4 on
+    a fresh cluster, where every ready row ties and each wave sorts the
+    whole cluster, and at bench.py bench_kernel_100k_nodes' dispatch
+    shape (8 evals of count 512, dense, fill grid 64), timed."""
+    import torch
+    from nomad_tpu_torch.ops import place as tp
+    t = lambda x: torch.from_numpy(np.array(x)).cuda()   # noqa: E731
+    for n_rows, n_nodes in LARGE_WORLDS:
+        a = bulk_inputs(31, True, n_rows, n_nodes)
+        _, waves, run_rows, kern, plain = check_bulk(
+            a, f"C2M group N={n_rows}", True)
+        check_bulk(bulk_inputs(32, False, n_rows, n_nodes),
+                   f"heterogeneous N={n_rows}", True)
+        fg = tp.fill_grid_for(10)
+        _batch_bulk_case(
+            f"E=10 C2M eval on a fresh {n_nodes}-node world (every ready row "
+            f"in the wave), sparse, exact carry",
+            c2m_eval_inputs(33, n_rows, n_nodes, fresh=True), True, True, fg)
+        _batch_bulk_case(
+            "E=17 C2M chain with deltas and a count-0 pad, dense",
+            batch_bulk_inputs(34, 16, n_rows, n_nodes), False, False, fg)
+        ms = time_cuda(kern, reps=5)
+        plain_ms = time_cuda(plain, reps=3, warmup=1)
+        bound, by = bulk_bound_ms(a, waves, run_rows)
+        log(f"kernels: place_bulk C2M group N={n_rows}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        shape = c2m_eval_inputs(35, n_rows, n_nodes, fresh=True, E=8,
+                                count=512)
+        fg = tp.fill_grid_for(512)
+        res = _batch_bulk_case(
+            f"E=8 evals of count 512 on a fresh {n_nodes}-node world, dense, "
+            f"exact carry (bench_kernel_100k_nodes' dispatch)",
+            shape, False, True, fg)
+        args = tuple(t(x) for x in shape[:4]) + (0,)
+        kw = dict(sparse_out=False, fill_grid=fg)
+        ms = time_cuda(lambda: tp.place_bulk_batch(*args, **kw), reps=5)
+        plain_ms = time_cuda(lambda: tp.place_bulk_batch_plain(*args, **kw),
+                             reps=3, warmup=1)
+        bound, by = _k4_bound(shape, res, fg, False)
+        log(f"kernels: place_bulk_batch E=8 count=512 fresh world N={n_rows}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.6f} ms ({by}), waves {res[5].tolist()}")
+
+
+# the probe's units: wrapper name -> the reference's jitted function
+STAGE_UNITS = {
+    "stage_feasibility": ("feasibility", "nomad_tpu/parallel/stage_probe.py:65"),
+    "stage_fit": ("fit", "nomad_tpu/parallel/stage_probe.py:73"),
+    "stage_score": ("score", "nomad_tpu/parallel/stage_probe.py:77"),
+    "stage_argmax": ("argmax", "nomad_tpu/parallel/stage_probe.py:95"),
+    "stage_scatter": ("scatter", "nomad_tpu/parallel/stage_probe.py:109"),
+    "stage_fused_wave": ("probe_fused.fused_wave",
+                         "nomad_tpu/parallel/stage_probe.py:196"),
+}
+# float32 operations per cell of the fit (two subtractions, two
+# divisions, two powf counted as one each, a sum, a clip, the 1/18), of
+# the score stack, and of a util/fits cell (R multiplies, adds, compares)
+OPS_FIT = 11
+OPS_SCORE = 12
+
+
+def _compare_any(name, got, ref):
+    """Integers and bools equal; floats within the tests' tolerances.
+    Returns (max |err|, bit-equal)."""
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {got.shape} {got.dtype} vs "
+                             f"{ref.shape} {ref.dtype}")
+    if got.dtype != np.float32:
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"{name}: {int((got != ref).sum())} differ")
+        return 0.0, True
+    err = _compare_floats(name, got, ref)
+    return err, bool(np.array_equal(got.view(np.uint32), ref.view(np.uint32)))
+
+
+def check_stage_probe():
+    """K8a-K8f against their plain versions on the card at the bench's
+    shape (N = 10,000 unpadded rows, M = fill_grid_for(10) = 16, R = 4;
+    the probe's seeded inputs): each unit on the same inputs (the plain
+    chain's outputs of the stages before it), integers and bools equal,
+    floats within the tests' tolerances (the log says whether they are
+    bit-equal); the fused wave (K8f) equal to the K8a->K8e kernel chain
+    in used2, coll2 and placed.  CUDA-event times beside the plain
+    versions' and the bounds."""
+    import torch
+    from nomad_tpu_torch.ops import stage_probe as sp
+    from nomad_tpu_torch.parallel import stage_probe as psp
+    n, M, R = N_NODES, 16, 4
+    x = psp.probe_inputs(n, fill_grid=M, device="cuda")
+    cap, used, dem, feas, ms_ = (x[k] for k in ("capacity", "used", "demand",
+                                                "feasible", "ms"))
+    util_m, fits_m = sp.feasibility_plain(cap, used, dem, feas, ms_)
+    fit_m = sp.fit_plain(cap, util_m)
+    score_m = sp.score_plain(fit_m, x["coll"], ms_, x["desired_f"],
+                             x["penalty"], x["affinity"], x["has_affinity"])
+    run, order = sp.argmax_plain(fits_m, score_m, ms_)
+    fused_args = (cap, used, dem, feas, x["affinity"], x["has_affinity"],
+                  x["desired_f"], x["penalty"], x["coll"], x["count"], M)
+    calls = {
+        "stage_feasibility": ("feasibility", (cap, used, dem, feas, ms_)),
+        "stage_fit": ("fit", (cap, util_m)),
+        "stage_score": ("score", (fit_m, x["coll"], ms_, x["desired_f"],
+                                  x["penalty"], x["affinity"],
+                                  x["has_affinity"])),
+        "stage_argmax": ("argmax", (fits_m, score_m, ms_)),
+        "stage_scatter": ("scatter", (run, order, x["count"], used, dem,
+                                      x["coll"])),
+        "stage_fused_wave": ("fused_wave", fused_args),
+    }
+    runs = run.cpu().numpy()
+    extra_cells = int(np.minimum(runs + 1, M).sum()) - n
+    f4 = 4
+    nbytes = {
+        "stage_feasibility": n * R * f4 * 2 + R * f4 + n + M * f4
+        + n * M * R * f4 + n * M,
+        "stage_fit": n * 2 * f4 + n * M * 2 * f4 + n * M * f4,
+        "stage_score": n * M * f4 + n * 3 * f4 + M * f4 + n * M * f4,
+        "stage_argmax": (n + extra_cells) * (1 + f4) + M * f4 + n * 2 * f4,
+        "stage_scatter": n * 2 * f4 + n * R * f4 * 2 + R * f4 + n * f4 * 2
+        + f4,
+        "stage_fused_wave": n * R * f4 * 3 + R * f4 + n + n * f4 * 4 + f4,
+    }
+    ops = {
+        "stage_feasibility": n * M * 3 * R,
+        "stage_fit": n * M * OPS_FIT,
+        "stage_score": n * M * OPS_SCORE,
+        "stage_argmax": 0,
+        "stage_scatter": n * (2 * R + 1),
+        "stage_fused_wave": (n + extra_cells) * OPS_PER_CELL,
+    }
+    entries = {}
+    for name, (fn, args) in calls.items():
+        kern = lambda fn=fn, args=args: getattr(sp, fn)(*args)
+        plain = lambda fn=fn, args=args: getattr(sp, fn + "_plain")(*args)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [_compare_any(f"{name}[{i}]", g, w)
+                for i, (g, w) in enumerate(zip(got, want))]
+        err = max(e for e, _ in errs)
+        bits = all(b for _, b in errs)
+        k_ms = time_cuda(kern)
+        p_ms = time_cuda(plain)
+        bound, by = _bound(nbytes[name], ops[name])
+        log(f"kernels: {name} N={n} M={M}: integers equal, floats "
+            f"{'bit-equal' if bits else f'max |err| {err:.3g}'}; kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        jax_fn, replaces = STAGE_UNITS[name]
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="nomad_tpu_torch/csrc/stage_probe.cu", replaces=replaces,
+            jax_function=jax_fn, launches=0, max_abs_err=err, ms=k_ms,
+            plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None)
+    # the fused wave against the chain of the five unit kernels
+    k_util, k_fits = sp.feasibility(cap, used, dem, feas, ms_)
+    k_fit = sp.fit(cap, k_util)
+    k_score = sp.score(k_fit, x["coll"], ms_, x["desired_f"], x["penalty"],
+                       x["affinity"], x["has_affinity"])
+    k_run, k_order = sp.argmax(k_fits, k_score, ms_)
+    chain = sp.scatter(k_run, k_order, x["count"], used, dem, x["coll"])
+    fused = sp.fused_wave(*fused_args)
+    torch.cuda.synchronize()
+    for nm, c, f in zip(("used2", "coll2", "placed"), chain, fused):
+        _bitwise(f"stage_fused_wave {nm} vs the K8a->K8e chain",
+                 f.cpu().numpy().reshape(-1), c.cpu().numpy().reshape(-1))
+    log(f"kernels: stage_fused_wave: used2, coll2 and placed "
+        f"({int(fused[2])} of {x['count']}) equal to the K8a->K8e kernel "
+        f"chain")
+    return entries
 
 
 # --------------------------------------------------------------- the slice
@@ -1100,18 +1342,21 @@ def _check_world(eng, label):
                              f"tickets left open")
 
 
-def _reset_counts():
+def _launch_counts():
     from nomad_tpu_torch.ops import place as tp
+    from nomad_tpu_torch.ops import stage_probe as sp
     from nomad_tpu_torch.parallel import world as tw
-    for d in (tp.launches, tw.launches):
+    return (tp.launches, tw.launches, sp.launches)
+
+
+def _reset_counts():
+    for d in _launch_counts():
         for k in d:
             d[k] = 0
 
 
 def _counts():
-    from nomad_tpu_torch.ops import place as tp
-    from nomad_tpu_torch.parallel import world as tw
-    return {**tp.launches, **tw.launches}
+    return {k: v for d in _launch_counts() for k, v in d.items()}
 
 
 def phase_engine():
@@ -1660,6 +1905,80 @@ def phase_spine():
     return spine_preemption()
 
 
+# --------------------------------------------------------------- the bench
+
+def phase_bench():
+    """The port's bench entry point (nomad_tpu_torch/bench.py) on the
+    card: C2M at 10,000 nodes with 1,000 jobs (100,000 allocs: BASELINE
+    configs[2]'s C2M size, 10% of C2M-1M's jobs so the script keeps
+    within its time limit) through the spine with 48 workers, then the
+    stage probe (K8); the scan-spread shape at full size (K3); and the
+    100,000-node kernel scenario (K4 at 131,072 rows).  Every alloc must
+    commit, device_stages must be there, the steady-state and fused
+    checks must hold, and each path's kernels must launch.  Returns the
+    launch counts of the C2M run (K8's are its probe's)."""
+    from nomad_tpu_torch import bench
+    rec = bench.Record()
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    rate, placed, want = bench.bench_c2m_1m(n_jobs=1000, deadline_s=300.0,
+                                            device="cuda", rec=rec)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    if placed != want:
+        raise AssertionError(f"bench c2m: {placed} of {want} committed")
+    ds = rec.device_stages.get("c2m_1m")
+    if ds is None:
+        raise AssertionError("bench c2m: no device_stages")
+    steady = rec.steady_state["c2m_1m"]
+    fused = bench.fused_check(rec, "c2m_1m")
+    if rec.basis_matches_host.get("c2m_1m") is not True:
+        raise AssertionError("bench c2m: the device basis differs from the "
+                             "world's host snapshot after the window")
+    if steady["violations"] or fused["violations"]:
+        raise AssertionError(f"bench c2m: {steady['violations']} "
+                             f"{fused['violations']}")
+    need = ["place_bulk_batch"] + list(STAGE_UNITS)
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"bench c2m: a kernel of the path never "
+                             f"launched: {launches}")
+    plan = rec.plan_stats["c2m_1m"]["submit_ms"]
+    log(f"bench c2m_1m (10,000 nodes, 1,000 jobs x 10 groups x count 10, 48 "
+        f"workers): {placed} of {want} allocs committed at {rate:.1f} "
+        f"allocs/s (scenario {wall:.1f} s with world build and warmup); "
+        f"plan.submit p50 {plan['p50']} ms p99 {plan['p99']} ms "
+        f"(n={plan['count']}); steady state {steady['steady_reuploads']} "
+        f"re-uploads, {steady['donated_carries']} donated carries; fused "
+        f"{fused['bulk_parts']} parts for {fused['bulk_groups']} groups; "
+        f"launches {launches}")
+    log(f"bench c2m_1m device_stages: {json.dumps(ds)}")
+
+    _reset_counts()
+    sp_rate = bench.bench_scan_spread(device="cuda", rec=rec)
+    sp_launches = _counts()
+    got = rec.allocs["scan_spread"]
+    if got["placed"] != got["want"] or sp_launches["place_batch"] == 0:
+        raise AssertionError(f"bench scan-spread: {got}, launches "
+                             f"{sp_launches}")
+    plan = rec.plan_stats["scan_spread"]["submit_ms"]
+    log(f"bench scan_spread (10,000 nodes, 60 spread+affinity service jobs "
+        f"x 100, 48 workers): {got['placed']} of {got['want']} committed at "
+        f"{sp_rate:.1f} allocs/s; plan.submit p50 {plan['p50']} ms p99 "
+        f"{plan['p99']} ms; launches {sp_launches}")
+
+    _reset_counts()
+    traj = bench.bench_kernel_100k_nodes(device="cuda")
+    k_launches = _counts()
+    if traj["placed"] != traj["want"] or not traj["basis_matches_host"] \
+            or k_launches["place_bulk_batch"] == 0:
+        raise AssertionError(f"bench kernel_100k_nodes: {traj}, launches "
+                             f"{k_launches}")
+    log(f"bench kernel_100k_nodes: {json.dumps(traj)}; launches "
+        f"{k_launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1691,6 +2010,10 @@ def main() -> int:
     # the server spine, the preemption path last: K6's count is read on
     # its window, set to 0 just before it
     entries["preempt"]["launches"] = phase_spine()["preempt"]
+    # the bench entry point: K8's counts are read on the C2M run's probe
+    bench_launches = phase_bench()
+    for name in STAGE_UNITS:
+        entries[name]["launches"] = bench_launches[name]
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import threading
 import time as _time
+from collections import deque
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -40,6 +41,7 @@ from nomad_tpu_torch.structs import Allocation, Node
 from nomad_tpu_torch.structs.namespace import alloc_quota_usage, usage_add
 from nomad_tpu_torch.structs.node import NodeStatus
 from nomad_tpu_torch.structs.plan import Plan, PlanResult
+from nomad_tpu_torch.telemetry import global_metrics
 
 
 # plans coalesced per commit (one indexed write for the whole batch): a
@@ -74,6 +76,11 @@ class PlanApplier:
         self._overlay_lock = threading.Lock()
         self._overlay: Dict[int, tuple] = {}
         self._overlay_seq = 0
+        # (t0, t1) wall windows of each coalesced commit (the store or FSM
+        # write); the bench intersects them with the engine's device
+        # windows for commit_overlap_s.  Appended by the one commit thread
+        # at a time; readers tolerate staleness.
+        self.commit_windows = deque(maxlen=8192)
         self.stats = {"applied": 0, "rejected_nodes": 0, "partial": 0,
                       "pipelined": 0}
 
@@ -116,7 +123,9 @@ class PlanApplier:
                     # second look and let the stale rejection stand
                     commit_in_flight = (commit_t is not None
                                         and commit_t.is_alive())
+                    t0 = _time.time()
                     result = self._evaluate(pending.plan)
+                    global_metrics.measure_since("nomad.plan.evaluate", t0)
                     if commit_in_flight and \
                             self._result_rejected_something(pending.plan,
                                                             result):
@@ -177,6 +186,7 @@ class PlanApplier:
             applied_list = [ap for _, _, ap in entries if ap is not None]
             index = None
             if applied_list:
+                t0c = _time.time()
                 with self._commit_lock:
                     if self._commit_fn is not None:
                         index = self._commit_fn(
@@ -186,6 +196,7 @@ class PlanApplier:
                         index = self.store.latest_index + 1
                         self.store.upsert_plan_results_many(
                             index, applied_list)
+                self.commit_windows.append((t0c, _time.time()))
             for pending, result, applied in entries:
                 try:
                     self._post_commit(pending.plan, result, applied, index)

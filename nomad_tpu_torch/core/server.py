@@ -93,6 +93,7 @@ class Server:
         self._raft_lock = threading.Lock()     # serializes indexed writes
         self._stop = threading.Event()
         self._leader_stop = threading.Event()
+        self._plan_stop = threading.Event()
         self._leader_lock = threading.Lock()
         self._plan_thread: Optional[threading.Thread] = None
         self._threads: List[threading.Thread] = []
@@ -172,8 +173,12 @@ class Server:
             self.broker.set_fair_config(self.store.scheduler_config)
             self.blocked_evals.set_enabled(True)
             self.plan_queue.set_enabled(True)
+            # the applier has its own stop: it keeps applying while the
+            # workers settle on revoke, and stops after them
+            self._plan_stop = threading.Event()
             self._plan_thread = threading.Thread(
-                target=self.applier.run_loop, args=(self.plan_queue, stop),
+                target=self.applier.run_loop,
+                args=(self.plan_queue, self._plan_stop),
                 name="plan-apply", daemon=True)
             self._plan_thread.start()
             # the wave feeder aligns the pool's dequeues: one broker lock
@@ -215,6 +220,7 @@ class Server:
             self.plan_queue.set_enabled(False)
             self.broker.set_enabled(False)
             self.blocked_evals.set_enabled(False)
+            self._plan_stop.set()
             if self._plan_thread:
                 self._plan_thread.join(60.0)
                 self._plan_thread = None

@@ -12,6 +12,7 @@ from __future__ import annotations
 import concurrent.futures
 import logging
 import threading
+import time
 from collections import Counter, deque
 from typing import List, Optional
 
@@ -21,6 +22,7 @@ from nomad_tpu_torch.core.plan_queue import (LeadershipLostError,
 from nomad_tpu_torch.scheduler import factory
 from nomad_tpu_torch.structs import Evaluation, EvalStatus
 from nomad_tpu_torch.structs.plan import Plan, PlanResult
+from nomad_tpu_torch.telemetry import global_metrics
 
 log = logging.getLogger(__name__)
 
@@ -246,6 +248,15 @@ class Worker:
     # ------------------------------------------------------------- planner
 
     def submit_plan(self, plan: Plan) -> PlanResult:
+        t0 = time.time()
+        res = self._submit(plan)
+        global_metrics.measure_since("nomad.plan.submit", t0)
+        # per-namespace latency, as the reference samples it
+        ns = (plan.job.namespace or "default") if plan.job else "default"
+        global_metrics.measure_since(f"nomad.plan.submit.ns.{ns}", t0)
+        return res
+
+    def _submit(self, plan: Plan) -> PlanResult:
         plan.eval_token = getattr(self, "_token", "")
         pending = self.server.enqueue_plan(plan)
         if self.pipeline_depth > 0:

@@ -1,0 +1,174 @@
+// bulk_common.cuh — what the persistent one-block kernels share: the
+// fit score of ops/fit.py, and block-wide reductions, scan and the
+// bitonic key sort over NT = 1024 threads.  Included by place_bulk.cu
+// (K1, K4) and stage_probe.cu (K8); each source builds into its own
+// library, so everything here has internal linkage.
+//
+// Numerics: compiled without fast math and with -fmad=false; powf (not
+// __powf), so each score is the plain PyTorch versions' bit for bit.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 1024;          // threads in the block
+constexpr int NW = NT / 32;       // warps in the block
+constexpr int RES_CPU = 0;
+constexpr int RES_MEM = 1;
+constexpr unsigned long long NO_KEY = ~0ull;
+// rows whose 8-byte sort keys fit in dynamic shared memory (128 KB, under
+// the 227 KB a block may hold); larger sorts use a global scratch
+constexpr int SMEM_SORT_ROWS = 16384;
+
+__device__ __forceinline__ float free_frac(float cap, float use) {
+  float frac = 1.0f - use / cap;
+  if (cap <= 0.0f) frac = (use > 0.0f) ? -INFINITY : 1.0f;
+  return frac;
+}
+
+// ops/fit.py score_fit: BestFit v3 (binpack) or worst fit (spread), in [0, 18]
+__device__ __forceinline__ float score_fit(const float* cap, const float* u,
+                                           int spread) {
+  float total = powf(10.0f, free_frac(cap[RES_CPU], u[RES_CPU])) +
+                powf(10.0f, free_frac(cap[RES_MEM], u[RES_MEM]));
+  float raw = spread ? (total - 2.0f) : (20.0f - total);
+  return fminf(fmaxf(raw, 0.0f), 18.0f);
+}
+
+// float -> unsigned int whose unsigned order is the float order
+__device__ __forceinline__ unsigned int orderable(float f) {
+  unsigned int u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// (a, b) = the two largest values of a multiset, a >= b
+__device__ __forceinline__ void top2_merge(float& a, float& b, float oa, float ob) {
+  float na = fmaxf(a, oa);
+  float nb = fmaxf(fminf(a, oa), fmaxf(b, ob));
+  a = na;
+  b = nb;
+}
+
+// a thread's running top-2 (lax.top_k(x, 2) values: duplicates count)
+__device__ __forceinline__ void top2_push(float& a, float& b, float v) {
+  if (v >= a) { b = a; a = v; } else if (v > b) { b = v; }
+}
+
+__device__ __forceinline__ void warp_top2(float& a, float& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    float oa = __shfl_xor_sync(0xffffffffu, a, o);
+    float ob = __shfl_xor_sync(0xffffffffu, b, o);
+    top2_merge(a, b, oa, ob);
+  }
+}
+
+// Block-wide reductions; every thread returns the result.  The trailing
+// barrier lets the scratch be reused by the next call.
+__device__ float block_max(float v, float* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_max(v);
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  float r = warp_max(sh[lane]);
+  __syncthreads();
+  return r;
+}
+
+__device__ int block_sum(int v, int* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  int r = warp_sum(sh[lane]);
+  __syncthreads();
+  return r;
+}
+
+__device__ void block_top2(float& a, float& b, float* sha, float* shb) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_top2(a, b);
+  if (lane == 0) { sha[warp] = a; shb[warp] = b; }
+  __syncthreads();
+  a = sha[lane];
+  b = shb[lane];
+  warp_top2(a, b);
+  __syncthreads();
+}
+
+// Exclusive prefix sum over the block's threads; *total gets the sum.
+__device__ int block_exclusive_scan(int v, int* sh, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sh[warp] = x;
+  __syncthreads();
+  int w = sh[lane];
+  int wi = w;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, wi, o);
+    if (lane >= o) wi += y;
+  }
+  int warp_prefix = __shfl_sync(0xffffffffu, wi - w, warp);
+  *total = __shfl_sync(0xffffffffu, wi, 31);
+  __syncthreads();
+  return warp_prefix + x - v;
+}
+
+// Ascending bitonic sort of p (a power of two) keys, in shared or global
+// memory; the block's barriers order every pass.
+__device__ void block_bitonic_sort(unsigned long long* keys, int p) {
+  const int tid = threadIdx.x;
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int jj = k >> 1; jj > 0; jj >>= 1) {
+      for (int t = tid; t < (p >> 1); t += NT) {
+        const int i = ((t & ~(jj - 1)) << 1) | (t & (jj - 1));
+        const int l = i | jj;
+        const unsigned long long x = keys[i], y = keys[l];
+        const bool asc = (i & k) == 0;
+        if ((x > y) == asc) { keys[i] = y; keys[l] = x; }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// smallest power of two >= n (and >= 2): the sort's length
+__host__ __device__ __forceinline__ int sort_len(int n) {
+  int p = 2;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Dynamic shared memory for the key sort: the most any launch asks for,
+// set on the kernel before each launch (the same value every time, so
+// concurrent launches from several host threads never see a smaller
+// limit).
+template <class K>
+cudaError_t allow_smem_sort(K kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(SMEM_SORT_ROWS * sizeof(unsigned long long)));
+}
+
+}  // namespace

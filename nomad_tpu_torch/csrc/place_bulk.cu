@@ -31,10 +31,14 @@
 // order (score desc, row asc) is a bitonic sort of 64-bit keys
 // (orderable(-cur) << 32 | row << 8 | run) in dynamic shared memory —
 // 8 bytes a row, 128 KB at N = 16384, under the 227 KB a block may
-// hold.  A block scan of run lengths in sorted order gives the
-// cumulative cap.  Per-row state (used, co-placement count, assign,
-// wave-start score) lives in global memory, which one block reads back
-// through L1/L2.
+// hold.  Past 16,384 rows (a cluster of more than 16,384 nodes) the
+// keys go to a global scratch the wrapper allocates (1 MB at 131,072
+// rows, resident in the 50 MB L2): the wave rows' keys are packed to
+// the front by a block scan and only those are sorted, which gives the
+// same sorted prefix.  The key holds a row in 24 bits, so N <= 2^24.  A
+// block scan of run lengths in sorted order gives the cumulative cap.
+// Per-row state (used, co-placement count, assign, wave-start score)
+// lives in global memory, which one block reads back through L1/L2.
 //
 // K4 per eval: read the light block (has_aff, desired, count, demand,
 // D delta rows and values) and the heavy row f32[4N] (feasible > 0.5,
@@ -55,35 +59,13 @@
 // reciprocal 1.0f/18.0f, which is what XLA compiles the reference's
 // division by that constant into.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "bulk_common.cuh"
 
 namespace {
 
-constexpr int NT = 1024;          // threads in the block
-constexpr int NW = NT / 32;       // warps in the block
 constexpr int R = 4;              // resource dims (cpu, mem, disk, net)
-constexpr int RES_CPU = 0;
-constexpr int RES_MEM = 1;
 constexpr int W = R + 3;          // packed output width
-constexpr unsigned long long NO_KEY = ~0ull;
 constexpr int SPARSE_CAP = 128;   // ops/place.py SPARSE_CAP
-
-__device__ __forceinline__ float free_frac(float cap, float use) {
-  float frac = 1.0f - use / cap;
-  if (cap <= 0.0f) frac = (use > 0.0f) ? -INFINITY : 1.0f;
-  return frac;
-}
-
-// ops/fit.py score_fit: BestFit v3 (binpack) or worst fit (spread), in [0, 18]
-__device__ __forceinline__ float score_fit(const float* cap, const float* u,
-                                           int spread) {
-  float total = powf(10.0f, free_frac(cap[RES_CPU], u[RES_CPU])) +
-                powf(10.0f, free_frac(cap[RES_MEM], u[RES_MEM]));
-  float raw = spread ? (total - 2.0f) : (20.0f - total);
-  return fminf(fmaxf(raw, 0.0f), 18.0f);
-}
 
 struct Row {
   float cap[R];
@@ -123,97 +105,6 @@ __device__ __forceinline__ void grid_cell(const Row& r, const float* dem,
   n = n + (r.aff_on ? 1.0f : 0.0f);
   *fits = f;
   *score = total / n;
-}
-
-__device__ __forceinline__ unsigned int orderable(float f) {
-  unsigned int u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// (a, b) = the two largest values of a multiset, a >= b
-__device__ __forceinline__ void top2_merge(float& a, float& b, float oa, float ob) {
-  float na = fmaxf(a, oa);
-  float nb = fmaxf(fminf(a, oa), fmaxf(b, ob));
-  a = na;
-  b = nb;
-}
-
-__device__ __forceinline__ void warp_top2(float& a, float& b) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float oa = __shfl_xor_sync(0xffffffffu, a, o);
-    float ob = __shfl_xor_sync(0xffffffffu, b, o);
-    top2_merge(a, b, oa, ob);
-  }
-}
-
-// Block-wide reductions; every thread returns the result.  The trailing
-// barrier lets the scratch be reused by the next call.
-__device__ float block_max(float v, float* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  float r = warp_max(sh[lane]);
-  __syncthreads();
-  return r;
-}
-
-__device__ int block_sum(int v, int* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  int r = warp_sum(sh[lane]);
-  __syncthreads();
-  return r;
-}
-
-__device__ void block_top2(float& a, float& b, float* sha, float* shb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  warp_top2(a, b);
-  if (lane == 0) { sha[warp] = a; shb[warp] = b; }
-  __syncthreads();
-  a = sha[lane];
-  b = shb[lane];
-  warp_top2(a, b);
-  __syncthreads();
-}
-
-// Exclusive prefix sum over the block's threads; *total gets the sum.
-__device__ int block_exclusive_scan(int v, int* sh, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) sh[warp] = x;
-  __syncthreads();
-  int w = sh[lane];
-  int wi = w;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, wi, o);
-    if (lane >= o) wi += y;
-  }
-  int warp_prefix = __shfl_sync(0xffffffffu, wi - w, warp);
-  *total = __shfl_sync(0xffffffffu, wi, 31);
-  __syncthreads();
-  return warp_prefix + x - v;
 }
 
 // K1's node fields, as the wrapper passes them
@@ -262,16 +153,51 @@ __device__ __forceinline__ void load_row(Row& r, int i, const float* cap,
   r.aff_on = has_aff && (r.aff != 0.0f);
 }
 
+// The sort key of row j in this wave, NO_KEY unless the row is in the
+// wave set: (orderable(-cur) << 32 | row << 8 | run), ascending = score
+// desc, row asc.  The run stops at the row's first failing column or at
+// run_cap.
+template <class F>
+__device__ __forceinline__ unsigned long long wave_key(
+    int j, const float* __restrict__ capacity, const float* __restrict__ used,
+    int us, const F& fl, const int* __restrict__ coll,
+    const float* __restrict__ cur_buf, bool has_aff, float desired_div,
+    const float* dem, int spread, bool any_strict, float s_star, float top1,
+    float top2, int run_cap) {
+  const float cur = cur_buf[j];
+  const bool fits = cur > -INFINITY;
+  const bool in_wave = any_strict ? (cur > s_star) : (fits && cur == top1);
+  if (!in_wave) return NO_KEY;
+  const float second = (cur == top1) ? top2 : top1;
+  Row r;
+  load_row(r, j, capacity, used, us, coll, fl, has_aff);
+  int run = 0;
+  for (int m = 1; m <= run_cap; ++m) {
+    bool f;
+    float s;
+    grid_cell(r, dem, (float)m, desired_div, spread, &f, &s);
+    if (!(f && (s > second || m == 1))) break;
+    run = m;
+  }
+  return ((unsigned long long)orderable(-cur + 0.0f) << 32) |
+         ((unsigned long long)j << 8) | (unsigned long long)run;
+}
+
 // The wavefront loop (`_bulk_loop`) of one eval.  `used` (row stride
 // `us`) is updated in place; coll/assign/cur_buf are i32/i32/f32[n]
-// scratch, keys p entries of shared memory.  Every thread returns the
-// placed and wave counts.
+// scratch.  `keys` holds p = sort_len(n) entries: in shared memory, every
+// row keyed at its own index and all p sorted; or (compact, for n past
+// SMEM_SORT_ROWS) in a global scratch, the wave rows' keys packed to the
+// front in row order and only sort_len(wave size) of them sorted — the
+// same sorted prefix, since every key outside the wave is NO_KEY.  Every
+// thread returns the placed and wave counts.
 template <class F>
 __device__ void bulk_wavefront(const float* __restrict__ capacity,
                                float* __restrict__ used, int us, const F& fl,
                                int* __restrict__ coll, int* __restrict__ assign,
                                float* __restrict__ cur_buf,
-                               unsigned long long* keys, BulkShared& sh,
+                               unsigned long long* keys, bool compact,
+                               BulkShared& sh,
                                bool has_aff, float desired_div,
                                const float* dem, int count, int spread,
                                int max_waves, int fill_grid, int n, int p,
@@ -298,7 +224,7 @@ __device__ void bulk_wavefront(const float* __restrict__ capacity,
       grid_cell(r, dem, 2.0f, desired_div, spread, &f2, &s2);
       float cur = f1 ? s1 : -INFINITY;
       cur_buf[i] = cur;
-      if (cur >= a) { b = a; a = cur; } else if (cur > b) { b = cur; }
+      top2_push(a, b, cur);
       if (f2) smax = fmaxf(smax, s2);
       anyfit |= f1 ? 1 : 0;
     }
@@ -320,49 +246,40 @@ __device__ void bulk_wavefront(const float* __restrict__ capacity,
     // -- run lengths of the wave rows, as sort keys
     const int remaining = count - placed;
     const int run_cap = min(fill_grid, remaining);
-    for (int j = tid; j < p; j += NT) {
-      unsigned long long key = NO_KEY;
-      if (j < n) {
-        const float cur = cur_buf[j];
-        const bool fits = cur > -INFINITY;
-        const bool in_wave = any_strict ? (cur > s_star) : (fits && cur == top1);
-        if (in_wave) {
-          const float second = (cur == top1) ? top2 : top1;
-          Row r;
-          load_row(r, j, capacity, used, us, coll, fl, has_aff);
-          int run = 0;
-          for (int m = 1; m <= run_cap; ++m) {
-            bool f;
-            float s;
-            grid_cell(r, dem, (float)m, desired_div, spread, &f, &s);
-            if (!(f && (s > second || m == 1))) break;
-            run = m;
-          }
-          key = ((unsigned long long)orderable(-cur + 0.0f) << 32) |
-                ((unsigned long long)j << 8) | (unsigned long long)run;
-        }
+    int q = p;               // keys to sort
+    if (!compact) {
+      for (int j = tid; j < p; j += NT) {
+        keys[j] = (j < n) ? wave_key(j, capacity, used, us, fl, coll, cur_buf,
+                                     has_aff, desired_div, dem, spread,
+                                     any_strict, s_star, top1, top2, run_cap)
+                          : NO_KEY;
       }
-      keys[j] = key;
+    } else {
+      int base = 0;
+      for (int c0 = 0; c0 < n; c0 += NT) {
+        const int j = c0 + tid;
+        const unsigned long long key =
+            (j < n) ? wave_key(j, capacity, used, us, fl, coll, cur_buf,
+                               has_aff, desired_div, dem, spread, any_strict,
+                               s_star, top1, top2, run_cap)
+                    : NO_KEY;
+        const int in = (key != NO_KEY) ? 1 : 0;
+        int total;
+        const int pos = base + block_exclusive_scan(in, sh.i, &total);
+        if (in) keys[pos] = key;
+        base += total;
+      }
+      q = sort_len(base);
+      for (int k = base + tid; k < q; k += NT) keys[k] = NO_KEY;
     }
     __syncthreads();
 
     // -- greedy order: bitonic sort of the keys, ascending
-    for (int k = 2; k <= p; k <<= 1) {
-      for (int jj = k >> 1; jj > 0; jj >>= 1) {
-        for (int t = tid; t < (p >> 1); t += NT) {
-          const int i = ((t & ~(jj - 1)) << 1) | (t & (jj - 1));
-          const int l = i | jj;
-          const unsigned long long x = keys[i], y = keys[l];
-          const bool asc = (i & k) == 0;
-          if ((x > y) == asc) { keys[i] = y; keys[l] = x; }
-        }
-        __syncthreads();
-      }
-    }
+    block_bitonic_sort(keys, q);
 
     // -- cumulative cap at the remaining count, in sorted order
-    const int per = (p + NT - 1) / NT;
-    const int lo = min(tid * per, p), hi = min(lo + per, p);
+    const int per = (q + NT - 1) / NT;
+    const int lo = min(tid * per, q), hi = min(lo + per, q);
     int local = 0;
     for (int k = lo; k < hi; ++k) {
       const unsigned long long key = keys[k];
@@ -429,9 +346,11 @@ place_bulk_kernel(const float* __restrict__ capacity,
                   const int* __restrict__ coll0,
                   const float* __restrict__ demand, int count, int spread,
                   int max_waves, int fill_grid, int n, int p,
-                  float* __restrict__ out, int* __restrict__ scratch) {
-  extern __shared__ unsigned long long keys[];   // p entries
+                  float* __restrict__ out, int* __restrict__ scratch,
+                  unsigned long long* gkeys) {
+  extern __shared__ unsigned long long skeys[];  // p entries, or none
   __shared__ BulkShared sh;
+  unsigned long long* keys = gkeys ? gkeys : skeys;
 
   const int tid = threadIdx.x;
   int* coll = scratch;                                   // i32[n]
@@ -452,9 +371,9 @@ place_bulk_kernel(const float* __restrict__ capacity,
   __syncthreads();
 
   int placed, waves, n_eval, n_exh;
-  bulk_wavefront(capacity, used, W, fl, coll, assign, cur_buf, keys, sh,
-                 has_aff, desired_div, dem, count, spread, max_waves,
-                 fill_grid, n, p, &placed, &waves);
+  bulk_wavefront(capacity, used, W, fl, coll, assign, cur_buf, keys,
+                 gkeys != nullptr, sh, has_aff, desired_div, dem, count,
+                 spread, max_waves, fill_grid, n, p, &placed, &waves);
   bulk_tail(capacity, used, W, fl, coll, sh, has_aff, desired_div, dem,
             spread, n, out + R + 1, W, &n_eval, &n_exh);
   for (int i = tid; i < n; i += NT) {
@@ -480,9 +399,10 @@ place_bulk_batch_kernel(const float* __restrict__ capacity,
                         int sparse, int spread, int max_waves, int fill_grid,
                         int exact_out, int p, float* used,
                         float* __restrict__ out, int* __restrict__ scratch,
-                        float* __restrict__ delta) {
-  extern __shared__ unsigned long long keys[];   // p entries
+                        float* __restrict__ delta, unsigned long long* gkeys) {
+  extern __shared__ unsigned long long skeys[];  // p entries, or none
   __shared__ BulkShared sh;
+  unsigned long long* keys = gkeys ? gkeys : skeys;
 
   const int tid = threadIdx.x;
   int* coll = scratch;
@@ -524,9 +444,9 @@ place_bulk_batch_kernel(const float* __restrict__ capacity,
     }
 
     int placed, waves, n_eval, n_exh;
-    bulk_wavefront(capacity, used, R, fl, coll, assign, cur_buf, keys, sh,
-                   has_aff, desired_div, dem, count, spread, max_waves,
-                   fill_grid, n, p, &placed, &waves);
+    bulk_wavefront(capacity, used, R, fl, coll, assign, cur_buf, keys,
+                   gkeys != nullptr, sh, has_aff, desired_div, dem, count,
+                   spread, max_waves, fill_grid, n, p, &placed, &waves);
     // sparse rows read the scores back from cur_buf
     bulk_tail(capacity, used, R, fl, coll, sh, has_aff, desired_div, dem,
               spread, n, sparse ? cur_buf : o + n, 1, &n_eval, &n_exh);
@@ -576,6 +496,8 @@ place_bulk_batch_kernel(const float* __restrict__ capacity,
 
 }  // namespace
 
+// gkeys: NULL for n <= SMEM_SORT_ROWS (the sort runs in shared memory),
+// else a u64[sort_len(n)] global scratch (compacted wave sort)
 extern "C" int place_bulk_launch(const float* capacity, const float* used0,
                                  const uint8_t* feasible,
                                  const float* affinity, int has_affinity,
@@ -583,16 +505,17 @@ extern "C" int place_bulk_launch(const float* capacity, const float* used0,
                                  const int* coll0, const float* demand,
                                  int count, int spread, int max_waves,
                                  int fill_grid, int n, float* out,
-                                 int* scratch, void* stream) {
-  int p = 2;
-  while (p < n) p <<= 1;
-  const size_t smem = (size_t)p * sizeof(unsigned long long);
-  cudaError_t err = cudaFuncSetAttribute(
-      place_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                 int* scratch, unsigned long long* gkeys,
+                                 void* stream) {
+  const int p = sort_len(n);
+  if ((gkeys == nullptr) != (n <= SMEM_SORT_ROWS)) return (int)cudaErrorInvalidValue;
+  const size_t smem = gkeys ? 0 : (size_t)p * sizeof(unsigned long long);
+  cudaError_t err = allow_smem_sort(place_bulk_kernel);
   if (err != cudaSuccess) return (int)err;
   place_bulk_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
       capacity, used0, feasible, affinity, has_affinity, desired, penalty,
-      coll0, demand, count, spread, max_waves, fill_grid, n, p, out, scratch);
+      coll0, demand, count, spread, max_waves, fill_grid, n, p, out, scratch,
+      gkeys);
   return (int)cudaGetLastError();
 }
 
@@ -602,16 +525,15 @@ extern "C" int place_bulk_batch_launch(const float* capacity, float* used0,
                                        int spread, int max_waves,
                                        int fill_grid, int exact_out,
                                        float* used, float* out, int* scratch,
-                                       float* delta, void* stream) {
-  int p = 2;
-  while (p < n) p <<= 1;
-  const size_t smem = (size_t)p * sizeof(unsigned long long);
-  cudaError_t err = cudaFuncSetAttribute(
-      place_bulk_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                                       float* delta, unsigned long long* gkeys,
+                                       void* stream) {
+  const int p = sort_len(n);
+  if ((gkeys == nullptr) != (n <= SMEM_SORT_ROWS)) return (int)cudaErrorInvalidValue;
+  const size_t smem = gkeys ? 0 : (size_t)p * sizeof(unsigned long long);
+  cudaError_t err = allow_smem_sort(place_bulk_batch_kernel);
   if (err != cudaSuccess) return (int)err;
   place_bulk_batch_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
       capacity, used0, heavy, dyn, E, n, D, sparse, spread, max_waves,
-      fill_grid, exact_out, p, used, out, scratch, delta);
+      fill_grid, exact_out, p, used, out, scratch, delta, gkeys);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,8 @@
             sources), each with its plain PyTorch version
 - preempt.py the preemption victim selection (K6, csrc/preempt.cu) with its
             plain PyTorch version, and the host ranking helpers
+- stage_probe.py the stage probe's units (K8a-K8f, csrc/stage_probe.cu):
+            the wave pipeline's stages as kernels of their own, and fused
 """
 
 from nomad_tpu_torch.ops.fit import (

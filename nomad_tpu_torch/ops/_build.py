@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one source file in nomad_tpu_torch/csrc/ with a plain C
-interface.  At first use it is compiled with nvcc for Hopper (sm_90a)
-into a shared library under nomad_tpu_torch/build/ (named by the
-source's content hash, so an edited source rebuilds) and loaded with
+interface (sources may include the shared headers there, `*.cuh`).  At
+first use it is compiled with nvcc for Hopper (sm_90a) into a shared
+library under nomad_tpu_torch/build/ (named by a hash of the source and
+the headers, so an edited source or header rebuilds) and loaded with
 ctypes.  `build_all()` starts one nvcc per source at once.
 
 Flags: -O3, no fast math, and -fmad=false, so that every multiply and
@@ -23,21 +24,24 @@ from typing import Dict, List, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-KERNELS = ("place_bulk", "place_scan", "world_scatter", "preempt")
+KERNELS = ("place_bulk", "place_scan", "world_scatter", "preempt",
+           "stage_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points of each kernel source and their argument types
-# (pointers and the stream as c_void_p, ints as c_int); every entry
+# (pointers and the stream as c_void_p, ints as c_int, floats as
+# c_float); every entry
 # point returns cudaError_t
 _ARGTYPES: Dict[str, Dict[str, List]] = {
     "place_bulk": {
         "place_bulk_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _P, _P, _P],
-        "place_bulk_batch_launch": [_P] * 4 + [_I] * 8 + [_P] * 5,
+                              _I, _I, _I, _P, _P, _P, _P],
+        "place_bulk_batch_launch": [_P] * 4 + [_I] * 8 + [_P] * 6,
     },
     "place_scan": {
         "place_scan_launch": [_P] * 18 + [_I] * 6 + [_P] * 6,
@@ -49,6 +53,15 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
     },
     "preempt": {
         "preempt_launch": [_P] * 5 + [_I] * 4 + [_P] * 4,
+    },
+    "stage_probe": {
+        "feasibility_launch": [_P] * 5 + [_I, _I] + [_P] * 3,
+        "fit_launch": [_P, _P, _I, _I, _P, _P],
+        "score_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P],
+        "argmax_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "scatter_launch": [_P, _P, _I, _P, _P, _P, _I] + [_P] * 5,
+        "fused_wave_launch": [_P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _I,
+                              _I] + [_P] * 6,
     },
 }
 
@@ -70,9 +83,14 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    """The library's path, named by a hash of its source, the shared
+    headers it may include and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [f"{name}.cu"] + sorted(f for f in os.listdir(SRC_DIR)
+                                        if f.endswith(".cuh")):
+        with open(os.path.join(SRC_DIR, src), "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

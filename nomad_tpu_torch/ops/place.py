@@ -53,8 +53,11 @@ PACKED_WIDTH = 5 + 2 * TOP_K
 # reciprocal, so the port multiplies by the same f32 constant (the CUDA
 # kernels use 1.0f / 18.0f, the identical value)
 FIT_NORM = float(np.float32(1.0) / np.float32(18.0))
-# the bulk kernel sorts its wave set in shared memory, 8 bytes a row
-BULK_MAX_ROWS = 16384
+# the bulk kernel sorts its wave set in shared memory, 8 bytes a row, up
+# to this many rows; past it in a global scratch the wrapper allocates
+BULK_SMEM_ROWS = 16384
+# its sort key holds a row in 24 bits
+BULK_MAX_ROWS = 1 << 24
 # the scan kernel keeps per-spread statistics in shared memory
 SCAN_MAX_SPREADS = 64
 
@@ -280,6 +283,22 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def sort_scratch(N: int, dev: torch.device) -> Optional[torch.Tensor]:
+    """The global key scratch of a one-block sort over N rows (u64 keys,
+    the next power of two of them), or None where the kernel sorts in
+    shared memory (N <= BULK_SMEM_ROWS)."""
+    if N <= BULK_SMEM_ROWS:
+        return None
+    p = 2
+    while p < N:
+        p *= 2
+    return torch.empty(p, dtype=torch.int64, device=dev)
+
+
 def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
@@ -498,8 +517,8 @@ def place_bulk(capacity, used0, feasible, affinity, has_affinity: bool,
         raise ValueError(f"place_bulk: R={R}, kernel takes {NUM_RESOURCE_DIMS}")
     if not 4 <= N <= BULK_MAX_ROWS:
         raise ValueError(
-            f"place_bulk: N={N}; the kernel sorts each wave in shared memory "
-            f"and takes 4..{BULK_MAX_ROWS} rows")
+            f"place_bulk: N={N}; the kernel's sort key holds a row in 24 "
+            f"bits and takes 4..{BULK_MAX_ROWS} rows")
     if fill_grid not in FILL_GRID_BUCKETS:
         # the kernel packs each row's run (<= fill_grid) into 8 key bits
         raise ValueError(f"place_bulk: fill_grid={fill_grid}; the kernel "
@@ -515,12 +534,13 @@ def place_bulk(capacity, used0, feasible, affinity, has_affinity: bool,
     lib = _build.load("place_bulk")
     out = torch.empty((N, R + 3), dtype=f32, device=dev)
     scratch = torch.empty((3, N), dtype=i32, device=dev)
+    keys = sort_scratch(N, dev)
     rc = lib.place_bulk_launch(
         _ptr(capacity), _ptr(used0), _ptr(feasible), _ptr(affinity),
         int(bool(has_affinity)), int(desired), _ptr(penalty), _ptr(coll0),
         _ptr(demand), int(count), int(bool(spread_algorithm)),
         int(max_waves), int(fill_grid), N, _ptr(out), _ptr(scratch),
-        _stream(dev))
+        _opt_ptr(keys), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"place_bulk kernel launch failed: CUDA error {rc}")
     launches["place_bulk"] += 1
@@ -924,8 +944,8 @@ def place_bulk_batch(capacity: torch.Tensor, used0: torch.Tensor,
                          f"{NUM_RESOURCE_DIMS}")
     if not 4 <= N <= BULK_MAX_ROWS:
         raise ValueError(
-            f"place_bulk_batch: N={N}; the kernel sorts each wave in shared "
-            f"memory and takes 4..{BULK_MAX_ROWS} rows")
+            f"place_bulk_batch: N={N}; the kernel's sort key holds a row in "
+            f"24 bits and takes 4..{BULK_MAX_ROWS} rows")
     if fill_grid not in FILL_GRID_BUCKETS:
         raise ValueError(f"place_bulk_batch: fill_grid={fill_grid}; the "
                          f"kernel takes one of {FILL_GRID_BUCKETS}")
@@ -942,11 +962,12 @@ def place_bulk_batch(capacity: torch.Tensor, used0: torch.Tensor,
     used = torch.empty((N, R), dtype=f32, device=dev)
     scratch = torch.empty((3, N), dtype=torch.int32, device=dev)
     delta = torch.empty((N if D else 1, R), dtype=f32, device=dev)
+    keys = sort_scratch(N, dev)
     rc = lib.place_bulk_batch_launch(
         _ptr(capacity), _ptr(used0), _ptr(heavy), _ptr(dyn), E, N, int(D),
         int(bool(sparse_out)), int(bool(spread_algorithm)), int(max_waves),
         int(fill_grid), int(bool(exact_out)), _ptr(used), _ptr(packed),
-        _ptr(scratch), _ptr(delta), _stream(dev))
+        _ptr(scratch), _ptr(delta), _opt_ptr(keys), _stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"place_bulk_batch kernel launch failed: CUDA error {rc}")

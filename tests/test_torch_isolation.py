@@ -141,3 +141,38 @@ def test_preempt_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tk.preempt_for_task_group(res, res[..., 0].int(), res[..., 0].bool(),
                                   res[:, 0], res[0, 0])
+
+
+def test_scan_covers_the_bench_modules():
+    scanned = {os.path.relpath(p, REPO) for p in _py_files()}
+    for mod in ("bench.py", "telemetry.py", "parallel/stage_probe.py",
+                "ops/stage_probe.py"):
+        assert os.path.join("nomad_tpu_torch", mod) in scanned, mod
+
+
+_PROBE = r"""
+import sys
+from nomad_tpu_torch import bench
+from nomad_tpu_torch.parallel import stage_probe
+ds = stage_probe.device_stages({"device_s": 1.0}, 64, iters=1,
+                               fill_grid=16, device="cpu")
+assert ds["dominant_stage"] in stage_probe.STAGES
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "nomad_tpu" or m.startswith("nomad_tpu."))
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_bench_and_stage_probe_load_neither_jax_nor_reference():
+    assert _loaded(_PROBE) == ["LOADED:"]
+
+
+def test_stage_probe_wrappers_refuse_other_devices():
+    from nomad_tpu_torch.ops import stage_probe as sp
+    m = torch.zeros((8, 16), device="meta")
+    with pytest.raises(ValueError):
+        sp.argmax(m.bool(), m, m[0])
+    with pytest.raises(ValueError):
+        sp.scatter(m[:, 0].int(), m[:, 0].int(), 4, m[:, :4], m[0, :4],
+                   m[:, 0].int())

@@ -14,12 +14,15 @@ is held bitwise against the port's own rank-1 host update
 (native.scatter_add_rank1), which is what keeps the world's device basis
 and host snapshot in lockstep.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from nomad_tpu.ops import place as rp
+try:
+    import jax.numpy as jnp
+    from nomad_tpu.ops import place as rp
+except ImportError:     # a machine with a card and no JAX runs the cuda
+    jnp = rp = None     # tests only (-m cuda)
 from nomad_tpu_torch import native
 from nomad_tpu_torch.ops import place as tp
 
@@ -268,3 +271,96 @@ def test_bulk_batch_wrapper_refuses_other_devices():
         tp.place_bulk_batch(cap, cap, cap, cap, 0)
     with pytest.raises(ValueError):
         tp.place_batch_packed(cap, cap, cap, cap, (1, 8, 1, 2, 16, 64))
+
+
+# ------------------------------------------------------- K4 past 16,384 rows
+
+LARGE_CASES = {
+    # every row of a fresh uniform world ties: the wave set is every
+    # feasible row, the most the kernel's sort must order
+    "uniform_sparse": ([10, 10, 120], False, False),
+    "mixed_dense_deltas": ([400, 30], True, True),
+}
+
+
+def _large_bulk_batch(n, counts, with_deltas, extras, seed):
+    cap, used, heavy, dyn, D = _bulk_batch(n, counts, with_deltas, extras,
+                                           0, seed)
+    if not extras:
+        # a uniform world (one node class, empty), as a new cluster is
+        cap[:] = cap[0]
+        used[:] = 0.0
+    return cap, used, heavy, dyn, D
+
+
+@pytest.mark.parametrize("case", sorted(LARGE_CASES))
+def test_bulk_batch_matches_reference_past_the_shared_memory_sort(case):
+    """N = 32,768 (a cluster of 16,385 to 32,768 nodes): the row count
+    at which the kernel's wave sort leaves shared memory.  The plain
+    version, which the kernel is held to on the card, equals the
+    reference there."""
+    counts, with_deltas, extras = LARGE_CASES[case]
+    n = 32768
+    cap, used, heavy, dyn, D = _large_bulk_batch(n, counts, with_deltas,
+                                                 extras, seed=17)
+    sparse = all(c <= tp.SPARSE_CAP for c in counts)
+    kw = dict(sparse_out=sparse, fill_grid=tp.fill_grid_for(max(counts)))
+    ref_packed, ref_used = rp.place_bulk_batch_jit(cap, used, heavy, dyn, D,
+                                                   **kw)
+    t = torch.from_numpy
+    packed, used_f = tp.place_bulk_batch(t(cap), t(used.copy()), t(heavy),
+                                         t(dyn), D, **kw)
+    got = tp.unpack_bulk_batch(packed.numpy(), n, sparse=sparse)
+    ref = tp.unpack_bulk_batch(np.asarray(ref_packed), n, sparse=sparse)
+    for i in (0, 2, 3, 4, 5):       # assign, placed, n_eval, n_exh, waves
+        np.testing.assert_array_equal(got[i], ref[i])
+    np.testing.assert_allclose(got[1], ref[1], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(used_f.numpy(), np.asarray(ref_used),
+                               rtol=RTOL)
+    assert (got[2] == np.array(counts)).all()
+
+
+def test_bulk_wrappers_take_rows_past_the_shared_memory_sort():
+    """The row ceiling is the sort key's 24 row bits, not shared memory;
+    past BULK_SMEM_ROWS the wrapper allocates a global key scratch."""
+    assert tp.BULK_MAX_ROWS == 1 << 24
+    assert tp.sort_scratch(tp.BULK_SMEM_ROWS, torch.device("cpu")) is None
+    keys = tp.sort_scratch(100_000, torch.device("cpu"))
+    assert keys.shape == (131072,) and keys.dtype == torch.int64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32768, 131072])
+def test_bulk_kernels_match_plain_past_the_shared_memory_sort(n):
+    """K1 and K4 on the card at 32,768 and 131,072 rows, the sizes of a
+    20,000- and a 100,000-node cluster, against their plain versions:
+    integers equal, K4's outputs bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    for case in sorted(LARGE_CASES):
+        counts, with_deltas, extras = LARGE_CASES[case]
+        cap, used, heavy, dyn, D = _large_bulk_batch(n, counts, with_deltas,
+                                                     extras, seed=n)
+        sparse = all(c <= tp.SPARSE_CAP for c in counts)
+        kw = dict(sparse_out=sparse, fill_grid=tp.fill_grid_for(max(counts)),
+                  exact_out=True)
+        c = lambda a: torch.from_numpy(np.array(a)).cuda()   # noqa: E731
+        got = tp.place_bulk_batch(c(cap), c(used), c(heavy), c(dyn), D, **kw)
+        want = tp.place_bulk_batch_plain(c(cap), c(used), c(heavy), c(dyn), D,
+                                         **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy().view(np.uint32),
+                                          w.cpu().numpy().view(np.uint32))
+        res = tp.unpack_bulk_batch(got[0].cpu().numpy(), n, sparse=sparse)
+        assert (res[2] == np.array(counts)).all()
+        e = heavy[0]
+        args = (c(cap), c(used), c(e[:n] > 0.5), c(e[n:2 * n]),
+                True, 10, c(e[2 * n:3 * n] > 0.5),
+                c(e[3 * n:].astype(np.int32)), c(dyn[3:7]), counts[0])
+        k1 = tp.unpack_bulk(tp.place_bulk(*args).cpu().numpy())
+        p1 = tp.unpack_bulk(tp.place_bulk_plain(*args).cpu().numpy())
+        np.testing.assert_array_equal(k1[0], p1[0])
+        assert k1[1:4] + (k1[5],) == p1[1:4] + (p1[5],)
+        np.testing.assert_allclose(k1[4], p1[4], rtol=RTOL, atol=ATOL)

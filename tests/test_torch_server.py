@@ -419,6 +419,37 @@ def test_server_end_to_end_spine_and_stop():
     assert _spine_threads(before) == []
 
 
+def test_server_stops_promptly_with_plans_in_flight(monkeypatch):
+    """stop() on a busy server: the workers finish their evals while the
+    applier still drains the plan queue, so a worker waiting on its
+    plan's result is never left to its join timeout (60 s a worker, one
+    after another) behind an applier that already stopped."""
+    real = PlanApplier._evaluate
+
+    def slow_evaluate(self, plan):
+        time.sleep(0.02)
+        return real(self, plan)
+
+    monkeypatch.setattr(PlanApplier, "_evaluate", slow_evaluate)
+    before = set(threading.enumerate())
+    s = Server(ServerConfig(num_schedulers=8), device="cpu")
+    s.start()
+    for _ in range(32):
+        s.register_node(mock.node())
+    for _ in range(24):
+        job = mock.batch_job()
+        job.task_groups[0].count = 4
+        s.register_job(job)
+    assert _wait(lambda: s.plan_queue.depth() >= 2, 30.0)
+    stopper = threading.Thread(target=s.stop)
+    t0 = time.monotonic()
+    stopper.start()
+    stopper.join(45.0)
+    assert not stopper.is_alive()
+    assert time.monotonic() - t0 < 30.0
+    assert _spine_threads(before) == []
+
+
 def test_worker_counts_failed_evals_by_cause(monkeypatch):
     """An eval the scheduler fails on is marked failed and redelivered,
     and the worker counts the error by cause, so a caller can tell the
