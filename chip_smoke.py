@@ -67,6 +67,23 @@ Phases, all run in this order:
            bench_kernel_100k_nodes (K4 over 131,072 rows).  Every alloc
            committed, device_stages present, the steady-state and fused
            checks clean, the device basis equal to its host snapshot.
+  sharded  the sharded serving path (K7a-K7g, csrc/sharded.cu, and K5',
+           the world scatters with a row offset) on meshes of the card
+           repeated (cuda:0 eight times, (8, 1) and (4, 2)): the first
+           64 launches of each K7 kernel in scan chains and a batch of
+           independent evals (N = 16,384) and in laned bulk chains
+           (N = 16,384 and 131,072) checked bit for bit against its plain
+           version, each function bit-equal to its plain form and equal
+           to the unsharded K2/K3/K4 in rows, counts and waves; K5' on
+           every shard; then the engine phase's 10,000-node stream on a (4, 2)
+           engine (the main path: K7's counts are read there) with
+           per-job row maps equal to the single-device engine's, a
+           donation-off run (K5' add_rank1_local), bench_e2e_spine's
+           shape on (8, 1) with one worker against the single-device
+           server, and C2M jobs through the spine with 48 workers on
+           (4, 2) (LOAD_JOBS of C2M-1M's 10,000, for the time limit);
+           each run with every alloc committed and the sharded device
+           basis bit-equal to its host snapshot.
 
 Output: the card's name and power limit (nvidia-smi), per-phase lines, a
 `{"kernels": [...]}` line, and as the last line
@@ -1344,9 +1361,10 @@ def _check_world(eng, label):
 
 def _launch_counts():
     from nomad_tpu_torch.ops import place as tp
+    from nomad_tpu_torch.ops import sharded as k7
     from nomad_tpu_torch.ops import stage_probe as sp
     from nomad_tpu_torch.parallel import world as tw
-    return (tp.launches, tw.launches, sp.launches)
+    return (tp.launches, tw.launches, sp.launches, k7.launches)
 
 
 def _reset_counts():
@@ -1979,6 +1997,800 @@ def phase_bench():
     return launches
 
 
+# --------------------------------------------------------- the sharded path
+
+# the meshes of one card repeated: (node_shard, wave)
+SHARD_SHAPES = ((8, 1), (4, 2))
+# K7 wrapper (ops/sharded.py) -> (json name, the reference's jitted function)
+K7_UNITS = {
+    "scan_local": ("shard_scan_local",
+                   "nomad_tpu/parallel/sharded.py:434"),
+    "scan_apply": ("shard_scan_apply",
+                   "nomad_tpu/parallel/sharded.py:434"),
+    "bulk_stats": ("shard_bulk_stats",
+                   "nomad_tpu/parallel/sharded.py:485"),
+    "bulk_run": ("shard_bulk_run", "nomad_tpu/parallel/sharded.py:485"),
+    "bulk_order": ("shard_bulk_order",
+                   "nomad_tpu/parallel/sharded.py:485"),
+    "bulk_counts": ("shard_bulk_counts",
+                    "nomad_tpu/parallel/sharded.py:485"),
+    "basis_merge": ("shard_basis_merge",
+                    "nomad_tpu/parallel/sharded.py:485"),
+}
+LOAD_JOBS = 300      # C2M jobs of the load run (C2M-1M has 10,000)
+
+
+def _mesh(shape):
+    from nomad_tpu_torch.parallel import sharded as ps
+    return ps.make_mesh(shape[1], shape[0], devices=["cuda:0"] * 8)
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _state_of(name, args):
+    """The tensors a K7 call may read after another call changed them or
+    may write: restored before each timed launch, compared after."""
+    from nomad_tpu_torch.ops import sharded as k7
+    if name == "scan_local":
+        sh, recs = args[0], args[6]
+        return [sh.used, sh.tg_count, sh.place_cap, sh.counts, recs]
+    if name == "scan_apply":
+        sh, recs, out = args[0], args[2], args[3]
+        return [sh.used, sh.tg_count, sh.place_cap, sh.counts, recs] + \
+            ([out] if out is not None else [])
+    if name in ("bulk_stats", "bulk_run", "bulk_order"):
+        sh = args[0]
+        assert isinstance(sh, k7.BulkShard)
+        extra = [args[3], args[4]] if name == "bulk_stats" else \
+            [args[2], args[3], args[4]]
+        return [sh.used, sh.exact, sh.delta, sh.coll, sh.assign, sh.scores,
+                sh.partial, sh.state] + extra
+    return list(args)                          # bulk_counts, basis_merge
+
+
+class K7Check:
+    """Wraps ops/sharded.py's kernel wrappers while a sharded function
+    runs on the card: each call (up to `limit` a kernel) runs the kernel,
+    then, from the same state restored, its plain version on the same
+    tensors, and requires every state tensor bit-equal.  The first step
+    of each kernel across the mesh (its launch on every node shard of
+    one lane, every lane for K7f; a scan slot past the first for K7a) is
+    kept for timing.  These launches are the comparison's, not a
+    path's."""
+
+    def __init__(self, shape=(1, 1), limit=64):
+        from nomad_tpu_torch.ops import sharded as k7
+        self.k7, self.limit = k7, limit
+        self.seen = {n: 0 for n in K7_UNITS}
+        self.step = {n: shape[1] if n == "bulk_counts" else shape[0]
+                     for n in K7_UNITS}
+        self.kept = {n: [] for n in K7_UNITS}
+        self.orig = {n: getattr(k7, n) for n in K7_UNITS}
+
+    def __enter__(self):
+        for n in K7_UNITS:
+            setattr(self.k7, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.k7, n, fn)
+
+    def _wrap(self, name):
+        import torch
+        kern = self.orig[name]
+        plain = getattr(self.k7, name + "_plain")
+
+        def call(*args):
+            if self.seen[name] >= self.limit:
+                return kern(*args)
+            state = _state_of(name, args)
+            before = [t.clone() for t in state]
+            kern(*args)
+            torch.cuda.synchronize()
+            after = [t.clone() for t in state]
+            for t, b in zip(state, before):
+                t.copy_(b)
+            plain(*args)
+            torch.cuda.synchronize()
+            for k, (t, a) in enumerate(zip(state, after)):
+                if not torch.equal(_bits(t), _bits(a)):
+                    raise AssertionError(f"{name}: kernel and plain differ "
+                                         f"in state tensor {k}")
+                t.copy_(a)
+            self.seen[name] += 1
+            kept = self.kept[name]
+            if len(kept) < self.step[name] and (
+                    kept or name != "scan_local" or args[1] != 0):
+                kept.append((args, state, before))
+        return call
+
+    def timed(self, name, reps=20):
+        """(kernel ms, plain ms) of the kept step: its launches one after
+        another, the state restored before each step outside the timed
+        events (in reverse call order, so buffers the shards share end
+        as they were before the step's first call)."""
+        import torch
+        calls = self.kept[name]
+        out = []
+        for fn in (self.orig[name], getattr(self.k7, name + "_plain")):
+            times = []
+            for r in range(reps + 2):
+                for _, state, before in reversed(calls):
+                    for t, b in zip(state, before):
+                        t.copy_(b)
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                for args, _, _ in calls:
+                    fn(*args)
+                e.record()
+                e.synchronize()
+                if r >= 2:
+                    times.append(s.elapsed_time(e))
+            out.append(statistics.median(times))
+        return out[0], out[1]
+
+
+def _k7_work(name, args) -> tuple:
+    """(bytes, float operations) one K7 launch needs on the kept call's
+    data: its inputs read and outputs written once."""
+    from nomad_tpu_torch.ops import sharded as k7
+    if name == "scan_local":
+        sh = args[0]
+        n = sh.capacity.shape[0]
+        G, K = sh.spread_wfrac.shape
+        V1 = sh.spread_desired.shape[2]
+        nbytes = (n * 32 + G * n * 14 + G * K * n * 4 + G * K * V1 * 8
+                  + k7.SCAN_REC * 4)
+        ops = n * (OPS_PER_SCAN_ROW + K * OPS_PER_SPREAD) \
+            if bool(sh.slot_active[args[1]]) else 0
+        return nbytes, ops
+    if name == "scan_apply":
+        return args[2].numel() * 4 + 32 + 15 * 4, 0
+    if name in ("bulk_stats", "bulk_run", "bulk_order"):
+        sh = args[0]
+        n, N = sh.capacity.shape[0], sh.n_rows
+        row = 16 + 16 + 1 + 4 + 1 + 4
+        if name == "bulk_stats":
+            return n * (row + 4) + 16, 2 * n * OPS_PER_CELL
+        base = args[4][sh.off:sh.off + n].cpu().numpy()
+        wave = int(np.count_nonzero(base))
+        if name == "bulk_run":
+            cells = int(base.sum()) + wave
+            return (n * 8 + wave * row + 16 * args[2].shape[0],
+                    cells * OPS_PER_CELL)
+        return 8 * N + wave * 40, 0
+    if name == "bulk_counts":
+        partials, out = args
+        return partials.numel() * 4 + out.numel() * 4, 0
+    u0, exacts, out = args
+    return (exacts.numel() + 2 * u0.numel()) * 4, 2 * exacts.numel()
+
+
+def _k7_bound(name, calls) -> tuple:
+    """A K7 kernel's bound over the kept step's launches on all its
+    shards: their bytes over the card's memory rate, or their float
+    operations over its f32 rate, the larger."""
+    work = [_k7_work(name, args) for args, _, _ in calls]
+    return _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+
+
+def shard_scan_chain(seeds, S, with_deltas, main_path=True):
+    """place_batch_sharded operands at N = 16,384: a chain of scan evals
+    (scan_inputs of `seeds`), the slot axis padded to S, each eval with
+    deltas or none; and the K3 operands of the same chain."""
+    from nomad_tpu_torch.ops import place as tp
+    rng = np.random.default_rng(seeds[0])
+    evals = [scan_inputs(sd, main_path) for sd in seeds]
+    cap, used = evals[0]["capacity"], evals[0]["used"]
+    E = len(evals)
+    fields = {}
+    for name in evals[0]:
+        if name in ("capacity", "used"):
+            continue
+        arrs = [f[name] for f in evals]
+        if name in ("demand", "slot_tg", "slot_active"):
+            arrs = [np.concatenate([a, np.zeros((S - a.shape[0],)
+                                                + a.shape[1:], a.dtype)])
+                    for a in arrs]
+        fields[name] = np.stack(arrs)
+    drows = np.full((E, DELTA_BUCKET), N_ROWS, np.int32)
+    dvals = np.zeros((E, DELTA_BUCKET, 4), np.float32)
+    deltas = []
+    for e in range(E):
+        ds = _deltas(rng, 3) if with_deltas else []
+        deltas.append(ds)
+        for d, (row, vec) in enumerate(ds):
+            drows[e, d], dvals[e, d] = row, vec
+    inps = [tp.PlaceInputs(**f) for f in evals]
+    heavy = np.stack([tp.pack_heavy(i) for i in inps])
+    dyn = np.concatenate([tp.pack_light(i, ds, DELTA_BUCKET, S)
+                          for i, ds in zip(inps, deltas)])
+    g, n, k, vp1 = tp.heavy_dims(inps[0])
+    k3 = (cap, used, heavy, dyn, (g, n, k, vp1, S, DELTA_BUCKET))
+    return (cap, used, fields, drows, dvals), k3
+
+
+def check_shard_scan(shape, chk, label, seeds, S, with_deltas, main_path):
+    """K7a/K7b on a mesh of the card repeated, every call checked against
+    its plain version by `chk`; the whole function bit-equal to its plain
+    form (the reference's function over the shard list) and equal to
+    the unsharded K3 in node rows, counts and top-K rows."""
+    import torch
+    from nomad_tpu_torch.ops import place as tp
+    from nomad_tpu_torch.parallel import sharded as ps
+    mesh = _mesh(shape)
+    ops, k3 = shard_scan_chain(seeds, S, with_deltas, main_path)
+    with chk:
+        packed, used = ps.place_batch_sharded(mesh, *ops)
+    torch.cuda.synchronize()
+    p_packed, p_used = ps.place_batch_sharded_plain(mesh, *ops)
+    _bitwise(f"sharded scan {label} packed", packed.cpu().numpy(),
+             p_packed.cpu().numpy())
+    _bitwise(f"sharded scan {label} used", torch.cat(used).cpu().numpy(),
+             torch.cat(p_used).cpu().numpy())
+    t = lambda x: torch.from_numpy(np.array(x)).cuda()   # noqa: E731
+    k3_packed, k3_used = tp.place_batch_packed(t(k3[0]), t(k3[1]), t(k3[2]),
+                                               t(k3[3]), k3[4])
+    got = tp.unpack_outputs(packed.cpu().numpy())
+    single = tp.unpack_outputs(k3_packed.cpu().numpy())
+    for i, nm in ((0, "node"), (3, "n_eval"), (4, "n_exh"),
+                  (5, "top_nodes")):
+        np.testing.assert_array_equal(got[i], single[i],
+                                      err_msg=f"sharded scan {label} {nm}")
+    err = max(float(np.max(np.abs(np.nan_to_num(got[i]) -
+                                  np.nan_to_num(single[i]))))
+              for i in (1, 2, 6))
+    placed = int((got[0] >= 0).sum())
+    if placed == 0:
+        raise AssertionError(f"sharded scan {label}: nothing placed")
+    log(f"sharded: scan {label} on {shape}: placed {placed} slots; kernels "
+        f"bit-equal to their plain versions ({chk.seen['scan_local']} K7a, "
+        f"{chk.seen['scan_apply']} K7b calls checked) and the function to "
+        f"its plain form; rows, counts and top-K equal the unsharded K3 "
+        f"(scores max |diff| {err:.3g})")
+    return err
+
+
+def check_shard_eval_batch(shape, chk):
+    """place_eval_batch_sharded (independent evals, the batch over the
+    wave lanes) on a mesh of the card repeated at N = 16,384: K7a/K7b
+    checked by `chk`, the function bit-equal to its plain form, and each
+    eval's node rows, counts and top-K equal to the single-eval K2's."""
+    import torch
+    from nomad_tpu_torch.convert import place_inputs_from_numpy
+    from nomad_tpu_torch.ops import place as tp
+    from nomad_tpu_torch.parallel import sharded as ps
+    mesh = _mesh(shape)
+    evals = [scan_inputs(47 + b, main_path=False) for b in range(2)]
+    stacked = ps.stack_inputs([tp.PlaceInputs(**f) for f in evals])
+    with chk:
+        got = ps.place_eval_batch_sharded(mesh, stacked)
+    torch.cuda.synchronize()
+    plain = ps.place_eval_batch_sharded_plain(mesh, stacked)
+    for k, (x, y) in enumerate(zip(got, plain)):
+        _bitwise(f"sharded eval batch output {k}", x.cpu().numpy(),
+                 y.cpu().numpy())
+    for b, f in enumerate(evals):
+        packed, _ = tp.place_eval_packed(place_inputs_from_numpy(f, "cuda"))
+        single = tp.unpack_outputs(packed.cpu().numpy())
+        for i in (0, 3, 4, 5):
+            np.testing.assert_array_equal(got[i][b].cpu().numpy(), single[i],
+                                          err_msg=f"sharded eval batch {b}")
+    log(f"sharded: eval batch of 2 mixed evals on {shape}: bit-equal to its "
+        f"plain form, rows, counts and top-K equal the single-eval K2")
+
+
+def shard_bulk_lanes(seed, W, E, n_rows=N_ROWS, n_nodes=N_NODES, count=10,
+                     fresh=False):
+    """place_bulk_batch_sharded operands: W lanes of E C2M groups (count
+    `count`, 30 MHz/60 MB, random feasibility and co-placements, deltas
+    on every other eval; the last lane one eval short, padded with a
+    count-0 eval); fresh: an empty cluster and no co-placements."""
+    rng = np.random.default_rng(seed)
+    a = bulk_inputs(seed, True, n_rows, n_nodes)
+    if fresh:
+        a["used"][:] = 0.0
+    f = dict(feasible=np.zeros((W, E, n_rows), bool),
+             affinity=np.zeros((W, E, n_rows), np.float32),
+             has_affinity=np.zeros((W, E), bool),
+             desired=np.ones((W, E), np.int32),
+             penalty=np.zeros((W, E, n_rows), bool),
+             coll0=np.zeros((W, E, n_rows), np.int32),
+             demand=np.zeros((W, E, 4), np.float32),
+             count=np.zeros((W, E), np.int32),
+             delta_rows=np.full((W, E, DELTA_BUCKET), n_rows, np.int32),
+             delta_vals=np.zeros((W, E, DELTA_BUCKET, 4), np.float32))
+    for w in range(W):
+        for e in range(E - (1 if w == W - 1 and W > 1 else 0)):
+            f["feasible"][w, e, :n_nodes] = rng.random(n_nodes) < 0.95
+            if not fresh:
+                f["coll0"][w, e, rng.choice(n_nodes, 20, replace=False)] = 1
+            f["demand"][w, e] = a["demand"]
+            f["count"][w, e] = f["desired"][w, e] = count
+            if e % 2 and not fresh:
+                for d, (row, vec) in enumerate(_deltas(rng, 3, n_nodes)):
+                    f["delta_rows"][w, e, d], f["delta_vals"][w, e, d] = \
+                        row, vec
+    return a["cap"], a["used"], f
+
+
+SHARD_BULK_ORDER = ("feasible", "affinity", "has_affinity", "desired",
+                    "penalty", "coll0", "demand", "count", "delta_rows",
+                    "delta_vals")
+
+
+def check_shard_bulk(shape, chk, label, lanes, fill_grid):
+    """K7c-K7g on a mesh of the card repeated, every call checked against
+    its plain version by `chk`; the whole function bit-equal to its plain
+    form; each lane equal to the unsharded K4 chain of its evals in rows,
+    counts, placed/n_eval/n_exh and waves; the merged basis against the
+    host rank-1 update of every lane's placements.  Returns the largest
+    difference of that basis (0 where bit-equal)."""
+    import torch
+    from nomad_tpu_torch import native
+    from nomad_tpu_torch.ops import place as tp
+    from nomad_tpu_torch.parallel import sharded as ps
+    mesh = _mesh(shape)
+    cap, used, f = lanes
+    args = [f[k] for k in SHARD_BULK_ORDER]
+    with chk:
+        out = ps.place_bulk_batch_sharded(mesh, cap, used, *args,
+                                          fill_grid=fill_grid, donate=True)
+    torch.cuda.synchronize()
+    plain = ps.place_bulk_batch_sharded_plain(mesh, cap, used, *args,
+                                              fill_grid=fill_grid,
+                                              donate=True)
+    got = [x.cpu().numpy() for x in out[:6]]
+    for k, (x, y) in enumerate(zip(got, plain[:6])):
+        _bitwise(f"sharded bulk {label} output {k}", x, y.cpu().numpy())
+    merged = torch.cat(out[6]).cpu().numpy()
+    _bitwise(f"sharded bulk {label} merged basis", merged,
+             torch.cat(plain[6]).cpu().numpy())
+    t = lambda x: torch.from_numpy(np.array(x)).cuda()   # noqa: E731
+    W, E, n = f["feasible"].shape
+    host = used.copy()
+    for w in range(W):
+        heavy = np.stack([tp.pack_bulk_heavy(f["feasible"][w, e],
+                                             f["affinity"][w, e],
+                                             f["penalty"][w, e],
+                                             f["coll0"][w, e])
+                          for e in range(E)])
+        dyn = np.concatenate([tp.pack_bulk_light(
+            f["has_affinity"][w, e], f["desired"][w, e], f["count"][w, e],
+            f["demand"][w, e],
+            [(int(r), f["delta_vals"][w, e, d])
+             for d, r in enumerate(f["delta_rows"][w, e]) if r < n],
+            n, DELTA_BUCKET) for e in range(E)])
+        k4, _ = tp.place_bulk_batch(t(cap), t(used), t(heavy), t(dyn),
+                                    DELTA_BUCKET, fill_grid=fill_grid)
+        single = tp.unpack_bulk_batch(k4.cpu().numpy(), n)
+        np.testing.assert_array_equal(got[0][w], single[0],
+                                      err_msg=f"sharded bulk {label} lane "
+                                              f"{w} assign")
+        for k, nm in ((2, "placed"), (3, "n_eval"), (4, "n_exh"),
+                      (5, "waves")):
+            np.testing.assert_array_equal(got[k][w], single[k],
+                                          err_msg=f"sharded bulk {label} "
+                                                  f"lane {w} {nm}")
+        for e in range(E):
+            rows = np.flatnonzero(got[0][w, e])
+            native.scatter_add_rank1(host, rows, got[0][w, e][rows],
+                                     f["demand"][w, e])
+    if not np.array_equal(got[2], f["count"]):
+        raise AssertionError(f"sharded bulk {label}: placed "
+                             f"{got[2].tolist()} of {f['count'].tolist()}")
+    diff = float(np.max(np.abs(merged - host)))
+    log(f"sharded: bulk {label} on {shape}, N={n}: placed "
+        f"{int(got[2].sum())} in {int(got[5].sum())} waves; kernels "
+        f"bit-equal to their plain versions ({dict(chk.seen)} calls "
+        f"checked) and the function to its plain form; every lane equals "
+        f"the unsharded K4 in rows, counts and waves; merged basis vs host "
+        f"rank-1 update max |diff| {diff:.3g}")
+    return diff
+
+
+def check_local_scatters(shape):
+    """K5' (set_rows_local, add_rank1_local) on every shard of a mesh of
+    the card repeated against their plain versions, bit for bit, at the
+    world's buckets; returns the timed entries at B = 4,096 on shard 0."""
+    import torch
+    from nomad_tpu_torch.parallel import world as tw
+    rng = np.random.default_rng(17)
+    NS = shape[0]
+    n = N_ROWS // NS
+    base = np.zeros((N_ROWS, 4), np.float32)
+    base[:N_NODES, 0] = rng.integers(0, 40, N_NODES) * 30
+    base[:N_NODES, 1] = base[:N_NODES, 0] * 2 + 0.5
+    t = lambda x: torch.from_numpy(np.array(x)).cuda()   # noqa: E731
+    for b in tw.ROW_BUCKETS:
+        rows = np.full(b, N_ROWS, np.int32)
+        live = b * 3 // 4
+        rows[:live] = rng.choice(N_NODES, live, replace=False)
+        vals = (rng.random((b, 4)) * 5000).astype(np.float32)
+        counts = rng.integers(-3, 40, b).astype(np.int32)
+        dem = np.array([33.3, 70.7, 0.1, 5.0], np.float32)
+        for i in range(NS):
+            sh = base[i * n:(i + 1) * n]
+            k = tw.set_rows_local(t(sh), t(rows), t(vals), i * n)
+            p = tw.set_rows_plain(t(sh), t(rows), t(vals), i * n)
+            _bitwise(f"set_rows_local B={b} shard {i}", k.cpu().numpy(),
+                     p.cpu().numpy())
+            k = tw.add_rank1_local(t(sh), t(rows), t(counts), t(dem), i * n)
+            p = tw.add_rank1_plain(t(sh), t(rows), t(counts), t(dem), i * n)
+            _bitwise(f"add_rank1_local B={b} shard {i}", k.cpu().numpy(),
+                     p.cpu().numpy())
+    log(f"sharded: set_rows_local / add_rank1_local on {shape}, buckets "
+        f"{tw.ROW_BUCKETS}: bit-equal to plain on every shard")
+    B = tw.ROW_BUCKETS[-1]
+    rows = rng.choice(N_NODES, B, replace=False).astype(np.int32)
+    live = rows[rows < n]
+    d = t(base[:n])
+    r, v = t(rows), t(rng.random((B, 4)).astype(np.float32))
+    c, dm = t(rng.integers(1, 40, B).astype(np.int32)), t(
+        np.array([33.3, 70.7, 0.1, 5.0], np.float32))
+    keep = torch.from_numpy(np.flatnonzero(rows < n)).cuda()
+    rl, vl, cl = r[keep].long(), v[keep], c[keep].float()
+    entries = {}
+    for name, kern, plain, lib, nbytes, ops in (
+            ("set_rows_local", lambda: tw.set_rows_local(d, r, v, 0),
+             lambda: tw.set_rows_plain(d, r, v, 0),
+             lambda: d.index_copy_(0, rl, vl),
+             B * 20 + live.size * 16, 0),
+            ("add_rank1_local", lambda: tw.add_rank1_local(d, r, c, dm, 0),
+             lambda: tw.add_rank1_plain(d, r, c, dm, 0),
+             lambda: d.index_add_(0, rl, cl[:, None] * dm),
+             B * 8 + 16 + live.size * 32, 2 * live.size * 4)):
+        ms = time_cuda(kern, reps=50)
+        plain_ms = time_cuda(plain)
+        lib_ms = time_cuda(lib, reps=50)
+        bound, by = _bound(nbytes, ops)
+        log(f"sharded: {name} B={B} on shard 0 of {shape} ({live.size} rows "
+            f"its own): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="nomad_tpu_torch/csrc/world_scatter.cu",
+            replaces=("nomad_tpu/parallel/sharded.py:382"
+                      if name == "set_rows_local"
+                      else "nomad_tpu/parallel/sharded.py:386"),
+            jax_function=f"serving_update_fns ({name[:-6]})",
+            launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    return entries
+
+
+def _check_sharded_world(eng, label):
+    """The sharded world's device basis (its shards, in order) against
+    its host snapshot: bit-equal (integer-sized allocs, so the merged
+    basis u0 + psum_wave(exact - u0) rounds nowhere), and no ticket
+    open."""
+    import torch
+    torch.cuda.synchronize()
+    worlds = [w for w in eng._worlds.values() if w.mesh is not None]
+    if not worlds:
+        raise AssertionError(f"{label}: no sharded world")
+    for w in worlds:
+        _, basis = w.device_arrays()
+        _bitwise(f"{label}: sharded device basis vs host snapshot",
+                 torch.cat(basis).cpu().numpy(), w.host_basis())
+    if eng.stats["tickets_open"] != 0:
+        raise AssertionError(f"{label}: {eng.stats['tickets_open']} "
+                             f"tickets left open")
+
+
+def _sharded_engine(shape, **kw):
+    from nomad_tpu_torch.parallel.engine import (PlacementEngine,
+                                                 install_engine, stop_engines)
+    stop_engines()
+    n = shape[0] * shape[1]
+    return install_engine(PlacementEngine(device="cuda",
+                                          mesh_devices=["cuda:0"] * n, **kw))
+
+
+def shard_stream(shape):
+    """The engine phase's 10,000-node stream (100 C2M evals, 8 scan evals,
+    one at a time) through Harness(device="cuda"), on an engine over
+    `shape` (or the single-device engine for None).  Returns (per-job row
+    maps, launch counts, engine stats, wall s)."""
+    import torch
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.parallel.engine import get_engine, stop_engines
+    from nomad_tpu_torch.scheduler.testing import Harness
+    eng = _sharded_engine(shape) if shape else None
+    if shape is None:
+        stop_engines()
+    h = Harness(device="cuda")
+    _world(h, mock, N_NODES)
+    eng = get_engine("cuda")
+    cm = h.store.matrix
+    spec = dict(feasible=cm.ready.copy(),
+                affinity=np.zeros(cm.n_rows, np.float32), has_affinity=False,
+                desired=10, penalty=np.zeros(cm.n_rows, bool),
+                coll0=np.zeros(cm.n_rows, np.int32),
+                demand=np.array([30, 60, 0, 0], np.float32), count=10)
+    eng.warmup(cm, bulk=spec)
+    jobs = [("batch", _c2m_job(mock)) for _ in range(100)] + \
+        _scan_jobs(mock)
+    for k, (_, j) in enumerate(jobs):
+        j.id = f"stream-{k}"
+    want = {j.id: sum(tg.count for tg in j.task_groups) for _, j in jobs}
+    stats0 = dict(eng.stats)
+    _reset_counts()
+    t0 = time.perf_counter()
+    for kind, job in jobs:
+        _run(h, mock, kind, job)
+        if h.last_scheduler.failed_tg_allocs:
+            raise AssertionError(f"{job.id}: failed groups")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    _check_stream(h, jobs, want)
+    if shape:
+        _check_sharded_world(eng, f"sharded stream {shape}")
+    else:
+        _check_world(eng, "single-device stream")
+    maps = [_row_counts(h, j) for _, j in jobs]
+    st = {k: eng.stats[k] - stats0.get(k, 0) for k in eng.stats
+          if isinstance(eng.stats[k], int)}
+    stop_engines()
+    return maps, launches, st, wall
+
+
+def _spine_maps(shape, n_jobs=50):
+    """bench_e2e_spine's shape (1,000 nodes, 50 batch jobs of count 100)
+    through Server(device="cuda") with one worker, each job registered
+    once the last is idle, on a mesh engine over `shape` (or the
+    single-device engine): per-job row maps, launch counts, wall s."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.parallel.engine import stop_engines
+    os.environ["NOMAD_TPU_PIPELINE_DEPTH"] = "0"
+    eng = _sharded_engine(shape) if shape else None
+    if shape is None:
+        stop_engines()
+    s = _server(1)
+    try:
+        for i in range(1000):
+            n = mock.node()
+            n.id = f"node-{i:04d}"
+            n.name = n.id
+            s.register_node(n)
+        jobs = []
+        _reset_counts()
+        t0 = time.perf_counter()
+        for k in range(n_jobs):
+            j = mock.batch_job(id=f"spine-{k}")
+            j.task_groups[0].count = 100
+            jobs.append(j)
+            s.register_job(j)
+            if not s.wait_for_idle(120):
+                raise AssertionError("sharded spine: evals in flight")
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        placed = len(_running(s.store, jobs))
+        if placed != 100 * n_jobs:
+            raise AssertionError(f"sharded spine: {placed} committed")
+        if shape:
+            _check_sharded_world(s._engine, f"sharded spine {shape}")
+            if s._engine is not eng or eng.stats["sharded_evals"] == 0:
+                raise AssertionError("sharded spine: the mesh engine did "
+                                     "not serve the server")
+        cm = s.store.matrix
+        maps = []
+        for j in jobs:
+            per = {}
+            for a in s.store.allocs_by_job(j.namespace, j.id):
+                per[cm.row_of[a.node_id]] = per.get(cm.row_of[a.node_id],
+                                                    0) + 1
+            maps.append(per)
+        return maps, launches, wall
+    finally:
+        s.stop()
+        os.environ.pop("NOMAD_TPU_PIPELINE_DEPTH", None)
+        stop_engines()
+
+
+def shard_load(shape, n_jobs=LOAD_JOBS, workers=48):
+    """C2M-shaped jobs (10 groups x count 10, 30 MHz/60 MB) through the
+    spine with 48 workers at 10,000 nodes on a mesh engine over `shape`:
+    every alloc committed, usage equal to the allocs' sum, the sharded
+    basis equal to its host snapshot.  Returns (allocs/s, launches,
+    engine stats)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.parallel.engine import stop_engines
+    eng = _sharded_engine(shape)
+    s = _server(workers)
+    try:
+        for i in range(N_NODES):
+            n = mock.node()
+            n.attributes["rack"] = f"r{i % RACKS}"
+            s.store.upsert_node(s.next_index(), n)
+        cm = s.store.matrix
+        spec = dict(feasible=cm.ready.copy(),
+                    affinity=np.zeros(cm.n_rows, np.float32),
+                    has_affinity=False, desired=10,
+                    penalty=np.zeros(cm.n_rows, bool),
+                    coll0=np.zeros(cm.n_rows, np.int32),
+                    demand=np.array([30, 60, 0, 0], np.float32), count=10)
+        eng.warmup(cm, bulk=spec)
+        jobs = [_c2m_job(mock) for _ in range(n_jobs)]
+        failures0 = _failures(s.workers)
+        _reset_counts()
+        stats0 = dict(eng.stats)
+        t0 = time.perf_counter()
+        for j in jobs:
+            s.register_job(j)
+        want = 100 * n_jobs
+        _wait_for(lambda: len(_running(s.store, jobs)) >= want, 600,
+                  f"{want} allocs")
+        wall = time.perf_counter() - t0
+        if not s.wait_for_idle(60):
+            raise AssertionError("sharded load: evals still in flight")
+        launches = _counts()
+        placed = len(_running(s.store, jobs))
+        if placed != want:
+            raise AssertionError(f"sharded load: {placed} of {want}")
+        causes = _failures(s.workers) - failures0
+        _check_failures("sharded load", causes)
+        from nomad_tpu_torch.encode.matrixizer import comparable_vec
+        expect = np.zeros(cm.used.shape, np.float64)
+        for a in s.store.allocs():
+            if not a.terminal_status():
+                expect[cm.row_of[a.node_id]] += comparable_vec(
+                    a.comparable_resources())
+        if not np.allclose(cm.used, expect, atol=1e-3) or \
+                not (cm.used <= cm.capacity + 1e-3).all():
+            raise AssertionError("sharded load: committed usage wrong")
+        _check_sharded_world(eng, "sharded load")
+        st = {k: eng.stats[k] - stats0.get(k, 0) for k in
+              ("sharded_evals", "bulk_parts", "donated_carries",
+               "lane_evals", "lane_slots", "waves")}
+        st["wave_lanes"] = eng.stats["wave_lanes"]
+        return placed / wall, launches, st, dict(causes)
+    finally:
+        s.stop()
+        stop_engines()
+
+
+def phase_sharded():
+    """The sharded serving path (K7, K5') on meshes of the card repeated.
+    Returns the kernels line's entries of K7a-K7g and K5' with the
+    launches of the main path (the engine stream on (4, 2))."""
+    import torch
+    from nomad_tpu_torch.ops import place as tp
+    entries = {}
+    fg = tp.fill_grid_for(10)
+    kept = None
+    for shape in SHARD_SHAPES:
+        chk = K7Check(shape)
+        check_shard_scan(shape, chk, "E=2 rack-spread chain with deltas, "
+                         "S=128", (41, 42), 128, True, True)
+        check_shard_scan(shape, K7Check(), "E=1 mixed spread/affinity eval",
+                         (43,), 64, False, False)
+        check_shard_eval_batch(shape, K7Check())
+        W = shape[1]
+        check_shard_bulk(shape, chk, f"{W} lanes of C2M chains with deltas",
+                         shard_bulk_lanes(44, W, 16 // W, N_ROWS, N_NODES),
+                         fg)
+        n_rows, n_nodes = LARGE_WORLDS[-1]
+        check_shard_bulk(shape, K7Check(), f"count-512 evals on a fresh "
+                         f"{n_nodes}-node world (every ready row in the "
+                         f"wave)", shard_bulk_lanes(45, W, 4 // W, n_rows,
+                                                    n_nodes, count=512,
+                                                    fresh=True),
+                         tp.fill_grid_for(512))
+        if shape == (4, 2):
+            kept = chk
+        entries.update(check_local_scatters(shape))
+    # non-integer sizes (no deltas, so each lane's chain carry is K4's):
+    # the merged basis u0 + psum_wave(exact - u0) rounds otherwise than
+    # the host's rank-1 adds, one eval after another
+    cap, used, f = shard_bulk_lanes(46, 2, 8, N_ROWS, N_NODES)
+    rng = np.random.default_rng(46)
+    used[:N_NODES, :2] += rng.random((N_NODES, 2), dtype=np.float32) * 50
+    f["demand"][f["count"] > 0] = np.array([33.3, 70.7, 0.1, 0], np.float32)
+    f["delta_rows"][:] = N_ROWS
+    frac = check_shard_bulk((4, 2), K7Check(), "2 lanes of C2M chains with "
+                            "non-integer sizes", (cap, used, f), fg)
+    log(f"sharded: with non-integer sizes the merged basis differs from the "
+        f"host rank-1 update by at most {frac:.6g}; with integer sizes it "
+        f"is bit-equal")
+    for name, (jname, replaces) in K7_UNITS.items():
+        ms, plain_ms = kept.timed(name)
+        bound, by = _k7_bound(name, kept.kept[name])
+        log(f"sharded: {jname} N={N_ROWS}, one step on (4, 2) "
+            f"({len(kept.kept[name])} launches): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        entries[name] = dict(
+            name=jname, route="cuda", source="nomad_tpu_torch/csrc/sharded.cu",
+            replaces=replaces, launches=0, max_abs_err=0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None)
+
+    # the main path: the engine stream over (4, 2) against the
+    # single-device engine, identical per-job row maps
+    maps_1, _, _, wall_1 = shard_stream(None)
+    maps_s, launches, st, wall_s = shard_stream((4, 2))
+    if maps_s != maps_1:
+        raise AssertionError("sharded stream: placements differ from the "
+                             "single-device engine's")
+    k7c = {k: launches.get(k, 0) for k in list(K7_UNITS) + ["set_rows_local"]}
+    missing = [k for k in list(K7_UNITS) + ["set_rows_local"]
+               if k7c[k] == 0]
+    if missing or st["sharded_evals"] == 0:
+        raise AssertionError(f"sharded stream: never launched {missing}; "
+                             f"sharded_evals {st['sharded_evals']}")
+    if launches["place_bulk_batch"] or launches["place_batch"]:
+        raise AssertionError(f"sharded stream: unsharded kernels ran "
+                             f"{launches}")
+    log(f"sharded: engine stream on (4, 2) (100 C2M + 8 scan evals, 10,000 "
+        f"nodes): per-job row maps equal the single-device engine's; "
+        f"{wall_s:.3f} s vs {wall_1:.3f} s single-device; launches {k7c}; "
+        f"sharded_evals {st['sharded_evals']}, wave_lanes "
+        f"{st['wave_lanes']}, donated_carries {st['donated_carries']}; "
+        f"device basis equals host snapshot bit for bit")
+    for name in K7_UNITS:
+        entries[name]["launches"] = k7c[name]
+    entries["set_rows_local"]["launches"] = k7c["set_rows_local"]
+
+    # donation off: resolved placements scatter into the sharded basis
+    os.environ["NOMAD_TPU_DONATE"] = "0"
+    try:
+        from nomad_tpu_torch import mock
+        from nomad_tpu_torch.parallel.engine import stop_engines
+        from nomad_tpu_torch.scheduler.testing import Harness
+        eng = _sharded_engine((4, 2))
+        h = Harness(device="cuda")
+        _world(h, mock, N_NODES)
+        jobs = [("batch", _c2m_job(mock)) for _ in range(10)]
+        _reset_counts()
+        for kind, job in jobs:
+            _run(h, mock, kind, job)
+        torch.cuda.synchronize()
+        off = _counts()
+        _check_stream(h, jobs, {j.id: 100 for _, j in jobs})
+        _check_sharded_world(eng, "sharded, donation off")
+        if off["add_rank1_local"] == 0 or eng.stats["donated_carries"]:
+            raise AssertionError(f"sharded donation off: {off}")
+        entries["add_rank1_local"]["launches"] = off["add_rank1_local"]
+        log(f"sharded: donation off, 10 C2M evals on (4, 2): "
+            f"add_rank1_local launched {off['add_rank1_local']} times")
+    finally:
+        os.environ.pop("NOMAD_TPU_DONATE", None)
+        stop_engines()
+
+    # the spine: bench_e2e_spine's shape, one worker, (8, 1) vs single
+    maps_1, _, sp_wall_1 = _spine_maps(None)
+    maps_s, sp_launches, sp_wall = _spine_maps((8, 1))
+    if maps_s != maps_1:
+        raise AssertionError("sharded spine: placements differ from the "
+                             "single-device server's")
+    if not all(sp_launches[k] for k in ("bulk_stats", "bulk_run",
+                                        "bulk_order", "basis_merge")):
+        raise AssertionError(f"sharded spine: {sp_launches}")
+    log(f"sharded: spine (1,000 nodes, 50 batch jobs x 100, one worker) on "
+        f"(8, 1): per-job row maps equal the single-device server's; "
+        f"{sp_wall:.3f} s vs {sp_wall_1:.3f} s single-device; "
+        f"launches { {k: sp_launches[k] for k in K7_UNITS} }")
+
+    # load: C2M through the spine, 48 workers, (4, 2), cut to LOAD_JOBS jobs
+    rate, ld_launches, ld_st, causes = shard_load((4, 2), LOAD_JOBS)
+    if not all(ld_launches[k] for k in ("bulk_stats", "bulk_run",
+                                        "bulk_order", "basis_merge",
+                                        "bulk_counts")):
+        raise AssertionError(f"sharded load: {ld_launches}")
+    log(f"sharded: load, {LOAD_JOBS} C2M jobs ({LOAD_JOBS * 100} allocs, "
+        f"10,000 nodes, 48 workers) on (4, 2): every alloc committed at "
+        f"{rate:.1f} allocs/s; engine {ld_st}; evals failed by cause "
+        f"{causes}; launches { {k: ld_launches[k] for k in K7_UNITS} }; "
+        f"device basis equals host snapshot bit for bit")
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2014,6 +2826,10 @@ def main() -> int:
     bench_launches = phase_bench()
     for name in STAGE_UNITS:
         entries[name]["launches"] = bench_launches[name]
+    # the sharded serving path on meshes of the card repeated: K7's and
+    # K5''s counts are read on its engine stream (K5' add_rank1_local on
+    # its donation-off run)
+    entries.update(phase_sharded())
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 // bulk_common.cuh — what the persistent one-block kernels share: the
-// fit score of ops/fit.py, and block-wide reductions, scan and the
-// bitonic key sort over NT = 1024 threads.  Included by place_bulk.cu
-// (K1, K4) and stage_probe.cu (K8); each source builds into its own
-// library, so everything here has internal linkage.
+// fit score of ops/fit.py, the bulk wave's grid cell, and block-wide
+// reductions, scan and the bitonic key sort over NT = 1024 threads.
+// Included by place_bulk.cu (K1, K4), stage_probe.cu (K8) and sharded.cu
+// (K7); each source builds into its own library, so everything here has
+// internal linkage.
 //
 // Numerics: compiled without fast math and with -fmad=false; powf (not
 // __powf), so each score is the plain PyTorch versions' bit for bit.
@@ -36,6 +37,49 @@ __device__ __forceinline__ float score_fit(const float* cap, const float* u,
                 powf(10.0f, free_frac(cap[RES_MEM], u[RES_MEM]));
   float raw = spread ? (total - 2.0f) : (20.0f - total);
   return fminf(fmaxf(raw, 0.0f), 18.0f);
+}
+
+constexpr int NRES = 4;           // resource dims (cpu, mem, disk, net)
+
+// One row of a bulk wave: what bulk_wave_grid reads of it.
+struct BulkRow {
+  float cap[NRES];
+  float used[NRES];
+  float coll;    // co-placed instances so far (value-exact float)
+  bool feas;
+  bool pen;
+  bool aff_on;
+  float aff;
+};
+
+// One cell of ops/place.py bulk_wave_grid: the row's fit and score with m
+// more instances placed on it.
+__device__ __forceinline__ void grid_cell(const BulkRow& r, const float* dem,
+                                          float m, float desired_div,
+                                          int spread, bool* fits,
+                                          float* score) {
+  float u[NRES];
+  bool f = r.feas;
+#pragma unroll
+  for (int d = 0; d < NRES; ++d) {
+    float md = m * dem[d];
+    u[d] = r.used[d] + md;
+    f = f && (u[d] <= r.cap[d]);
+  }
+  float fit = score_fit(r.cap, u, spread) * (1.0f / 18.0f);
+  float coll_m = (r.coll + m) - 1.0f;
+  float total = fit;
+  float n = 1.0f;
+  float anti = -(coll_m + 1.0f) / desired_div;
+  bool hc = coll_m > 0.0f;
+  total = total + (hc ? anti : 0.0f);
+  n = n + (hc ? 1.0f : 0.0f);
+  total = total - (r.pen ? 1.0f : 0.0f);
+  n = n + (r.pen ? 1.0f : 0.0f);
+  total = total + (r.aff_on ? r.aff : 0.0f);
+  n = n + (r.aff_on ? 1.0f : 0.0f);
+  *fits = f;
+  *score = total / n;
 }
 
 // float -> unsigned int whose unsigned order is the float order

@@ -67,45 +67,7 @@ constexpr int R = 4;              // resource dims (cpu, mem, disk, net)
 constexpr int W = R + 3;          // packed output width
 constexpr int SPARSE_CAP = 128;   // ops/place.py SPARSE_CAP
 
-struct Row {
-  float cap[R];
-  float used[R];
-  float coll;    // co-placed instances so far (value-exact float)
-  bool feas;
-  bool pen;
-  bool aff_on;
-  float aff;
-};
-
-// One cell of bulk_wave_grid: the row's fit and score with m more
-// instances placed on it.
-__device__ __forceinline__ void grid_cell(const Row& r, const float* dem,
-                                          float m, float desired_div,
-                                          int spread, bool* fits,
-                                          float* score) {
-  float u[R];
-  bool f = r.feas;
-#pragma unroll
-  for (int d = 0; d < R; ++d) {
-    float md = m * dem[d];
-    u[d] = r.used[d] + md;
-    f = f && (u[d] <= r.cap[d]);
-  }
-  float fit = score_fit(r.cap, u, spread) * (1.0f / 18.0f);
-  float coll_m = (r.coll + m) - 1.0f;
-  float total = fit;
-  float n = 1.0f;
-  float anti = -(coll_m + 1.0f) / desired_div;
-  bool hc = coll_m > 0.0f;
-  total = total + (hc ? anti : 0.0f);
-  n = n + (hc ? 1.0f : 0.0f);
-  total = total - (r.pen ? 1.0f : 0.0f);
-  n = n + (r.pen ? 1.0f : 0.0f);
-  total = total + (r.aff_on ? r.aff : 0.0f);
-  n = n + (r.aff_on ? 1.0f : 0.0f);
-  *fits = f;
-  *score = total / n;
-}
+using Row = BulkRow;
 
 // K1's node fields, as the wrapper passes them
 struct K1Fields {

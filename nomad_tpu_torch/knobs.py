@@ -28,6 +28,18 @@ KNOBS: Dict[str, Knob] = {
     "NOMAD_TPU_ENGINE": Knob(
         "1", "bool",
         "`0` bypasses the batching engine (direct kernel calls)"),
+    "NOMAD_TPU_SHARD": Knob(
+        "1", "bool",
+        "`0` disables the multi-device serving mesh entirely"),
+    "NOMAD_TPU_SHARD_MIN": Knob(
+        "128", "int",
+        "minimum padded node rows before dispatches route over the "
+        "`('node_shard','wave')` mesh (`shard_min_nodes`)"),
+    "NOMAD_TPU_WAVE_SHARDS": Knob(
+        "", "int",
+        "wave extent of the 2-D serving mesh (`wave_mesh_shape`); "
+        "empty = auto, a non-divisor of the device count falls back "
+        "to 1"),
     "NOMAD_TPU_FUSE": Knob(
         "1", "bool",
         "`0` splits bulk waves into per-format device dispatches "

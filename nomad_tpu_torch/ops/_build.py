@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 KERNELS = ("place_bulk", "place_scan", "world_scatter", "preempt",
-           "stage_probe")
+           "stage_probe", "sharded")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -33,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the operands of one bulk shard (csrc/sharded.cu BULK_PARAMS)
+_BULK = [_P] * 19 + [_I] * 5
 # C entry points of each kernel source and their argument types
 # (pointers and the stream as c_void_p, ints as c_int, floats as
 # c_float); every entry
@@ -48,8 +50,8 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
         "place_batch_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P] * 6,
     },
     "world_scatter": {
-        "set_rows_launch": [_P, _P, _P, _I, _I, _P],
-        "add_rank1_launch": [_P, _P, _P, _P, _I, _I, _P],
+        "set_rows_launch": [_P, _P, _P, _I, _I, _I, _P],
+        "add_rank1_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
     "preempt": {
         "preempt_launch": [_P] * 5 + [_I] * 4 + [_P] * 4,
@@ -62,6 +64,15 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
         "scatter_launch": [_P, _P, _I, _P, _P, _P, _I] + [_P] * 5,
         "fused_wave_launch": [_P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _I,
                               _I] + [_P] * 6,
+    },
+    "sharded": {
+        "scan_local_launch": [_P] * 25 + [_I] * 10 + [_P],
+        "scan_apply_launch": [_P] * 9 + [_I] * 7 + [_P],
+        "bulk_stats_launch": _BULK + [_I, _I, _P, _P, _I, _I, _I, _P],
+        "bulk_run_launch": _BULK + [_I, _P, _I, _P, _P, _I, _I, _P],
+        "bulk_order_launch": _BULK + [_I, _P, _I, _P, _P, _P, _I, _I, _P],
+        "bulk_counts_launch": [_P, _P, _I, _I, _P],
+        "basis_merge_launch": [_P, _P, _P, _I, _I, _P],
     },
 }
 

@@ -1,0 +1,654 @@
+"""The shard-local kernels of the sharded serving path (K7a-K7g).
+
+Torch port of the device work inside the reference's
+parallel/sharded.py shard_map bodies (`_place_step_sharded`,
+`place_batch_sharded`'s eval scan, `place_bulk_batch_sharded`'s wave
+loop and basis merge).  One call of each wrapper works on ONE node shard
+(rows [off, off + n) of an N-row world) on that shard's device; the
+collectives between them are explicit gathers of the small records the
+kernels write (parallel/sharded.py sequences them).
+
+- K7a `scan_local`: one scan slot on one shard: scores the local rows and
+  writes the shard's record (local best and its global row, the fit
+  score and spread value indices at that row, local n_eval/n_exh, the
+  local top-K) into its slot of the gathered record buffer.
+- K7b `scan_apply`: from the gathered records, the global selection
+  (pmax score, pmin row, stable merge of the top-K lists); the owning
+  shard updates used/tg_count/place_cap at the picked row, every shard
+  its replica of the spread counts; shard 0 writes the slot's packed row.
+- K7c `bulk_stats`: one bulk wave's statistics on one shard (any fit, the
+  m = 2 column's best, the local top-2 of the wave-start scores, which go
+  to the gathered score vector); with `begin` it first starts the eval
+  (its deltas, coll0, the lane state).
+- K7d `bulk_run`: every local row's fill run length (capped at the
+  remaining count) in the wave set the gathered statistics give.
+- K7e `bulk_order`: the greedy order over the gathered [N] vectors
+  (identical on every shard) and this shard's share of it; the lane
+  state, and the eval's tail (final scores, local counts, exact carry,
+  deltas backed out) when the stop test ends the eval.
+- K7f `bulk_counts`: the psum of the shards' n_eval/n_exh partials.
+- K7g `basis_merge`: `used_tot = u0 + psum_wave(exact - u0)` on one shard.
+
+Each has a plain PyTorch version here, which the wrapper takes for CPU
+tensors; CUDA tensors launch csrc/sharded.cu.  Records are i32 words
+(floats stored as their bits).  `launches` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, fields
+from types import SimpleNamespace
+from typing import Optional
+
+import torch
+
+from nomad_tpu_torch.ops import _build
+from nomad_tpu_torch.ops.fit import score_fit
+from nomad_tpu_torch.ops.place import (
+    FIT_NORM,
+    PACKED_WIDTH,
+    SCAN_MAX_SPREADS,
+    TOP_K,
+    _lax_top_k,
+    _spread_boost,
+    bulk_run_lengths,
+    bulk_wave_grid,
+)
+
+BIG = 2 ** 31 - 1
+# the scan record: i32 words, floats as bits
+REC_BEST, REC_ROW, REC_FIT, REC_NEVAL, REC_NEXH = 0, 1, 2, 3, 4
+REC_TOPS = 5                        # TOP_K scores
+REC_TOPI = REC_TOPS + TOP_K         # TOP_K global rows
+REC_V = REC_TOPI + TOP_K            # spread value indices at the best row
+SCAN_REC = REC_V + SCAN_MAX_SPREADS
+# the bulk wave's per-shard statistics: top-2 of cur, max m=2 score, any fit
+STATS_W = 4
+# the lane state of one bulk eval, per shard: placed, waves, stuck, done
+ST_PLACED, ST_WAVES, ST_STUCK, ST_DONE = 0, 1, 2, 3
+STATE_W = 4
+# per-eval partial counts: placed, n_eval (local), n_exh (local), waves
+COUNTS_W = 4
+
+launches = {"scan_local": 0, "scan_apply": 0, "bulk_stats": 0,
+            "bulk_run": 0, "bulk_order": 0, "bulk_counts": 0,
+            "basis_merge": 0}
+
+
+def _f(t: torch.Tensor) -> torch.Tensor:
+    """The f32 view of i32 record words."""
+    return t.view(torch.float32)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _kind(t: torch.Tensor, name: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1
+
+
+def _check_same_device(name: str, obj) -> None:
+    dev = None
+    for f in fields(obj):
+        t = getattr(obj, f.name)
+        if not isinstance(t, torch.Tensor):
+            continue
+        if dev is None:
+            dev = t.device
+        if t.device != dev:
+            raise ValueError(f"{name}.{f.name}: on {t.device}, shard on {dev}")
+
+
+# --------------------------------------------------------------------------
+# K7a / K7b: the scan path
+# --------------------------------------------------------------------------
+
+@dataclass
+class ScanShard:
+    """One node shard of one scan eval: rows [off, off + n) of the
+    node-axis fields, the replicated fields, and the carries it updates
+    in place (the usage carry, and tg_count/place_cap/spread counts that
+    each eval restarts from its own fields)."""
+    off: int
+    capacity: torch.Tensor        # f32[n, R]
+    used: torch.Tensor            # f32[n, R] usage carry
+    feasible: torch.Tensor        # bool[G, n]
+    affinity: torch.Tensor        # f32[G, n]
+    penalty: torch.Tensor         # bool[G, n]
+    tg0: torch.Tensor             # i32[G, n] the eval's tg_count
+    cap0: torch.Tensor            # i32[G, n] the eval's place_cap
+    vidx: torch.Tensor            # i32[G, K, n]
+    has_affinity: torch.Tensor    # bool[G]
+    desired_count: torch.Tensor   # i32[G]
+    spread_desired: torch.Tensor  # f32[G, K, V1]
+    spread_targeted: torch.Tensor  # bool[G, K]
+    spread_wfrac: torch.Tensor    # f32[G, K]
+    counts0: torch.Tensor         # f32[G, K, V1] the eval's spread counts
+    spread_active: torch.Tensor   # bool[G, K]
+    demand: torch.Tensor          # f32[S, R]
+    slot_tg: torch.Tensor         # i32[S]
+    slot_active: torch.Tensor     # bool[S]
+    tg_count: torch.Tensor        # i32[G, n] carry
+    place_cap: torch.Tensor       # i32[G, n] carry
+    counts: torch.Tensor          # f32[G, K, V1] carry (this shard's replica)
+
+    def check(self) -> "ScanShard":
+        _check_same_device("ScanShard", self)
+        n, R = self.capacity.shape
+        G, K = self.spread_wfrac.shape
+        if not 1 <= K <= SCAN_MAX_SPREADS:
+            raise ValueError(f"ScanShard: K={K}, the kernels take "
+                             f"1..{SCAN_MAX_SPREADS}")
+        if R != 4 or self.feasible.shape != (G, n) \
+                or self.vidx.shape != (G, K, n):
+            raise ValueError("ScanShard: inconsistent shapes")
+        for f in fields(self):
+            t = getattr(self, f.name)
+            if isinstance(t, torch.Tensor) and not t.is_contiguous():
+                raise ValueError(f"ScanShard.{f.name}: not contiguous")
+        return self
+
+
+def _add_deltas_local(used: torch.Tensor, off: int, rows: torch.Tensor,
+                      vals: torch.Tensor) -> None:
+    """used[rows[k] - off] += vals[k] in place, in order; rows outside
+    this shard (pad rows among them) drop."""
+    n = used.shape[0]
+    lr = rows.to(torch.int64) - off
+    for k in torch.nonzero((lr >= 0) & (lr < n)).flatten().tolist():
+        r = int(lr[k])
+        used[r] = used[r] + vals[k]
+
+
+def scan_local_plain(sh: ScanShard, s: int, init: bool,
+                     used_in: Optional[torch.Tensor],
+                     delta_rows: Optional[torch.Tensor],
+                     delta_vals: Optional[torch.Tensor],
+                     recs: torch.Tensor, shard: int,
+                     spread_algorithm: bool) -> None:
+    """Plain version of K7a: `_place_step_sharded`'s local half for slot
+    `s` (lines 186-217 and the local reductions), written into
+    recs[shard].  With `init` (an eval's first slot) it first starts the
+    eval: the usage carry from `used_in` (when given), the eval's deltas
+    added to it in order, the other carries from the eval's fields."""
+    f32 = torch.float32
+    n = sh.capacity.shape[0]
+    if init:
+        if used_in is not None:
+            sh.used.copy_(used_in)
+        if delta_rows is not None:
+            _add_deltas_local(sh.used, sh.off, delta_rows, delta_vals)
+        sh.tg_count.copy_(sh.tg0)
+        sh.place_cap.copy_(sh.cap0)
+        sh.counts.copy_(sh.counts0)
+    g = int(sh.slot_tg[s])
+    d = sh.demand[s]
+    active = sh.slot_active[s]
+    feas = sh.feasible[g] & (sh.place_cap[g] != 0)
+    util = sh.used + d
+    fits = torch.all(util <= sh.capacity, dim=-1) & feas
+    fit_score = score_fit(sh.capacity, util, spread_algorithm) * FIT_NORM
+    total = fit_score
+    n_scorers = torch.ones_like(fit_score)
+    coll = sh.tg_count[g].to(f32)
+    anti = -(coll + 1.0) / torch.clamp(sh.desired_count[g].to(f32), min=1.0)
+    has_coll = coll > 0.0
+    total = total + torch.where(has_coll, anti, torch.zeros_like(anti))
+    n_scorers = n_scorers + has_coll.to(f32)
+    pen = sh.penalty[g].to(f32)
+    total = total - pen
+    n_scorers = n_scorers + pen
+    aff = sh.affinity[g]
+    aff_on = sh.has_affinity[g] & (aff != 0.0)
+    total = total + torch.where(aff_on, aff, torch.zeros_like(aff))
+    n_scorers = n_scorers + aff_on.to(f32)
+    view = SimpleNamespace(spread_vidx=sh.vidx, spread_desired=sh.spread_desired,
+                           spread_targeted=sh.spread_targeted,
+                           spread_wfrac=sh.spread_wfrac,
+                           spread_active=sh.spread_active)
+    sboost = _spread_boost(view, g, sh.counts[g])
+    sb_on = torch.any(sh.spread_active[g]) & (sboost != 0.0)
+    total = total + torch.where(sb_on, sboost, torch.zeros_like(sboost))
+    n_scorers = n_scorers + sb_on.to(f32)
+    final = total / n_scorers
+    masked = torch.where(fits & active, final,
+                         torch.full_like(final, float("-inf")))
+
+    k = min(TOP_K, n)
+    top_s, top_i = _lax_top_k(masked, k)
+    best = top_s[0]
+    li = int(top_i[0])
+    rec = torch.zeros(SCAN_REC, dtype=torch.int32, device=recs.device)
+    recf = _f(rec)
+    recf[REC_BEST] = best
+    rec[REC_ROW] = sh.off + li
+    rec[REC_NEVAL] = torch.sum(feas & active).to(torch.int32)
+    rec[REC_NEXH] = torch.sum(feas & ~fits & active).to(torch.int32)
+    recf[REC_TOPS:REC_TOPS + TOP_K] = float("-inf")
+    recf[REC_TOPS:REC_TOPS + k] = top_s
+    rec[REC_TOPI:REC_TOPI + TOP_K] = BIG
+    rec[REC_TOPI:REC_TOPI + k] = (top_i + sh.off).to(torch.int32)
+    if bool(best > float("-inf")):
+        recf[REC_FIT] = fit_score[li]
+        K = sh.vidx.shape[1]
+        rec[REC_V:REC_V + K] = sh.vidx[g, :, li]
+    recs[shard] = rec
+
+
+def scan_local(sh: ScanShard, s: int, init: bool,
+               used_in: Optional[torch.Tensor],
+               delta_rows: Optional[torch.Tensor],
+               delta_vals: Optional[torch.Tensor],
+               recs: torch.Tensor, shard: int,
+               spread_algorithm: bool) -> None:
+    """K7a wrapper (see scan_local_plain).  CUDA shards launch
+    csrc/sharded.cu; CPU shards take the plain version."""
+    if _kind(sh.used, "scan_local") == "cpu":
+        return scan_local_plain(sh, s, init, used_in, delta_rows, delta_vals,
+                                recs, shard, spread_algorithm)
+    n = sh.capacity.shape[0]
+    G, K = sh.spread_wfrac.shape
+    V1 = sh.spread_desired.shape[2]
+    D = 0 if delta_rows is None else delta_rows.shape[0]
+    lib = _build.load("sharded")
+    rc = lib.scan_local_launch(
+        _ptr(sh.capacity), _ptr(sh.used), _ptr(sh.feasible), _ptr(sh.affinity),
+        _ptr(sh.penalty), _ptr(sh.tg0), _ptr(sh.cap0), _ptr(sh.vidx),
+        _ptr(sh.has_affinity), _ptr(sh.desired_count), _ptr(sh.spread_desired),
+        _ptr(sh.spread_targeted), _ptr(sh.spread_wfrac), _ptr(sh.counts0),
+        _ptr(sh.spread_active), _ptr(sh.demand), _ptr(sh.slot_tg),
+        _ptr(sh.slot_active), _ptr(sh.tg_count), _ptr(sh.place_cap),
+        _ptr(sh.counts), _ptr(used_in), _ptr(delta_rows), _ptr(delta_vals),
+        _ptr(recs), G, n, K, V1, D, sh.off, int(s), int(bool(init)),
+        int(shard), int(bool(spread_algorithm)), _stream(sh.used.device))
+    _launched("scan_local", rc)
+
+
+def scan_apply_plain(sh: ScanShard, s: int, recs: torch.Tensor,
+                     out: Optional[torch.Tensor]) -> None:
+    """Plain version of K7b: the global selection from the gathered
+    records (pmax score, pmin global row among the shards holding it),
+    the carry updates of `_place_step_sharded` (lines 229-244) on this
+    shard, and, where `out` (f32[S, PACKED_WIDTH]) is given, the slot's
+    packed row: the psums of the counts and the fit score, and the
+    stable merge of the shards' top-K lists (`argsort(-top_s)[:TOP_K]`
+    over them in shard order)."""
+    n = sh.capacity.shape[0]
+    n_shard = recs.shape[0]
+    k = min(TOP_K, n)
+    g = int(sh.slot_tg[s])
+    d = sh.demand[s]
+    recf = _f(recs)
+    bests = recf[:, REC_BEST]
+    gb = torch.max(bests)
+    ok_any = bool(gb > float("-inf"))
+    cand = torch.where((bests == gb) & ok_any, recs[:, REC_ROW],
+                       torch.full_like(recs[:, REC_ROW], BIG))
+    sel = int(torch.min(cand))
+    ok = sel < BIG
+    if ok:
+        w = int(torch.nonzero(cand == sel).flatten()[0])
+        lr = sel - sh.off
+        if 0 <= lr < n:
+            sh.used[lr] = sh.used[lr] + d
+            sh.tg_count[g, lr] += 1
+            if int(sh.place_cap[g, lr]) > 0:
+                sh.place_cap[g, lr] -= 1
+        V1 = sh.counts.shape[2]
+        K = sh.vidx.shape[1]
+        v = recs[w, REC_V:REC_V + K].to(torch.int64)
+        upd = (sh.spread_active[g] & (v < V1 - 1)).tolist()
+        for kk in range(K):
+            if upd[kk]:
+                sh.counts[g, kk, int(v[kk])] += 1.0
+    if out is None:
+        return
+    row = torch.zeros(PACKED_WIDTH, dtype=torch.float32, device=out.device)
+    row[0] = float(sel) if ok else -1.0
+    row[1] = gb if ok else 0.0
+    row[2] = recf[w, REC_FIT] + 0.0 if ok else 0.0
+    row[3] = float(int(torch.sum(recs[:, REC_NEVAL])))
+    row[4] = float(int(torch.sum(recs[:, REC_NEXH])))
+    tops = recf[:, REC_TOPS:REC_TOPS + k].reshape(-1)
+    topi = recs[:, REC_TOPI:REC_TOPI + k].reshape(-1)
+    order = torch.argsort(-tops, stable=True)[:TOP_K]
+    row[5:5 + TOP_K] = topi[order].to(torch.float32)
+    row[5 + TOP_K:] = tops[order]
+    out[s] = row
+
+
+def scan_apply(sh: ScanShard, s: int, recs: torch.Tensor,
+               out: Optional[torch.Tensor]) -> None:
+    """K7b wrapper (see scan_apply_plain).  CUDA shards launch
+    csrc/sharded.cu; CPU shards take the plain version."""
+    if _kind(sh.used, "scan_apply") == "cpu":
+        return scan_apply_plain(sh, s, recs, out)
+    n = sh.capacity.shape[0]
+    G, K = sh.spread_wfrac.shape
+    V1 = sh.spread_desired.shape[2]
+    lib = _build.load("sharded")
+    rc = lib.scan_apply_launch(
+        _ptr(sh.used), _ptr(sh.tg_count), _ptr(sh.place_cap), _ptr(sh.counts),
+        _ptr(sh.spread_active), _ptr(sh.demand), _ptr(sh.slot_tg),
+        _ptr(recs), _ptr(out), G, n, K, V1, sh.off, int(s), recs.shape[0],
+        _stream(sh.used.device))
+    _launched("scan_apply", rc)
+
+
+# --------------------------------------------------------------------------
+# K7c-K7g: the bulk wave
+# --------------------------------------------------------------------------
+
+@dataclass
+class BulkShard:
+    """One node shard of one lane of a bulk dispatch: rows [off, off + n)
+    of the lane's E chained evals, the lane's carries on this shard, and
+    its outputs (views into the assembled [E, N] outputs or local
+    buffers; rows contiguous, any eval stride)."""
+    off: int
+    n_rows: int                   # N, the whole world's rows
+    capacity: torch.Tensor        # f32[n, R]
+    used: torch.Tensor            # f32[n, R] lane chain carry
+    exact: torch.Tensor           # f32[n, R] lane exact carry
+    delta: torch.Tensor           # f32[n, R] scratch: the eval's local deltas
+    coll: torch.Tensor            # i32[n] scratch: co-placements
+    feasible: torch.Tensor        # bool[E, n]
+    affinity: torch.Tensor        # f32[E, n]
+    penalty: torch.Tensor         # bool[E, n]
+    coll0: torch.Tensor           # i32[E, n]
+    has_affinity: torch.Tensor    # bool[E]
+    desired: torch.Tensor         # i32[E]
+    demand: torch.Tensor          # f32[E, R]
+    count: torch.Tensor           # i32[E]
+    delta_rows: Optional[torch.Tensor]   # i32[E, D] global rows, or None
+    delta_vals: Optional[torch.Tensor]   # f32[E, D, R]
+    assign: torch.Tensor          # i32[E, n] output view
+    scores: torch.Tensor          # f32[E, n] output view
+    partial: torch.Tensor         # i32[E, COUNTS_W]
+    state: torch.Tensor           # i32[STATE_W]
+    keys: Optional[torch.Tensor] = None  # the order sort's global scratch
+
+    def check(self) -> "BulkShard":
+        _check_same_device("BulkShard", self)
+        n = self.capacity.shape[0]
+        E = self.feasible.shape[0]
+        if self.assign.shape != (E, n) or self.scores.shape != (E, n) \
+                or self.assign.stride(1) != 1 or self.scores.stride(1) != 1 \
+                or self.assign.stride(0) != self.scores.stride(0):
+            raise ValueError("BulkShard: outputs must be [E, n] row views "
+                             "with one eval stride")
+        if self.n_rows > (1 << 24):
+            raise ValueError("BulkShard: the order key holds a row in 24 bits")
+        if self.used.device.type == "cuda" and \
+                (self.keys is None) != (self.n_rows <= 16384):
+            raise ValueError("BulkShard: the order sort needs a global "
+                             "scratch past 16,384 rows, and only there")
+        return self
+
+    @property
+    def D(self) -> int:
+        return 0 if self.delta_rows is None else self.delta_rows.shape[1]
+
+
+def _grid(sh: BulkShard, e: int, fill_grid: int, spread: bool):
+    return bulk_wave_grid(sh.capacity, sh.used, sh.demand[e], sh.feasible[e],
+                          sh.affinity[e], bool(sh.has_affinity[e]),
+                          float(sh.desired[e]), sh.penalty[e], sh.coll,
+                          spread, fill_grid)
+
+
+def _bulk_tail_plain(sh: BulkShard, e: int, spread: bool) -> None:
+    """The eval's tail on this shard: `_bulk_scores` of its rows, the
+    local n_eval/n_exh, the exact carry += assign * demand, the deltas
+    backed out of the chain carry (lines 611-625)."""
+    _, fits_f, score_f = _grid(sh, e, 1, spread)
+    fits = fits_f[:, 0]
+    sh.scores[e] = torch.where(fits, score_f[:, 0],
+                               torch.full_like(score_f[:, 0], float("-inf")))
+    feas = sh.feasible[e]
+    st = sh.state
+    sh.partial[e] = torch.stack([
+        st[ST_PLACED], torch.sum(feas).to(torch.int32),
+        torch.sum(feas & ~fits).to(torch.int32), st[ST_WAVES]])
+    sh.exact.copy_(sh.exact + sh.assign[e].to(torch.float32)[:, None]
+                   * sh.demand[e])
+    if sh.delta_rows is not None:
+        sh.used.copy_(sh.used - sh.delta)
+
+
+def _stop(sh: BulkShard, e: int, max_waves: int) -> bool:
+    st = sh.state
+    go = (int(st[ST_PLACED]) < int(sh.count[e]) and not int(st[ST_STUCK])
+          and int(st[ST_WAVES]) < max_waves)
+    st[ST_DONE] = 0 if go else 1
+    return not go
+
+
+def bulk_stats_plain(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
+                     cur_g: torch.Tensor, shard: int, spread: bool,
+                     max_waves: int) -> None:
+    """Plain version of K7c.  With `begin` it starts eval `e` first: its
+    deltas go into the chain carry (`_apply_deltas_local`) and `delta`
+    keeps `used - used_in`; coll restarts from coll0, assign from 0, the
+    lane state from (0 placed, 0 waves); an eval that the stop test ends
+    at once runs its tail.  Then, unless the eval is done, the wave's
+    local statistics (lines 551-567): cur (the m = 1 score where the row
+    fits, else -inf) into cur_g[off:off+n], and stats[shard] = (top-2 of
+    cur, max m = 2 score where it fits, any fit)."""
+    if begin:
+        if sh.delta_rows is not None:
+            sh.delta.copy_(sh.used)
+            _add_deltas_local(sh.used, sh.off, sh.delta_rows[e],
+                              sh.delta_vals[e])
+            sh.delta.copy_(sh.used - sh.delta)
+        sh.coll.copy_(sh.coll0[e])
+        sh.assign[e] = 0
+        sh.state.zero_()
+        if _stop(sh, e, max_waves):
+            _bulk_tail_plain(sh, e, spread)
+    if int(sh.state[ST_DONE]):
+        return
+    _, fits_m, score_m = _grid(sh, e, 2, spread)
+    ninf = torch.full_like(score_m[:, 0], float("-inf"))
+    fits = fits_m[:, 0]
+    cur = torch.where(fits, score_m[:, 0], ninf)
+    n = cur.shape[0]
+    cur_g[sh.off:sh.off + n] = cur
+    top2 = _lax_top_k(cur, 2)[0]
+    smax = torch.max(torch.where(fits_m[:, 1], score_m[:, 1], ninf))
+    stats[shard] = torch.stack([top2[0], top2[1], smax,
+                                torch.any(fits).to(torch.float32)])
+
+
+def _wave_globals(stats: torch.Tensor):
+    """(any_fit, s_star, gmax, gsecond) from the gathered statistics: the
+    pmax of any-fit and of the m = 2 maxima, the global top-2 of cur as
+    `top_k(all_gather(local top-2), 2)`."""
+    any_fit = bool(torch.any(stats[:, 3] > 0))
+    s_star = torch.max(stats[:, 2])
+    g2 = _lax_top_k(stats[:, :2].reshape(-1), 2)[0]
+    return any_fit, s_star, g2[0], g2[1]
+
+
+def bulk_run_plain(sh: BulkShard, e: int, stats: torch.Tensor,
+                   cur_g: torch.Tensor, base_g: torch.Tensor, spread: bool,
+                   fill_grid: int) -> None:
+    """Plain version of K7d: base_g[off:off+n] = each local row's fill run
+    (`bulk_run_lengths` against `second`) where the row is in the wave
+    set, else 0.  The wave set is the strict set (cur > s*) when any row
+    beats s*, which is `gmax > s*`, else the tie set (cur == gmax); a
+    run is capped at the eval's remaining count (a longer run is only
+    ever used up to it)."""
+    if int(sh.state[ST_DONE]):
+        return
+    any_fit, s_star, gmax, gsecond = _wave_globals(stats)
+    n = sh.capacity.shape[0]
+    cur = cur_g[sh.off:sh.off + n]
+    if not any_fit:
+        base_g[sh.off:sh.off + n] = 0
+        return
+    use_strict = bool(gmax > s_star)
+    fits = cur > float("-inf")
+    wave = (cur > s_star) if use_strict else (fits & (cur == gmax))
+    second = torch.where(cur == gmax, gsecond, gmax)
+    ms, fits_m, score_m = _grid(sh, e, fill_grid, spread)
+    run = bulk_run_lengths(ms, fits_m, score_m, second)
+    remaining = int(sh.count[e]) - int(sh.state[ST_PLACED])
+    run = torch.clamp(run, max=remaining)
+    base_g[sh.off:sh.off + n] = torch.where(wave, run,
+                                            torch.zeros_like(run)).to(torch.int32)
+
+
+def bulk_order_plain(sh: BulkShard, e: int, stats: torch.Tensor,
+                     cur_g: torch.Tensor, base_g: torch.Tensor, spread: bool,
+                     max_waves: int) -> None:
+    """Plain version of K7e: the global greedy order (lines 578-601),
+    `argsort(where(base > 0, -cur, inf))` stable over the gathered
+    vectors, capped cumulatively at the remaining count; this shard adds
+    its rows' share to used/coll/assign.  Then the lane state (placed,
+    waves, stuck = not any_fit) and the stop test; the eval's tail when
+    it ends."""
+    if int(sh.state[ST_DONE]):
+        return
+    any_fit = bool(torch.any(stats[:, 3] > 0))
+    n = sh.capacity.shape[0]
+    remaining = int(sh.count[e]) - int(sh.state[ST_PLACED])
+    wave_g = base_g > 0
+    order = torch.argsort(torch.where(wave_g, -cur_g,
+                                      torch.full_like(cur_g, float("inf"))),
+                          stable=True)
+    base_sorted = base_g[order].to(torch.int64)
+    prefix = torch.cumsum(base_sorted, dim=0) - base_sorted
+    alloc_sorted = torch.minimum(torch.clamp(remaining - prefix, min=0),
+                                 base_sorted)
+    per_node_g = torch.zeros(cur_g.shape[0], dtype=torch.int64,
+                             device=cur_g.device)
+    per_node_g[order] = alloc_sorted
+    per_node = per_node_g[sh.off:sh.off + n]
+    sh.used.copy_(sh.used + per_node[:, None].to(torch.float32) * sh.demand[e])
+    sh.coll.copy_(sh.coll + per_node.to(torch.int32))
+    sh.assign[e] = sh.assign[e] + per_node.to(torch.int32)
+    st = sh.state
+    st[ST_PLACED] += int(torch.sum(per_node_g))
+    st[ST_WAVES] += 1
+    st[ST_STUCK] = 0 if any_fit else 1
+    if _stop(sh, e, max_waves):
+        _bulk_tail_plain(sh, e, spread)
+
+
+def _bulk_args(sh: BulkShard):
+    n = sh.capacity.shape[0]
+    return (_ptr(sh.capacity), _ptr(sh.used), _ptr(sh.exact), _ptr(sh.delta),
+            _ptr(sh.coll), _ptr(sh.feasible), _ptr(sh.affinity),
+            _ptr(sh.penalty), _ptr(sh.coll0), _ptr(sh.has_affinity),
+            _ptr(sh.desired), _ptr(sh.demand), _ptr(sh.count),
+            _ptr(sh.delta_rows), _ptr(sh.delta_vals), _ptr(sh.assign),
+            _ptr(sh.scores), _ptr(sh.partial), _ptr(sh.state), n,
+            sh.n_rows, sh.off, sh.D, sh.assign.stride(0))
+
+
+def bulk_stats(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
+               cur_g: torch.Tensor, shard: int, spread: bool,
+               max_waves: int) -> None:
+    """K7c wrapper (see bulk_stats_plain)."""
+    if _kind(sh.used, "bulk_stats") == "cpu":
+        return bulk_stats_plain(sh, e, begin, stats, cur_g, shard, spread,
+                                max_waves)
+    lib = _build.load("sharded")
+    rc = lib.bulk_stats_launch(*_bulk_args(sh), int(e), int(bool(begin)),
+                               _ptr(stats), _ptr(cur_g), int(shard),
+                               int(bool(spread)), int(max_waves),
+                               _stream(sh.used.device))
+    _launched("bulk_stats", rc)
+
+
+def bulk_run(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
+             base_g: torch.Tensor, spread: bool, fill_grid: int) -> None:
+    """K7d wrapper (see bulk_run_plain)."""
+    if _kind(sh.used, "bulk_run") == "cpu":
+        return bulk_run_plain(sh, e, stats, cur_g, base_g, spread, fill_grid)
+    lib = _build.load("sharded")
+    rc = lib.bulk_run_launch(*_bulk_args(sh), int(e), _ptr(stats),
+                             stats.shape[0], _ptr(cur_g), _ptr(base_g),
+                             int(bool(spread)), int(fill_grid),
+                             _stream(sh.used.device))
+    _launched("bulk_run", rc)
+
+
+def bulk_order(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
+               base_g: torch.Tensor, spread: bool, max_waves: int) -> None:
+    """K7e wrapper (see bulk_order_plain)."""
+    if _kind(sh.used, "bulk_order") == "cpu":
+        return bulk_order_plain(sh, e, stats, cur_g, base_g, spread, max_waves)
+    lib = _build.load("sharded")
+    rc = lib.bulk_order_launch(*_bulk_args(sh), int(e), _ptr(stats),
+                               stats.shape[0], _ptr(cur_g), _ptr(base_g),
+                               _ptr(sh.keys), int(bool(spread)),
+                               int(max_waves), _stream(sh.used.device))
+    _launched("bulk_order", rc)
+
+
+def bulk_counts_plain(partials: torch.Tensor, out: torch.Tensor) -> None:
+    """Plain version of K7f: out[e] = (placed, psum n_eval, psum n_exh,
+    waves) from the shards' partials i32[n_shard, E, 4] (placed and
+    waves are the same on every shard)."""
+    out[:, 0] = partials[0, :, 0]
+    out[:, 1] = torch.sum(partials[:, :, 1], dim=0).to(torch.int32)
+    out[:, 2] = torch.sum(partials[:, :, 2], dim=0).to(torch.int32)
+    out[:, 3] = partials[0, :, 3]
+
+
+def bulk_counts(partials: torch.Tensor, out: torch.Tensor) -> None:
+    """K7f wrapper (see bulk_counts_plain)."""
+    if _kind(out, "bulk_counts") == "cpu":
+        return bulk_counts_plain(partials, out)
+    if partials.device != out.device or not partials.is_contiguous() \
+            or not out.is_contiguous():
+        raise ValueError("bulk_counts: contiguous operands on one device")
+    lib = _build.load("sharded")
+    n_shard, E, _ = partials.shape
+    rc = lib.bulk_counts_launch(_ptr(partials), _ptr(out), n_shard, E,
+                                _stream(out.device))
+    _launched("bulk_counts", rc)
+
+
+def basis_merge_plain(u0: torch.Tensor, exacts: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """Plain version of K7g: out = u0 + psum_w(exacts[w] - u0), the lanes'
+    deltas summed in lane order (line 636).  `out` may be `u0` itself
+    (the donated basis)."""
+    acc = exacts[0] - u0
+    for w in range(1, exacts.shape[0]):
+        acc = acc + (exacts[w] - u0)
+    out.copy_(u0 + acc)
+
+
+def basis_merge(u0: torch.Tensor, exacts: torch.Tensor,
+                out: torch.Tensor) -> None:
+    """K7g wrapper (see basis_merge_plain)."""
+    if _kind(out, "basis_merge") == "cpu":
+        return basis_merge_plain(u0, exacts, out)
+    n, R = u0.shape
+    if exacts.shape[1:] != (n, R) or out.shape != (n, R) or \
+            len({u0.device, exacts.device, out.device}) != 1 or \
+            not (u0.is_contiguous() and exacts.is_contiguous()
+                 and out.is_contiguous()):
+        raise ValueError("basis_merge: f32[n, R], f32[W, n, R], f32[n, R] "
+                         "contiguous on one device")
+    lib = _build.load("sharded")
+    rc = lib.basis_merge_launch(_ptr(u0), _ptr(exacts), _ptr(out),
+                                exacts.shape[0], n * R, _stream(out.device))
+    _launched("basis_merge", rc)

@@ -1,6 +1,6 @@
 """PlacementEngine: the batching dispatcher in front of the dense kernels.
 
-Torch port of the reference's parallel/engine.py, single-device.
+Torch port of the reference's parallel/engine.py.
 Scheduler workers block in `place()` / `place_bulk()`; one dispatcher
 thread coalesces every request that arrived while the previous dispatch
 was in flight into one chained kernel launch — K3 (`place_batch_packed`,
@@ -27,8 +27,18 @@ An engine runs on one device: `get_engine(device)` keeps one per device,
 and a caller passes the device it already holds, so a CPU scheduler gets
 a CPU engine (on the plain versions) and nothing else ever does.
 
-Left out (single-device port): the sharded dispatches of the serving
-mesh (ROADMAP A4) and the tracing spans.
+The serving mesh (parallel/sharded.py): when more than one device of the
+engine's type is visible, or the engine was built with an explicit
+`mesh_devices` list (which may repeat a device, e.g. `cuda:0` eight
+times), dispatches whose node axis reaches `shard_min_nodes` and splits
+over the mesh's node shards route over the ('node_shard', 'wave') mesh:
+scan chains through `place_batch_sharded` (K7a/K7b), bulk parts through
+`place_bulk_batch_sharded` (K7c-K7g) with requests binned into wave lanes
+by `wave_key`, against a node-sharded world (K5').  NOMAD_TPU_SHARD=0
+turns it off.  `install_engine` makes such an engine the one
+`get_engine` (and so the scheduler and a `Server`) uses for its device.
+
+Left out: the tracing spans.
 """
 from __future__ import annotations
 
@@ -64,6 +74,18 @@ from nomad_tpu_torch.ops.place import (
     place_bulk_batch,
     unpack_bulk_batch,
     unpack_outputs,
+)
+from nomad_tpu_torch.parallel.sharded import (
+    NODE_AXIS_NAME,
+    SCAN_FIELDS,
+    WAVE_AXIS_NAME,
+    make_serving_mesh,
+    mesh_key,
+    place_batch_sharded,
+    place_bulk_batch_sharded,
+    put_bulk_lanes,
+    put_scan_fields,
+    visible_devices,
 )
 from nomad_tpu_torch.parallel.world import DeviceWorld, warm_scatter
 
@@ -107,19 +129,45 @@ class _DeviceCache:
 
     def _get_or_put(self, key, build):
         """build() returns the host (numpy) value; a miss uploads it."""
+        return self._get_or_put_device(
+            key, lambda: torch.from_numpy(
+                np.ascontiguousarray(build())).to(self.device))
+
+    def _get_or_put_device(self, key, build_device):
+        """build_device() returns the final device-resident value."""
         with self._lock:
             v = self._d.get(key)
             if v is not None:
                 self._d.move_to_end(key)
                 self.hits += 1
                 return v
-        arr = torch.from_numpy(np.ascontiguousarray(build())).to(self.device)
+        arr = build_device()
         with self._lock:
             self._d[key] = arr
             self.misses += 1
             while len(self._d) > self.max_entries:
                 self._d.popitem(last=False)
         return arr
+
+    def sharded(self, tag, mesh, tree, place, key=None):
+        """Content-addressed placement of host arrays on a mesh: a hit
+        returns the device-resident shards with zero bytes shipped.
+        `tree` may be a zero-arg callable, so a hit skips building the
+        host arrays; `place(mesh, tree)` shards them.  `key` is a
+        caller-computed content key; without it the arrays are hashed.
+        Keyed on the mesh's grid (mesh_key), not on the object."""
+        import hashlib
+        build = tree if callable(tree) else (lambda: tree)
+        if key is None:
+            built = build()
+            h = hashlib.blake2b(digest_size=16)
+            for name in sorted(built):
+                h.update(name.encode())
+                h.update(np.ascontiguousarray(built[name]).tobytes())
+            key = h.digest()
+            build = lambda: built                # noqa: E731
+        return self._get_or_put_device(("sh", tag, mesh_key(mesh), key),
+                                       lambda: place(mesh, build()))
 
     def heavy(self, inputs: PlaceInputs) -> torch.Tensor:
         """Device-resident packed heavy block for one eval's inputs."""
@@ -187,6 +235,9 @@ class _BulkRequest:
     deltas: List[Tuple[int, np.ndarray]]
     spread_algorithm: bool
     future: Future
+    # wave-lane key on the 2-D mesh (the eval's namespace): requests
+    # sharing it chain in one lane, distinct keys score concurrently
+    wave_key: str = ""
 
     def shape_key(self):
         return ("bulk", id(self.cm), self.spread_algorithm,
@@ -195,15 +246,16 @@ class _BulkRequest:
 
 @dataclass
 class _PendingBulk:
-    """One in-flight bulk dispatch: its packed output is on its way to
-    the host; _drain_record waits on `event`, then resolves it."""
+    """One in-flight bulk dispatch: its output is on its way to the
+    host; _drain_record waits on `event`, then resolves it."""
     reqs: List
-    out: torch.Tensor               # host packed output (pinned on CUDA)
+    out: object                     # host output(s) (pinned on CUDA)
     event: Optional[object]         # torch.cuda.Event after the download
     world: object                   # DeviceWorld the dispatch scored on
     deltas_per: List
     donated: bool
     t_dispatch: float
+    mapping: Optional[List] = None  # sharded: each request's (lane, slot)
 
 
 class PlacementEngine:
@@ -221,10 +273,25 @@ class PlacementEngine:
     E_BUCKETS = (1, 8, 16, 48)
     BULK_E_BUCKETS = (1, 8, 16, 48, 128, 512)
 
-    def __init__(self, max_batch: int = 512, device=None):
+    def __init__(self, max_batch: int = 512, device=None,
+                 shard_min_nodes: Optional[int] = None, mesh_devices=None):
+        if mesh_devices is not None:
+            mesh_devices = [resolve_device(d) for d in mesh_devices]
+            if device is None:
+                device = mesh_devices[0]
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        # the serving mesh: over `mesh_devices` when given, else over every
+        # visible device of the engine's type (this one first); dispatches
+        # shard when the node axis reaches shard_min_nodes (NOMAD_TPU_SHARD=0
+        # disables, NOMAD_TPU_SHARD_MIN tunes)
+        self._mesh_devices = mesh_devices
+        self._serving_mesh = None
+        self._mesh_checked = False
+        if shard_min_nodes is None:
+            shard_min_nodes = knobs.get_int("NOMAD_TPU_SHARD_MIN")
+        self.shard_min_nodes = shard_min_nodes
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self.max_batch = min(max_batch, self.BULK_E_BUCKETS[-1])
@@ -268,15 +335,19 @@ class PlacementEngine:
                       "bulk_evals": 0, "waves": 0, "max_waves_seen": 0,
                       # bulk wave groups and the device calls they took
                       "bulk_groups": 0, "bulk_parts": 0,
-                      # dispatches whose basis was donated; the mesh lane
-                      # counters stay 0 on this single-device engine
+                      # dispatches whose basis was donated; the peak count
+                      # of concurrently scoring mesh lanes, and the laned
+                      # occupancy (evals shipped vs W x E lane slots)
                       "donated_carries": 0, "wave_lanes": 0,
                       "lane_evals": 0, "lane_slots": 0,
+                      # evals dispatched over the serving mesh
+                      "sharded_evals": 0,
                       # bulk dispatches issued while the previous one was
                       # still in flight
                       "overlap_chained": 0}
         self._cache = _DeviceCache(self.device)
-        # device-resident worlds: (id(cm), N) -> DeviceWorld (LRU)
+        # device-resident worlds: (id(cm), N, mesh identity) -> DeviceWorld
+        # (LRU)
         self._worlds: "OrderedDict[tuple, DeviceWorld]" = OrderedDict()
         self._worlds_lock = threading.Lock()
         self._thread = threading.Thread(
@@ -292,22 +363,35 @@ class PlacementEngine:
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _to_host(self, t: torch.Tensor):
-        """Start the download of `t`: (host tensor, event or None).  On
-        CUDA the copy is asynchronous into pinned memory on the engine's
-        stream, and the event marks its end."""
-        if self._stream is None:
-            return t, None
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
+    def _to_host(self, t):
+        """Start the download of `t` (a tensor, or a tuple of them):
+        (host tensor(s), event or None).  On CUDA the copies are
+        asynchronous into pinned memory on the engine's stream, and the
+        event marks their end."""
+        if isinstance(t, tuple):
+            if self._stream is None:
+                return t, None
+            hosts = tuple(self._to_host_one(x) for x in t)
+        else:
+            if self._stream is None:
+                return t, None
+            hosts = self._to_host_one(t)
         ev = torch.cuda.Event()
         ev.record(self._stream)
-        return host, ev
+        return hosts, ev
 
     @staticmethod
-    def _wait(host: torch.Tensor, event) -> np.ndarray:
+    def _to_host_one(t: torch.Tensor) -> torch.Tensor:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    @staticmethod
+    def _wait(host, event):
         if event is not None:
             event.synchronize()
+        if isinstance(host, tuple):
+            return tuple(h.numpy() for h in host)
         return host.numpy()
 
     # ------------------------------------------------------------- public
@@ -333,7 +417,8 @@ class PlacementEngine:
 
     def _bulk_request(self, cm, *, feasible, affinity, has_affinity, desired,
                       penalty, coll0, demand, count, deltas=None,
-                      spread_algorithm: bool = False) -> _BulkRequest:
+                      spread_algorithm: bool = False,
+                      wave_key: str = "") -> _BulkRequest:
         return _BulkRequest(
             cm=cm, feasible=np.asarray(feasible, bool),
             affinity=np.asarray(affinity, np.float32),
@@ -342,13 +427,14 @@ class PlacementEngine:
             coll0=np.asarray(coll0, np.int32),
             demand=np.asarray(demand, np.float32), count=int(count),
             deltas=list(deltas or ()), spread_algorithm=spread_algorithm,
-            future=Future())
+            future=Future(), wave_key=str(wave_key))
 
     def place_bulk_begin(self, cm, **spec) -> Future:
         """Enqueue a bulk wavefront placement and return its Future
         (result tuple = place_bulk's).  `spec`: feasible, affinity,
         has_affinity, desired, penalty, coll0, demand, count and
-        optionally deltas and spread_algorithm."""
+        optionally deltas, spread_algorithm and wave_key (the eval's
+        namespace: the request's lane on a 2-D mesh)."""
         return self.place_bulk_begin_many(cm, [spec])[0]
 
     def place_bulk_begin_many(self, cm, specs: Sequence[dict]) -> List[Future]:
@@ -384,15 +470,19 @@ class PlacementEngine:
             _build.build_all()
         stats_before = dict(self.stats)
         cache_before = (self._cache.hits, self._cache.misses)
+        mesh = self._mesh_for(cm.n_rows)
         with self._on_stream():
             if inputs is not None:
                 r = _Request(cm=cm, inputs=inputs, deltas=[],
                              spread_algorithm=False, future=Future())
-                packed = self._dispatch_packed(
-                    [r], basis=np.asarray(inputs.used, np.float32),
-                    deltas_per_req=[[]],
-                    capacity=np.asarray(inputs.capacity),
-                    world=DeviceWorld(device=self.device))
+                if mesh is not None:
+                    packed = self._dispatch_group_sharded([r], mesh)
+                else:
+                    packed = self._dispatch_packed(
+                        [r], basis=np.asarray(inputs.used, np.float32),
+                        deltas_per_req=[[]],
+                        capacity=np.asarray(inputs.capacity),
+                        world=DeviceWorld(device=self.device))
                 self._wait(*self._to_host(packed))
             if bulk is not None:
                 dummy = [(0, np.zeros(NUM_RESOURCE_DIMS, np.float32))]
@@ -401,15 +491,23 @@ class PlacementEngine:
                     for deltas in ([], dummy):
                         spec = dict(bulk, count=count, deltas=deltas)
                         breqs = [self._bulk_request(cm, **spec)]
-                        out = self._dispatch_bulk_group(
-                            breqs, world=DeviceWorld(device=self.device))[0]
+                        # a throwaway world: the donated carry must never
+                        # land in the resident one
+                        if mesh is not None:
+                            out = self._dispatch_bulk_group_sharded(
+                                breqs, mesh, world=DeviceWorld(mesh=mesh))[0]
+                        else:
+                            out = self._dispatch_bulk_group(
+                                breqs, world=DeviceWorld(device=self.device))[0]
                         self._wait(*out)
             cap = np.asarray(cm.capacity)
             warm_scatter(cap.shape, self.device)
+            if mesh is not None:
+                warm_scatter(cap.shape, mesh=mesh)
             if bulk is not None:
                 N = cm.n_rows
-                self._world(cm, N).update(np.asarray(cm.capacity)[:N],
-                                          self._basis_for(cm)[:N])
+                self._world(cm, N, mesh).update(np.asarray(cm.capacity)[:N],
+                                                self._basis_for(cm)[:N])
         self.stats.update(stats_before)
         self._cache.hits, self._cache.misses = cache_before
 
@@ -564,14 +662,16 @@ class PlacementEngine:
 
     # ------------------------------------------------------------- overlay
 
-    def _world(self, cm, N: int) -> DeviceWorld:
-        """The device-resident world for (matrix, padded node axis); LRU
-        over stale matrix epochs."""
-        key = (id(cm), N)
+    def _world(self, cm, N: int, mesh=None) -> DeviceWorld:
+        """The device-resident world for (matrix, padded node axis, mesh),
+        node-sharded over the mesh when there is one; LRU over stale
+        matrix epochs."""
+        key = (id(cm), N, mesh_key(mesh))
         with self._worlds_lock:
             w = self._worlds.get(key)
             if w is None:
-                w = self._worlds[key] = DeviceWorld(device=self.device)
+                w = self._worlds[key] = DeviceWorld(mesh=mesh,
+                                                    device=self.device)
             self._worlds.move_to_end(key)
             while len(self._worlds) > 4:
                 self._worlds.popitem(last=False)
@@ -674,11 +774,14 @@ class PlacementEngine:
         if isinstance(reqs[0], _BulkRequest):
             cm = reqs[0].cm
             N = reqs[0].feasible.shape[0]
-            world = self._world(cm, N)
+            mesh = self._mesh_for(N)
+            world = self._world(cm, N, mesh)
+            lanes = mesh.shape[WAVE_AXIS_NAME] if mesh is not None else 1
             expected_shape = ((N, cm.capacity.shape[1]),
                               (N, cm.used.shape[1]))
             parts = 0
-            for part in self._split_bulk(reqs):
+            for part in self._split_bulk(reqs, sharded=mesh is not None,
+                                         lanes=lanes):
                 parts += 1
                 # chaining behind an in-flight dispatch is sound only when
                 # this part scores against the same world via the adopted
@@ -691,15 +794,22 @@ class PlacementEngine:
                 if self._pending is not None and not chained:
                     self._drain_pending()
                 tp0 = _time.time()
-                (out, ev), _w, dper, donated = self._dispatch_bulk_group(
-                    part, world=world, force_scatter=chained)
+                if mesh is not None:
+                    (out, ev), _w, dper, mapping, donated = \
+                        self._dispatch_bulk_group_sharded(
+                            part, mesh, world=world, force_scatter=chained)
+                else:
+                    (out, ev), _w, dper, donated = self._dispatch_bulk_group(
+                        part, world=world, force_scatter=chained)
+                    mapping = None
                 tp1 = _time.time()
                 self.upload_windows.append((tp0, tp1))
                 if chained:
                     self.stats["overlap_chained"] += 1
                 prev, self._pending = self._pending, _PendingBulk(
                     reqs=part, out=out, event=ev, world=world,
-                    deltas_per=dper, donated=donated, t_dispatch=tp1)
+                    deltas_per=dper, donated=donated, t_dispatch=tp1,
+                    mapping=mapping)
                 if prev is not None:
                     self._drain_record(prev)
                 if not (self.overlap and donated):
@@ -714,17 +824,24 @@ class PlacementEngine:
         self._drain_pending()
         rebucketed = (reqs[0].cm.capacity.shape[0]
                       != reqs[0].inputs.capacity.shape[0])
+        mesh = None if rebucketed else \
+            self._mesh_for(reqs[0].inputs.capacity.shape[0])
         # evals whose delta list exceeds the fixed bucket run alone with
-        # the deltas folded into a private basis
+        # the deltas folded into a private basis (on a mesh, sharded)
         overflow = [r for r in reqs if len(r.deltas) > _DELTA_BUCKET]
         if overflow:
             reqs = [r for r in reqs if len(r.deltas) <= _DELTA_BUCKET]
             for r in overflow:
-                self._run_single(r)
+                if mesh is not None:
+                    packed = self._dispatch_group_sharded([r], mesh,
+                                                          fold_deltas=True)
+                    self._fetch_resolve_scan([r], packed)
+                else:
+                    self._run_single(r)
             self.stats["single_evals"] += len(overflow)
             if not reqs:
                 return
-        if len(reqs) == 1 or rebucketed:
+        if mesh is None and (len(reqs) == 1 or rebucketed):
             # single path also when the matrix has grown since these
             # inputs were built
             for r in reqs:
@@ -735,7 +852,10 @@ class PlacementEngine:
         # overlay between dispatches
         for i in range(0, len(reqs), self.scan_max_batch):
             chunk = reqs[i:i + self.scan_max_batch]
-            packed = self._dispatch_group(chunk)
+            if mesh is not None:
+                packed = self._dispatch_group_sharded(chunk, mesh)
+            else:
+                packed = self._dispatch_group(chunk)
             self.stats["batched_evals"] += len(chunk)
             self._fetch_resolve_scan(chunk, packed)
 
@@ -764,7 +884,7 @@ class PlacementEngine:
         t0 = _time.time()
         try:
             self._resolve_bulk(p.reqs, fetched, p.world, p.deltas_per,
-                               donated=p.donated)
+                               mapping=p.mapping, donated=p.donated)
         except Exception as e:                  # noqa: BLE001
             for r in p.reqs:
                 if not r.future.done():
@@ -794,18 +914,231 @@ class PlacementEngine:
             r.future.set_result((res, ticket))
         self.stats["resolve_s"] += _time.time() - t0
 
+    # ------------------------------------------------------- sharded path
+
+    def _mesh_for(self, N: int):
+        """The ('node_shard', 'wave') serving mesh when sharding applies to
+        this node axis, else None."""
+        if not knobs.get_bool("NOMAD_TPU_SHARD"):
+            return None
+        if not self._mesh_checked:
+            devices = self._mesh_devices
+            if devices is None:
+                others = [d for d in visible_devices(self.device.type)
+                          if d != self.device]
+                devices = [self.device] + others
+            if len(devices) > 1:
+                self._serving_mesh = make_serving_mesh(devices)
+            self._mesh_checked = True
+        mesh = self._serving_mesh
+        if mesh is None or N < self.shard_min_nodes:
+            return None
+        # the node axis splits over 'node_shard' only; a shard needs >= 2
+        # rows (the wave's local top-2)
+        n_shard = mesh.shape[NODE_AXIS_NAME]
+        if N % n_shard != 0 or N < 2 * n_shard:
+            return None
+        return mesh
+
+    # per-eval PlaceInputs fields shipped to the sharded scan kernels
+    _SHARD_FIELDS = SCAN_FIELDS
+
+    @staticmethod
+    def _stack_deltas(deltas_per_req, E: int, N: int):
+        D = _DELTA_BUCKET
+        drows = np.full((E, D), N, np.int32)
+        dvals = np.zeros((E, D, NUM_RESOURCE_DIMS), np.float32)
+        for i, ds in enumerate(deltas_per_req):
+            for d, (row, vec) in enumerate(ds[:D]):
+                drows[i, d] = row
+                dvals[i, d] = vec
+        return drows, dvals
+
+    def _dispatch_group_sharded(self, reqs: List[_Request], mesh,
+                                fold_deltas: bool = False) -> torch.Tensor:
+        """Scan-path dispatch over the node-sharded serving mesh: one
+        chained `place_batch_sharded` of the group.  `fold_deltas`
+        (overflow singletons only) folds the request's oversized delta
+        list into the basis copy.  Returns the device-side packed output
+        f32[E, S, 5 + 2*TOP_K]."""
+        cm = reqs[0].cm
+        N = reqs[0].inputs.capacity.shape[0]
+        E = len(reqs)
+        S = _s_bucket(reqs[0].inputs.demand.shape[0])
+        t0 = _time.time()
+        fields = {}
+        for f in self._SHARD_FIELDS:
+            arrs = [np.asarray(getattr(r.inputs, f)) for r in reqs]
+            if f in ("demand", "slot_tg", "slot_active"):
+                # slot axis padded to the canonical bucket (pads inactive)
+                arrs = [np.concatenate(
+                    [a, np.zeros((S - a.shape[0],) + a.shape[1:], a.dtype)])
+                    if a.shape[0] < S else a for a in arrs]
+            fields[f] = np.stack(arrs)
+        basis = self._basis_for(cm)
+        deltas_per = [r.deltas for r in reqs]
+        if fold_deltas:
+            deltas_per = [_fold_overflow(basis, reqs[0].deltas)]
+        drows, dvals = self._stack_deltas(deltas_per, E, N)
+        self.stats["stack_s"] += _time.time() - t0
+        t0 = _time.time()
+        # content-addressed shards: identical job-state batches ship zero
+        # bytes; basis and deltas always ship (they change every dispatch)
+        fields_dev = self._cache.sharded("scan", mesh, fields,
+                                         put_scan_fields)
+        t1 = _time.time()
+        cap_dev, basis_dev = self._world(cm, N, mesh).update(cm.capacity,
+                                                            basis)
+        self.stats["put_basis_s"] = self.stats.get("put_basis_s", 0.0) \
+            + (_time.time() - t1)
+        packed, _used = place_batch_sharded(
+            mesh, cap_dev, basis_dev, fields_dev, drows, dvals,
+            spread_algorithm=reqs[0].spread_algorithm)
+        self.stats["put_s"] += _time.time() - t0
+        self.stats["sharded_evals"] += len(reqs)
+        return packed
+
+    @staticmethod
+    def _lane_bins(reqs: List[_BulkRequest], W: int):
+        """Deterministic wave-lane binning: distinct wave_keys spread
+        round-robin over the W lanes in sorted-key order; requests sharing
+        a key stay in one lane, so their chain is untouched.  Returns (W
+        per-lane request lists, mapping[i] = (lane, slot) per input
+        order).  One distinct key (or W == 1) gives one active lane."""
+        keys = sorted({r.wave_key for r in reqs})
+        if W <= 1 or len(keys) <= 1:
+            bins = [list(reqs)] + [[] for _ in range(max(0, W - 1))]
+            return bins, [(0, i) for i in range(len(reqs))]
+        lane_of = {k: i % W for i, k in enumerate(keys)}
+        bins: List[List[_BulkRequest]] = [[] for _ in range(W)]
+        mapping = []
+        for r in reqs:
+            lane = lane_of[r.wave_key]
+            mapping.append((lane, len(bins[lane])))
+            bins[lane].append(r)
+        return bins, mapping
+
+    def _dispatch_bulk_group_sharded(self, reqs: List[_BulkRequest], mesh,
+                                     world=None, donate=None,
+                                     force_scatter: bool = False):
+        """One bulk part -> one laned `place_bulk_batch_sharded` over the
+        mesh.  Returns ((host outputs, event), world, shipped deltas per
+        request, lane mapping, donated?)."""
+        cm = reqs[0].cm
+        N = reqs[0].feasible.shape[0]
+        donate = self.donate if donate is None else donate
+        W = mesh.shape[WAVE_AXIS_NAME]
+        capacity = cm.capacity[:N]
+        basis = self._basis_for(cm)[:N]
+        deltas_per = [r.deltas for r in reqs]
+        if len(reqs) == 1 and len(reqs[0].deltas) > _DELTA_BUCKET:
+            deltas_per = [_fold_overflow(basis, reqs[0].deltas)]
+            bins = [[reqs[0]]] + [[] for _ in range(W - 1)]
+            mapping = [(0, 0)]
+            deltas_bins = [deltas_per] + [[] for _ in range(W - 1)]
+        else:
+            bins, mapping = self._lane_bins(reqs, W)
+            dp = {id(r): d for r, d in zip(reqs, deltas_per)}
+            deltas_bins = [[dp[id(r)] for r in b] for b in bins]
+        # the lane eval extent: the fullest lane (shorter lanes pad with
+        # count-0 evals, which end inside their first launch)
+        E = max(len(b) for b in bins)
+        self.stats["wave_lanes"] = max(self.stats["wave_lanes"],
+                                       sum(1 for b in bins if b))
+        self.stats["lane_evals"] += len(reqs)
+        self.stats["lane_slots"] += W * E
+
+        t0 = _time.time()
+        r00 = reqs[0]
+        digs = tuple(tuple(
+            bulk_heavy_digest(r.feasible, r.affinity, r.penalty, r.coll0)
+            for r in b) for b in bins)
+        meta = tuple(tuple(
+            (np.asarray(r.demand, np.float32).tobytes(), bool(r.has_affinity),
+             int(r.desired)) for r in b) for b in bins)
+
+        def build_stacks():
+            def lane_stack(get, dt, pad=None):
+                rows = []
+                for b in bins:
+                    fill = b[0] if b else r00
+                    lane = [np.asarray(get(r), dt) for r in b]
+                    pad_a = np.asarray(get(fill), dt) if pad is None \
+                        else np.asarray(pad, dt)
+                    lane += [pad_a] * (E - len(b))
+                    rows.append(np.stack(lane))
+                return np.stack(rows)
+            return dict(
+                feasible=lane_stack(lambda r: r.feasible, bool),
+                affinity=lane_stack(lambda r: r.affinity, np.float32),
+                penalty=lane_stack(lambda r: r.penalty, bool),
+                coll0=lane_stack(lambda r: r.coll0, np.int32),
+                demand=lane_stack(lambda r: r.demand, np.float32),
+                has_affinity=lane_stack(lambda r: r.has_affinity, bool,
+                                        False),
+                desired=lane_stack(lambda r: r.desired, np.int32, 1))
+
+        # pads have count 0: their wavefront ends at once
+        cnt = np.stack([np.array([r.count for r in b] + [0] * (E - len(b)),
+                                 np.int32) for b in bins])
+        lane_d = [self._stack_deltas(list(db) + [[]] * (E - len(db)), E, N)
+                  for db in deltas_bins]
+        drows = np.stack([d[0] for d in lane_d])
+        dvals = np.stack([d[1] for d in lane_d])
+        self.stats["stack_s"] += _time.time() - t0
+        t0 = _time.time()
+        st = self._cache.sharded("bulk", mesh, build_stacks, put_bulk_lanes,
+                                 key=("bulkstack", N, W, E, digs, meta))
+        self.stats["put_heavy_s"] = self.stats.get("put_heavy_s", 0.0) \
+            + (_time.time() - t0)
+        t1 = _time.time()
+        world = world if world is not None else self._world(cm, N, mesh)
+        cap_dev, basis_dev = world.update(capacity, basis,
+                                          force_scatter=force_scatter)
+        if donate:
+            loaned = world.loan_basis()
+            if loaned is not None:
+                basis_dev = loaned
+            else:
+                donate = False
+        self.stats["put_basis_s"] = self.stats.get("put_basis_s", 0.0) \
+            + (_time.time() - t1)
+        t1 = _time.time()
+        assign, scores, placed, n_eval, n_exh, waves, used_tot = \
+            place_bulk_batch_sharded(
+                mesh, cap_dev, basis_dev, st["feasible"], st["affinity"],
+                st["has_affinity"], st["desired"], st["penalty"],
+                st["coll0"], st["demand"], cnt, drows, dvals,
+                spread_algorithm=reqs[0].spread_algorithm,
+                fill_grid=fill_grid_for(max(r.count for r in reqs)),
+                donate=donate)
+        if donate:
+            # the merged basis u0 + psum_wave(exact - u0), written into
+            # the loaned shards, is the new resident basis
+            world.adopt_basis(used_tot)
+            self.stats["donated_carries"] += 1
+        counts = torch.stack([placed, n_eval, n_exh, waves], dim=-1)
+        out = self._to_host((assign, scores, counts))
+        self.stats["put_kernel_s"] = self.stats.get("put_kernel_s", 0.0) \
+            + (_time.time() - t1)
+        self.stats["put_s"] += _time.time() - t0
+        self.stats["sharded_evals"] += len(reqs)
+        return out, world, deltas_per, mapping, donate
+
     # ---------------------------------------------------------- bulk path
 
-    def _split_bulk(self, reqs: List[_BulkRequest]):
+    def _split_bulk(self, reqs: List[_BulkRequest], sharded: bool = False,
+                    lanes: int = 1):
         # oversized-delta requests go alone so their deltas can fold into
         # the part's private basis copy
         overflow = [r for r in reqs if len(r.deltas) > _DELTA_BUCKET]
         rest = [r for r in reqs if len(r.deltas) <= _DELTA_BUCKET]
         for r in overflow:
             yield [r]
-        chunk = self._bulk_chunk(reqs[0].feasible.shape[0])
-        if self.fuse:
-            # the whole wave is one device call (modulo the byte budget)
+        chunk = self._bulk_chunk(reqs[0].feasible.shape[0], lanes)
+        if self.fuse or sharded:
+            # the whole wave is one device call (modulo the byte budget);
+            # the sharded kernels have one format, so they always fuse
             for i in range(0, len(rest), chunk):
                 yield rest[i:i + chunk]
             return
@@ -820,10 +1153,11 @@ class PlacementEngine:
             for i in range(0, len(fits), chunk):
                 yield fits[i:i + chunk]
 
-    def _bulk_chunk(self, N: int) -> int:
+    def _bulk_chunk(self, N: int, lanes: int = 1) -> int:
         """Largest bulk E bucket whose stacked per-eval heavy blocks
-        (f32[4N] each) fit the NOMAD_TPU_BULK_BYTES budget."""
-        cap = max(1, self.bulk_bytes_budget // (4 * N * 4))
+        (f32[4N] each) fit the NOMAD_TPU_BULK_BYTES budget; on a laned
+        mesh the stacks are [W, E, ...], so the budget divides by W."""
+        cap = max(1, self.bulk_bytes_budget // (4 * N * 4 * max(1, lanes)))
         allowed = [b for b in self.BULK_E_BUCKETS if b <= cap]
         return min(self.max_batch, allowed[-1] if allowed else 1)
 
@@ -899,17 +1233,26 @@ class PlacementEngine:
         self.stats["put_s"] += _time.time() - t0
         return out, world, deltas_per, donate
 
-    def _resolve_bulk(self, reqs: List[_BulkRequest], packed: np.ndarray,
-                      world, deltas_per, donated: bool = False) -> None:
+    def _resolve_bulk(self, reqs: List[_BulkRequest], packed, world,
+                      deltas_per, mapping=None, donated: bool = False) -> None:
         """Register each eval's placements in the overlay and hand them to
         the world (apply_rank1, or on the donated path apply_rank1_host:
         the adopted carry already holds them on the device), so the next
         dispatch's update() diff is clean.  `deltas_per` is what the
-        dispatch actually shipped per eval."""
+        dispatch actually shipped per eval.  A sharded dispatch's output
+        is (assign [W, E, N], scores [W, E, N], counts [W, E, 4]) and
+        `mapping` gives each request's (lane, slot) in it."""
         N = reqs[0].feasible.shape[0]
-        sparse = all(r.count <= SPARSE_CAP for r in reqs)
-        assign, scores, placed, n_eval, n_exh, waves = \
-            unpack_bulk_batch(packed, N, sparse=sparse)
+        if isinstance(packed, tuple):
+            assign, scores, counts = packed
+            lane = np.array([ln for ln, _ in mapping])
+            slot = np.array([sl for _, sl in mapping])
+            assign, scores = assign[lane, slot], scores[lane, slot]
+            placed, n_eval, n_exh, waves = counts[lane, slot].T
+        else:
+            sparse = all(r.count <= SPARSE_CAP for r in reqs)
+            assign, scores, placed, n_eval, n_exh, waves = \
+                unpack_bulk_batch(packed, N, sparse=sparse)
         self.stats["waves"] += int(np.sum(waves))
         self.stats["max_waves_seen"] = max(self.stats["max_waves_seen"],
                                            int(np.max(waves, initial=0)))
@@ -1013,6 +1356,20 @@ def get_engine(device=None) -> Optional[PlacementEngine]:
         if eng is None or eng._stop:
             eng = _engines[dev] = PlacementEngine(device=dev)
         return eng
+
+
+def install_engine(engine: PlacementEngine) -> PlacementEngine:
+    """Make `engine` the one `get_engine` returns for its device, until it
+    stops: how the scheduler and a `Server(device=...)` get an engine
+    built with an explicit device list (`PlacementEngine(mesh_devices=
+    ...)`, e.g. one card repeated as a serving mesh).  An engine already
+    kept for that device is stopped."""
+    with _engines_lock:
+        old = _engines.get(engine.device)
+        _engines[engine.device] = engine
+    if old is not None and old is not engine:
+        old.stop()
+    return engine
 
 
 def stop_engines() -> None:

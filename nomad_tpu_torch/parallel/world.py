@@ -1,8 +1,7 @@
 """Device-resident world state: the node x resource matrices live on the
 device across dispatches, and changes scatter in as row deltas.
 
-Torch port of the reference's parallel/world.py, single-device only (a
-`mesh` other than None raises: the serving mesh is ROADMAP A4).
+Torch port of the reference's parallel/world.py.
 
 `DeviceWorld` keeps one (capacity, basis) pair resident per cluster
 epoch; an epoch is a shape pair, so the matrix growing starts a new
@@ -21,11 +20,17 @@ as bucketed dirty-row scatters:
   donating kernel and install what it leaves (the exact carry, written
   into the same buffer); `invalidate_basis()` forgets a suspect one.
 
-The two scatters (K5) are hand-written CUDA (csrc/world_scatter.cu) with
-plain PyTorch versions beside them.  Both update the resident tensor in
-place: every use of it is ordered on the engine's one stream, so a
-kernel that read the old rows has finished before a scatter rewrites
-them.
+On a serving mesh (`DeviceWorld(mesh=...)`) each matrix lives as a list
+of node-shard tensors, shard i (rows [i*n, (i+1)*n)) on the mesh's
+device (i, 0); the scatters run per shard with the shard's row offset
+(K5', `set_rows_local` / `add_rank1_local`, the reference's
+`serving_update_fns`), so each shard writes only the rows it owns.
+
+The scatters (K5, K5') are hand-written CUDA (csrc/world_scatter.cu)
+with plain PyTorch versions beside them.  Both update the resident
+tensor in place: every use of it is ordered on the engine's one stream,
+so a kernel that read the old rows has finished before a scatter
+rewrites them.
 """
 from __future__ import annotations
 
@@ -43,8 +48,10 @@ from nomad_tpu_torch.ops import _build
 # dirty-row buckets of the row scatter
 ROW_BUCKETS = (64, 512, 4096)
 
-# kernel launches per wrapper (the plain versions never count)
-launches = {"set_rows": 0, "add_rank1": 0}
+# kernel launches per wrapper (the plain versions never count); the
+# *_local wrappers are the sharded world's (K5')
+launches = {"set_rows": 0, "add_rank1": 0, "set_rows_local": 0,
+            "add_rank1_local": 0}
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -64,11 +71,14 @@ def _check_scatter(d: torch.Tensor, rows: torch.Tensor, *others) -> None:
             raise ValueError("world scatter: operand not contiguous")
 
 
-def _live_rows(d: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Indices k of rows[k] inside [0, N) (pad rows drop); asserts the
-    kept rows are unique, which is what lets the kernel skip atomics."""
+def _live_rows(d: torch.Tensor, rows: torch.Tensor,
+               row_offset: int = 0) -> torch.Tensor:
+    """Indices k of rows[k] inside [off, off + N) (pad rows and other
+    shards' rows drop); asserts the kept rows are unique, which is what
+    lets the kernel skip atomics."""
     N = d.shape[0]
-    keep = torch.nonzero((rows >= 0) & (rows < N)).flatten()
+    local = rows - row_offset
+    keep = torch.nonzero((local >= 0) & (local < N)).flatten()
     live = rows[keep]
     if torch.unique(live).numel() != live.numel():
         raise ValueError("world scatter: rows must be unique")
@@ -76,23 +86,66 @@ def _live_rows(d: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def set_rows_plain(d: torch.Tensor, rows: torch.Tensor,
-                   vals: torch.Tensor) -> torch.Tensor:
-    """Plain version of set_rows: d[rows] = vals in place, rows outside
-    [0, N) dropped (`d.at[r].set(v, mode="drop")`).  Returns d."""
-    keep = _live_rows(d, rows)
-    d[rows[keep].long()] = vals[keep]
+                   vals: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
+    """Plain version of set_rows: d[rows - off] = vals in place, rows
+    outside [off, off + N) dropped (`d.at[r].set(v, mode="drop")`, and on
+    a shard `_set_rows_local`).  Returns d."""
+    keep = _live_rows(d, rows, row_offset)
+    d[rows[keep].long() - row_offset] = vals[keep]
     return d
 
 
 def add_rank1_plain(d: torch.Tensor, rows: torch.Tensor,
-                    counts: torch.Tensor, dem: torch.Tensor) -> torch.Tensor:
-    """Plain version of add_rank1: d[rows[k]] += f32(counts[k]) * dem in
-    place, rows outside [0, N) dropped.  The product is rounded before
-    the add, as native.scatter_add_rank1 does.  Returns d."""
-    keep = _live_rows(d, rows)
-    r = rows[keep].long()
+                    counts: torch.Tensor, dem: torch.Tensor,
+                    row_offset: int = 0) -> torch.Tensor:
+    """Plain version of add_rank1: d[rows[k] - off] += f32(counts[k]) *
+    dem in place, rows outside [off, off + N) dropped.  The product is
+    rounded before the add, as native.scatter_add_rank1 does.  Returns
+    d."""
+    keep = _live_rows(d, rows, row_offset)
+    r = rows[keep].long() - row_offset
     inc = counts[keep].to(torch.float32)[:, None] * dem
     d[r] = d[r] + inc
+    return d
+
+
+def _set_rows(name: str, d, rows, vals, row_offset: int):
+    _check_scatter(d, rows, vals)
+    B, R = vals.shape
+    if rows.shape[0] != B or R != d.shape[1] or vals.dtype != torch.float32:
+        raise ValueError(f"{name}: vals must be f32[B, R]")
+    if d.device.type == "cpu":
+        return set_rows_plain(d, rows, vals, row_offset)
+    if d.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {d.device}")
+    lib = _build.load("world_scatter")
+    rc = lib.set_rows_launch(_ptr(d), _ptr(rows), _ptr(vals), B, d.shape[0],
+                             int(row_offset), ctypes.c_void_p(
+                                 torch.cuda.current_stream(d.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1
+    return d
+
+
+def _add_rank1(name: str, d, rows, counts, dem, row_offset: int):
+    _check_scatter(d, rows, counts, dem)
+    B = rows.shape[0]
+    if counts.shape != (B,) or counts.dtype != torch.int32 \
+            or dem.shape != (d.shape[1],) or dem.dtype != torch.float32:
+        raise ValueError(f"{name}: counts must be i32[B], dem f32[R]")
+    if d.device.type == "cpu":
+        return add_rank1_plain(d, rows, counts, dem, row_offset)
+    if d.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {d.device}")
+    lib = _build.load("world_scatter")
+    rc = lib.add_rank1_launch(_ptr(d), _ptr(rows), _ptr(counts), _ptr(dem),
+                              B, d.shape[0], int(row_offset),
+                              ctypes.c_void_p(
+                                  torch.cuda.current_stream(d.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1
     return d
 
 
@@ -100,60 +153,42 @@ def set_rows(d: torch.Tensor, rows: torch.Tensor,
              vals: torch.Tensor) -> torch.Tensor:
     """K5 set_rows wrapper (in place, returns d).  CUDA tensors launch
     csrc/world_scatter.cu; CPU tensors take the plain version."""
-    _check_scatter(d, rows, vals)
-    B, R = vals.shape
-    if rows.shape[0] != B or R != d.shape[1] or vals.dtype != torch.float32:
-        raise ValueError("set_rows: vals must be f32[B, R]")
-    if d.device.type == "cpu":
-        return set_rows_plain(d, rows, vals)
-    if d.device.type != "cuda":
-        raise ValueError(f"set_rows: unsupported device {d.device}")
-    lib = _build.load("world_scatter")
-    rc = lib.set_rows_launch(_ptr(d), _ptr(rows), _ptr(vals), B, d.shape[0],
-                             ctypes.c_void_p(
-                                 torch.cuda.current_stream(d.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"set_rows kernel launch failed: CUDA error {rc}")
-    launches["set_rows"] += 1
-    return d
+    return _set_rows("set_rows", d, rows, vals, 0)
 
 
 def add_rank1(d: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
               dem: torch.Tensor) -> torch.Tensor:
     """K5 add_rank1 wrapper (in place, returns d).  CUDA tensors launch
     csrc/world_scatter.cu; CPU tensors take the plain version."""
-    _check_scatter(d, rows, counts, dem)
-    B = rows.shape[0]
-    if counts.shape != (B,) or counts.dtype != torch.int32 \
-            or dem.shape != (d.shape[1],) or dem.dtype != torch.float32:
-        raise ValueError("add_rank1: counts must be i32[B], dem f32[R]")
-    if d.device.type == "cpu":
-        return add_rank1_plain(d, rows, counts, dem)
-    if d.device.type != "cuda":
-        raise ValueError(f"add_rank1: unsupported device {d.device}")
-    lib = _build.load("world_scatter")
-    rc = lib.add_rank1_launch(_ptr(d), _ptr(rows), _ptr(counts), _ptr(dem),
-                              B, d.shape[0],
-                              ctypes.c_void_p(
-                                  torch.cuda.current_stream(d.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"add_rank1 kernel launch failed: CUDA error {rc}")
-    launches["add_rank1"] += 1
-    return d
+    return _add_rank1("add_rank1", d, rows, counts, dem, 0)
 
 
-def warm_scatter(shape: tuple, device=None) -> None:
+def set_rows_local(d: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+                   row_offset: int) -> torch.Tensor:
+    """K5' set_rows on one node shard holding global rows [row_offset,
+    row_offset + N): global `rows` translate to local ones, the rest
+    drop.  CUDA tensors launch csrc/world_scatter.cu; CPU tensors take
+    the plain version."""
+    return _set_rows("set_rows_local", d, rows, vals, row_offset)
+
+
+def add_rank1_local(d: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
+                    dem: torch.Tensor, row_offset: int) -> torch.Tensor:
+    """K5' add_rank1 on one node shard (see set_rows_local)."""
+    return _add_rank1("add_rank1_local", d, rows, counts, dem, row_offset)
+
+
+def warm_scatter(shape: tuple, device=None, mesh=None) -> None:
     """Build the row-scatter kernel and run it once per ROW_BUCKET for a
-    world of `shape` (N, R), so a measured window's first dirty-row
-    update pays neither.  Every row index is N (dropped), against a
-    throwaway zero world, never a resident one."""
+    world of `shape` (N, R) (sharded over `mesh` when given), so a
+    measured window's first dirty-row update pays neither.  Every row
+    index is N (dropped), against a throwaway zero world, never a
+    resident one."""
     N, R = shape
-    w = DeviceWorld(device=device)
+    w = DeviceWorld(mesh=mesh, device=device)
     dev = w._put_full(np.zeros((N, R), np.float32))
     for b in ROW_BUCKETS:
-        rows, vals = w._put_operands(np.full(b, N, np.int32),
-                                     np.zeros((b, R), np.float32))
-        set_rows(dev, rows, vals)
+        w._set_rows(dev, np.full(b, N, np.int32), np.zeros((b, R), np.float32))
 
 
 class DeviceWorld:
@@ -163,18 +198,20 @@ class DeviceWorld:
     under `self.lock`."""
 
     def __init__(self, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DeviceWorld: the sharded (mesh) world is not ported yet "
-                "(ROADMAP A4); the port's world is single-device")
-        self.mesh = None
-        self.device = resolve_device(device)
+        from nomad_tpu_torch.parallel.sharded import Mesh
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"DeviceWorld: mesh must be a "
+                            f"parallel.sharded.Mesh, got {type(mesh)!r}")
+        self.mesh = mesh
+        self.device = mesh.device(0, 0) if mesh is not None \
+            else resolve_device(device)
         self.lock = threading.Lock()
         self.shape: Optional[tuple] = None       # shapes of current epoch
         self._cap_last: Optional[np.ndarray] = None
-        self._cap_dev: Optional[torch.Tensor] = None
+        # tensors, or lists of node-shard tensors on a mesh
+        self._cap_dev = None
         self._basis_last: Optional[np.ndarray] = None
-        self._basis_dev: Optional[torch.Tensor] = None
+        self._basis_dev = None
         self.stats = {"full_uploads": 0, "rows_scattered": 0,
                       "clean_hits": 0, "rank1_applies": 0,
                       # full uploads after the epoch's first one
@@ -184,27 +221,39 @@ class DeviceWorld:
 
     # ------------------------------------------------------------ helpers
 
-    def _put_full(self, host: np.ndarray) -> torch.Tensor:
-        # always a private copy: on the CPU torch.from_numpy aliases the
-        # numpy buffer, and the host snapshot is mutated in place by
-        # apply_rank1's host scatter
+    def _put_full(self, host: np.ndarray):
+        """A private device copy of `host` (on the CPU torch.from_numpy
+        would alias the numpy buffer, which apply_rank1's host scatter
+        mutates); on a mesh, the list of node-shard tensors."""
         arr = np.array(host, dtype=np.float32)
+        if self.mesh is not None:
+            from nomad_tpu_torch.parallel.sharded import put
+            return put(self.mesh, arr, 0)
         return torch.from_numpy(arr).to(self.device)
 
     def _put_operands(self, *arrays):
         """Upload of scatter operands (rows/counts/values), private
-        copies as for _put_full."""
-        return tuple(torch.from_numpy(np.array(a)).to(self.device)
-                     for a in arrays)
+        copies as for _put_full; on a mesh, one upload to each distinct
+        shard device and a list over the shards for each operand."""
+        if self.mesh is None:
+            return tuple(torch.from_numpy(np.array(a)).to(self.device)
+                         for a in arrays)
+        devs = self.mesh.column(0)
+        per = {d: [torch.tensor(np.array(a), device=d) for a in arrays]
+               for d in dict.fromkeys(devs)}
+        return tuple([per[d][k] for d in devs] for k in range(len(arrays)))
 
-    def _set_rows(self, dev: torch.Tensor, rows: np.ndarray,
-                  vals: np.ndarray) -> torch.Tensor:
+    def _set_rows(self, dev, rows: np.ndarray, vals: np.ndarray):
         rows_dev, vals_dev = self._put_operands(rows, vals)
-        return set_rows(dev, rows_dev, vals_dev)
+        if self.mesh is None:
+            return set_rows(dev, rows_dev, vals_dev)
+        from nomad_tpu_torch.parallel.sharded import serving_update_fns
+        set_fn, _ = serving_update_fns(self.mesh)
+        return set_fn(dev, rows_dev, vals_dev)
 
     def _update_one(self, host: np.ndarray, last: Optional[np.ndarray],
                     dev, force_scatter: bool = False
-                    ) -> Tuple[np.ndarray, torch.Tensor, bool]:
+                    ) -> Tuple[np.ndarray, object, bool]:
         """Sync one matrix; returns (new snapshot, new device array,
         full-upload?).  Caller holds self.lock.  `force_scatter` (the
         chained donated-carry pipeline): the device array holds in-flight
@@ -283,7 +332,7 @@ class DeviceWorld:
                 self.stats["steady_reuploads"] += 1
             return self._cap_dev, self._basis_dev
 
-    def loan_basis(self) -> Optional[torch.Tensor]:
+    def loan_basis(self):
         """Transfer exclusive ownership of the resident basis buffer to a
         donating kernel.  The world forgets it; the caller follows the
         dispatch with `adopt_basis(...)`, or leaves the world
@@ -295,7 +344,7 @@ class DeviceWorld:
                 self.stats["basis_loans"] += 1
             return dev
 
-    def adopt_basis(self, dev: Optional[torch.Tensor]) -> None:
+    def adopt_basis(self, dev) -> None:
         """Install a kernel's donated-carry output as the resident basis
         (paired with `apply_rank1_host` at resolve time: the carry
         already holds the placements on the device)."""
@@ -341,8 +390,15 @@ class DeviceWorld:
             if self._basis_dev is None:
                 return                   # loaned out: next update ships
             rows_dev, counts_dev, d_dev = self._put_operands(*clipped)
-            self._basis_dev = add_rank1(self._basis_dev, rows_dev,
-                                        counts_dev, d_dev)
+            if self.mesh is None:
+                self._basis_dev = add_rank1(self._basis_dev, rows_dev,
+                                            counts_dev, d_dev)
+            else:
+                from nomad_tpu_torch.parallel.sharded import \
+                    serving_update_fns
+                _, add_fn = serving_update_fns(self.mesh)
+                self._basis_dev = add_fn(self._basis_dev, rows_dev,
+                                         counts_dev, d_dev)
             self.stats["rank1_applies"] += 1
 
     def apply_rank1_host(self, rows: np.ndarray, counts: np.ndarray,

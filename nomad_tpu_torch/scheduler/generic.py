@@ -820,7 +820,11 @@ class GenericScheduler:
                     desired=max(g.tg.count, 1), penalty=penalty,
                     coll0=coll0, demand=g.demand.astype(np.float32),
                     count=len(prs), deltas=deltas,
-                    spread_algorithm=stack.spread_algorithm)
+                    spread_algorithm=stack.spread_algorithm,
+                    # the namespace is the wave-lane key: evals of
+                    # different namespaces are independent waves and may
+                    # score concurrently on the 2-D mesh's wave lanes
+                    wave_key=self.job.namespace)
 
     def _place_bulk(self, cm, job, g, prs, allocs_by_tg, penalty_nodes,
                     deltas, stack):

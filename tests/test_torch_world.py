@@ -230,7 +230,9 @@ def test_device_world_loan_adopt_invalidate():
 
 
 def test_device_world_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A4"):
+    # a serving mesh is a parallel.sharded.Mesh (the sharded world is
+    # tests/test_torch_sharded.py's); anything else is refused
+    with pytest.raises(TypeError, match="Mesh"):
         tw.DeviceWorld(mesh=object(), device="cpu")
 
 
