@@ -12,9 +12,14 @@ Phases, all run in this order:
            bucket of a 10,000-node cluster): integer outputs equal, float
            outputs within the tests' tolerances (K1, K2) or bit-equal
            (K3, K4, K5, K6), K4 also at the bench spine's longest chain
-           (512 groups); CUDA-event times of the kernel, of the plain
-           version and, for K5, of the one PyTorch call that computes the
-           same function.  Then K1 and K4 past the shared-memory sort,
+           (512 groups), K5 also as two segments of one launch at every
+           bucket; CUDA-event times of the kernel, of the plain version
+           and, for K5, of the one PyTorch call that computes the same
+           function, one launch between an event pair and (K5) a burst
+           of 50; the stall reading (DeviceWorld.update with dirty rows in
+           both matrices behind a kernel of 70 ms in flight, on the host
+           clock, beside blocking uploads of the same operands).  Then
+           K1 and K4 past the shared-memory sort,
            at 32,768 and 131,072 rows (20,000- and 100,000-node
            clusters, K4 also on a fresh cluster where each wave sorts
            every ready row), and the stage probe's units K8a-K8f at the
@@ -75,7 +80,9 @@ Phases, all run in this order:
            (N = 16,384 and 131,072) checked bit for bit against its plain
            version, each function bit-equal to its plain form and equal
            to the unsharded K2/K3/K4 in rows, counts and waves; K5' on
-           every shard; then the engine phase's 10,000-node stream on a (4, 2)
+           every shard, every shard of a mesh in one launch, and the
+           stall reading on a mesh world; then the engine phase's
+           10,000-node stream on a (4, 2)
            engine (the main path: K7's counts are read there) with
            per-job row maps equal to the single-device engine's, a
            donation-off run (K5' add_rank1_local), bench_e2e_spine's
@@ -84,6 +91,10 @@ Phases, all run in this order:
            (4, 2) (LOAD_JOBS of C2M-1M's 10,000, for the time limit);
            each run with every alloc committed and the sharded device
            basis bit-equal to its host snapshot.
+
+The engine and sharded streams also print K5's launches per dirty
+update (launches over the world's staged operand buffers, one a card an
+update touches) and fail past one.
 
 Output: the card's name and power limit (nvidia-smi), per-phase lines, a
 `{"kernels": [...]}` line, and as the last line
@@ -136,6 +147,43 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def time_burst(fn, n: int = 50, reps: int = 5, warmup: int = 3) -> float:
+    """Median over `reps` of one CUDA-event pair around n calls of fn(),
+    divided by n, in ms: the launch rate once the host runs ahead."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    return statistics.median(times)
+
+
+def host_us(fn, n: int = 2000, reps: int = 5) -> float:
+    """Median over `reps` of the host time of n calls of fn() (queued
+    work drained between reps), in microseconds a call."""
+    import torch
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -697,8 +745,11 @@ def check_batch_bulk():
 
 def check_world_scatter():
     """K5 set_rows (64/512/4096-row buckets, pad rows dropped) and
-    add_rank1 vs plain on the card, bit for bit; times at the largest
-    bucket beside the one PyTorch call (index_copy_ / index_add_)."""
+    add_rank1 vs plain on the card, bit for bit, as one segment and as
+    two segments of one launch (each bucket beside another, as an update
+    scatters capacity and basis); times at the largest bucket, one
+    launch between an event pair and a burst of 50, beside the one
+    PyTorch call (index_copy_ / index_add_); then the stall reading."""
     import torch
     from nomad_tpu_torch.parallel import world as tw
     rng = np.random.default_rng(13)
@@ -731,6 +782,45 @@ def check_world_scatter():
     _bitwise("add_rank1 vs host rank-1", k.cpu().numpy(), host)
     log(f"kernels: add_rank1 B={B}: bit-equal to plain and to the host "
         f"rank-1 update")
+    cap = np.full((N_ROWS, 4), 8000.0, np.float32)
+    pairs = []
+    for i, b in enumerate(tw.ROW_BUCKETS):
+        b2 = tw.ROW_BUCKETS[(i + 1) % len(tw.ROW_BUCKETS)]
+        pairs.append((b, b2))
+        rows2 = []
+        for bb in (b, b2):
+            r = np.full(bb, N_ROWS, np.int32)
+            r[:bb * 3 // 4] = rng.choice(N_NODES, bb * 3 // 4, replace=False)
+            rows2.append(r)
+        vals2 = [(rng.random((bb, 4)) * 5000).astype(np.float32)
+                 for bb in (b, b2)]
+        counts2 = [rng.integers(-3, 40, bb).astype(np.int32)
+                   for bb in (b, b2)]
+        # the second set segment carries old host values (a chained
+        # update's dirty rows)
+        olds2 = (rng.random((b2, 4)) * 5000).astype(np.float32)
+        for name in ("set_rows", "add_rank1"):
+            outs = []
+            for fn in (tw.scatter_segments, tw.scatter_segments_plain):
+                ds = [t(cap), t(base)]
+                ops = [(t(vals2[0]),), (t(vals2[1]), t(olds2))] \
+                    if name == "set_rows" else \
+                    [(t(counts2[j]), t(dem)) for j in range(2)]
+                n0 = tw.launches[name]
+                fn(name, [(ds[j], 0, t(rows2[j]), *ops[j])
+                          for j in range(2)])
+                if fn is tw.scatter_segments and \
+                        tw.launches[name] != n0 + 1:
+                    raise AssertionError(f"{name}: two segments took "
+                                         f"{tw.launches[name] - n0} launches")
+                outs.append(ds)
+            torch.cuda.synchronize()
+            for j in range(2):
+                _bitwise(f"{name} two segments {(b, b2)}, segment {j}",
+                         outs[0][j].cpu().numpy(), outs[1][j].cpu().numpy())
+    log(f"kernels: set_rows (the second segment with old values) / "
+        f"add_rank1 as two segments of one launch, buckets {pairs}: "
+        f"bit-equal to plain")
     d, r, v = t(base), t(rows), t(rng.random((B, 4)).astype(np.float32))
     rl, c, dm = r.long(), t(counts), t(dem)
     cf = c.float()
@@ -748,10 +838,15 @@ def check_world_scatter():
         ms = time_cuda(kern, reps=50)
         plain_ms = time_cuda(plain)
         lib_ms = time_cuda(lib, reps=50)
+        burst = time_burst(kern)
+        lib_burst = time_burst(lib)
+        h_us, lib_h_us = host_us(kern), host_us(lib)
         bound, by = _bound(nbytes, ops)
-        log(f"kernels: {name} B={B}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-            f"{bound:.6f} ms ({by})")
+        log(f"kernels: {name} B={B}: kernel {ms:.4f} ms (burst of 50: "
+            f"{burst:.4f} ms a launch), plain {plain_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms (burst {lib_burst:.4f}), bound {bound:.6f} ms "
+            f"({by}); host time a call: wrapper {h_us:.3f} us, library "
+            f"{lib_h_us:.3f} us")
         entries[name] = dict(
             name=name, route="cuda",
             source="nomad_tpu_torch/csrc/world_scatter.cu",
@@ -759,8 +854,148 @@ def check_world_scatter():
                       else "nomad_tpu/parallel/world.py:88"),
             jax_function=f"_single_device_fns ({name})",
             launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+            bound_ms=bound, bound_by=by, library_ms=lib_ms,
+            burst_ms=burst, library_burst_ms=lib_burst, host_us=h_us,
+            library_host_us=lib_h_us)
+    # what the wrapper's parts cost on the host, a call
+    rec = tw._record("set_rows", (d, 0, r, v), False, d.get_device())
+    parts = {
+        "checks and record": lambda: tw._record("set_rows", (d, 0, r, v),
+                                                False, d.get_device()),
+        "ctypes call and launch": lambda: tw._entries[0](
+            rec, 1, torch._C._cuda_getCurrentRawStream(0)),
+        "stream as current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(d.device).cuda_stream,
+        "stream as the raw handle":
+            lambda: torch._C._cuda_getCurrentRawStream(0)}
+    log("kernels: set_rows wrapper, host time a call: " + ", ".join(
+        f"{k} {host_us(f):.3f} us" for k, f in parts.items()))
+    entries["set_rows"].update(stall_reading("kernels"))
     return entries
+
+
+# the most DeviceWorld.update may take (host time, median of 5) with a
+# kernel in flight: its own work took 0.6-1.3 ms on the H100, so an
+# update that waits for part of the ~70 ms in flight, or takes a new
+# blocking step, goes over it
+STALL_UPDATE_MS = 2.0
+
+
+def stall_reading(label, mesh=None):
+    """A kernel of at least 50 ms in flight (torch.cuda._sleep) on a
+    stream of its own, as the engine's dispatch is on the engine's, then
+    DeviceWorld.update with dirty rows in both matrices (40 capacity
+    rows, 400 basis rows) timed on the host clock, beside the old way of
+    shipping the same operands: a blocking .to(device) each.  Medians of
+    5 after a warm-up, with the update's split into staging the
+    operands, the launch and the rest (the host diff).  Fails if the
+    update's median reaches STALL_UPDATE_MS (it waited for the kernel in
+    flight, or for part of it), if it launched other than once on the
+    card, or if it left the device pair unequal to the host snapshot."""
+    import torch
+    from nomad_tpu_torch.parallel import world as tw
+    rng = np.random.default_rng(29)
+    cap = np.full((N_ROWS, 4), 10000.0, np.float32)
+    basis = np.zeros((N_ROWS, 4), np.float32)
+    w = tw.DeviceWorld(mesh=mesh, device="cuda")
+    name = w._names[0]
+    old_ops = [np.full(64, N_ROWS, np.int32), np.zeros((64, 4), np.float32),
+               np.full(512, N_ROWS, np.int32),
+               np.zeros((512, 4), np.float32)]
+    ev = lambda: torch.cuda.Event(enable_timing=True)   # noqa: E731
+    spent = {"stage": 0.0, "scatter_shards": 0.0}
+    real = {k: getattr(tw, k) for k in spent}
+
+    def timed(key):
+        def run(*a):
+            t0 = time.perf_counter()
+            try:
+                return real[key](*a)
+            finally:
+                spent[key] += (time.perf_counter() - t0) * 1e3
+        return run
+    read = {"update": [], "stage": [], "launch": [], "blocking": [],
+            "inflight": []}
+    stream = torch.cuda.Stream()
+    for k in spent:
+        setattr(tw, k, timed(k))
+    try:
+        with torch.cuda.stream(stream):
+            w.update(cap, basis)
+            s, e = ev(), ev()
+            s.record()
+            torch.cuda._sleep(10 ** 7)
+            e.record()
+            e.synchronize()
+            cycles = int(10 ** 7 * 70 / s.elapsed_time(e))   # about 70 ms
+            for rep in range(6):
+                cap[rng.choice(N_NODES, 40, replace=False), 0] += 1
+                basis[rng.choice(N_NODES, 400, replace=False), 1] += 30
+                for old_way in (False, True):
+                    s, e = ev(), ev()
+                    s.record()
+                    torch.cuda._sleep(cycles)
+                    e.record()
+                    n0, was = tw.launches[name], dict(spent)
+                    t0 = time.perf_counter()
+                    if old_way:
+                        for a in old_ops:
+                            torch.from_numpy(a).to("cuda")
+                    else:
+                        w.update(cap, basis)
+                    dt = (time.perf_counter() - t0) * 1e3
+                    launched = tw.launches[name] - n0
+                    stream.synchronize()
+                    if not old_way and launched != 1:
+                        raise AssertionError(
+                            f"{label}: an update with both matrices dirty "
+                            f"launched {launched} times on one card")
+                    if not rep:
+                        continue
+                    read["inflight"].append(s.elapsed_time(e))
+                    if old_way:
+                        read["blocking"].append(dt)
+                        continue
+                    read["update"].append(dt)
+                    read["stage"].append(spent["stage"] - was["stage"])
+                    read["launch"].append(spent["scatter_shards"]
+                                          - was["scatter_shards"])
+    finally:
+        for k, f in real.items():
+            setattr(tw, k, f)
+    dev_cap, dev_basis = w.device_arrays()
+    if mesh is not None:
+        dev_cap, dev_basis = torch.cat(dev_cap), torch.cat(dev_basis)
+    _bitwise(f"{label}: stall reading, device basis vs host snapshot",
+             dev_basis.cpu().numpy(), w.host_basis())
+    _bitwise(f"{label}: stall reading, device capacity", dev_cap.cpu().numpy(),
+             cap)
+    med = {k: statistics.median(v) for k, v in read.items()}
+    f = med["inflight"]
+    where = f"mesh {mesh.shape}" if mesh else "one world"
+    log(f"{label}: stall reading ({where}): {min(read['inflight']):.1f}-"
+        f"{max(read['inflight']):.1f} ms in flight; DeviceWorld.update "
+        f"{med['update']:.4f} ms host time (median of 5; "
+        f"{', '.join(f'{x:.4f}' for x in read['update'])}; medians "
+        f"{med['stage']:.4f} ms staging, {med['launch']:.4f} ms the launch, "
+        f"the rest the host diff), the blocking uploads "
+        f"{med['blocking']:.4f} ms "
+        f"({', '.join(f'{x:.2f}' for x in read['blocking'])})")
+    if min(read["inflight"]) < 50:
+        raise AssertionError(f"{label}: the kernel in flight ran "
+                             f"{min(read['inflight']):.1f} ms, under 50")
+    if med["update"] >= f / 2:
+        raise AssertionError(f"{label}: DeviceWorld.update took "
+                             f"{med['update']:.3f} ms behind {f:.1f} ms in "
+                             f"flight: it waited")
+    if med["update"] >= STALL_UPDATE_MS:
+        raise AssertionError(f"{label}: DeviceWorld.update took "
+                             f"{med['update']:.3f} ms (median of 5) behind "
+                             f"{f:.1f} ms in flight, over "
+                             f"{STALL_UPDATE_MS} ms: part of it waited")
+    return dict(stall_update_ms=med["update"],
+                stall_blocking_ms=med["blocking"], stall_inflight_ms=f,
+                stall_stage_ms=med["stage"], stall_launch_ms=med["launch"])
 
 
 def preempt_inputs(seed: int, A: int = 16, R: int = 4, edge: bool = False):
@@ -1368,13 +1603,30 @@ def _launch_counts():
 
 
 def _reset_counts():
-    for d in _launch_counts():
+    from nomad_tpu_torch.parallel import world as tw
+    for d in _launch_counts() + (tw.staged,):
         for k in d:
             d[k] = 0
 
 
 def _counts():
-    return {k: v for d in _launch_counts() for k, v in d.items()}
+    """Kernel launches by wrapper, and `staged_<name>`: the world's
+    staged operand buffers (one a card a dirty update or rank-1 apply
+    touches)."""
+    from nomad_tpu_torch.parallel import world as tw
+    out = {k: v for d in _launch_counts() for k, v in d.items()}
+    out.update({f"staged_{k}": v for k, v in tw.staged.items()})
+    return out
+
+
+def _per_update(launches, name):
+    """K5's launches per dirty update on one card (launches over staged
+    buffers); fails past one."""
+    n, staged = launches[name], launches[f"staged_{name}"]
+    if n > staged:
+        raise AssertionError(f"{name}: {n} launches for {staged} dirty "
+                             f"updates on one card")
+    return f"{name} {n} launches / {staged} staged updates"
 
 
 def phase_engine():
@@ -1431,6 +1683,8 @@ def phase_engine():
                              f"for {len(scan)} scan evals")
     if launches["set_rows"] == 0:
         raise AssertionError("K5 set_rows never launched")
+    log(f"engine: launches per dirty update: "
+        f"{_per_update(launches, 'set_rows')}")
     if launches["place_bulk"] or launches["place_scan"]:
         raise AssertionError(f"engine-off kernels ran on the engine path: "
                              f"{launches}")
@@ -1477,7 +1731,7 @@ def phase_engine():
         if eng2.stats["donated_carries"] != 0:
             raise AssertionError("a carry was donated with donation off")
         log(f"engine: donation off, {len(jobs2)} C2M evals: launches "
-            f"{launches2}")
+            f"{launches2}; {_per_update(launches2, 'add_rank1')}")
         out["add_rank1"] = launches2["add_rank1"]
     finally:
         os.environ.pop("NOMAD_TPU_DONATE", None)
@@ -2426,6 +2680,46 @@ def check_local_scatters(shape):
                      p.cpu().numpy())
     log(f"sharded: set_rows_local / add_rank1_local on {shape}, buckets "
         f"{tw.ROW_BUCKETS}: bit-equal to plain on every shard")
+    # every shard of both matrices in one launch, through the path the
+    # engine's updates take (DeviceWorld._scatter: one staged upload a
+    # card, then world.scatter_shards)
+    mesh = _mesh(shape)
+    w = tw.DeviceWorld(mesh=mesh)
+    base2 = base[::-1].copy()
+    for b in tw.ROW_BUCKETS:
+        ops = []
+        for _ in range(2):
+            rows = np.full(b, N_ROWS, np.int32)
+            rows[:b * 3 // 4] = rng.choice(N_NODES, b * 3 // 4,
+                                           replace=False)
+            ops.append(dict(rows=rows,
+                            vals=(rng.random((b, 4)) * 5000).astype(
+                                np.float32),
+                            counts=rng.integers(-3, 40, b).astype(np.int32),
+                            dem=(rng.random(4) * 80).astype(np.float32)))
+        for name, keys, plain in (
+                ("set_rows_local", ("rows", "vals"), tw.set_rows_plain),
+                ("add_rank1_local", ("rows", "counts", "dem"),
+                 tw.add_rank1_plain)):
+            mats = (w._put_full(base), w._put_full(base2))
+            n0, s0 = tw.launches[name], tw.staged[name]
+            w._scatter(name, [(m, [o[k] for k in keys])
+                              for m, o in zip(mats, ops)])
+            if (tw.launches[name] - n0, tw.staged[name] - s0) != (1, 1):
+                raise AssertionError(
+                    f"{name}: two matrices of {NS} shards on one card took "
+                    f"{tw.launches[name] - n0} launches and "
+                    f"{tw.staged[name] - s0} uploads")
+            torch.cuda.synchronize()
+            for m, h, o in zip(mats, (base, base2), ops):
+                want = plain(t(h), *[t(o[k]) for k in keys])
+                _bitwise(f"{name} B={b}, {NS} shards x 2 matrices in one "
+                         f"launch", torch.cat(m).cpu().numpy(),
+                         want.cpu().numpy())
+    log(f"sharded: set_rows_local / add_rank1_local with both matrices' "
+        f"{NS} shards of {shape} in one upload and one launch "
+        f"(DeviceWorld._scatter), buckets {tw.ROW_BUCKETS}: bit-equal to "
+        f"plain")
     B = tw.ROW_BUCKETS[-1]
     rows = rng.choice(N_NODES, B, replace=False).astype(np.int32)
     live = rows[rows < n]
@@ -2448,10 +2742,13 @@ def check_local_scatters(shape):
         ms = time_cuda(kern, reps=50)
         plain_ms = time_cuda(plain)
         lib_ms = time_cuda(lib, reps=50)
+        burst = time_burst(kern)
+        lib_burst = time_burst(lib)
         bound, by = _bound(nbytes, ops)
         log(f"sharded: {name} B={B} on shard 0 of {shape} ({live.size} rows "
-            f"its own): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{lib_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+            f"its own): kernel {ms:.4f} ms (burst of 50: {burst:.4f} ms a "
+            f"launch), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+            f"(burst {lib_burst:.4f}), bound {bound:.6f} ms ({by})")
         entries[name] = dict(
             name=name, route="cuda",
             source="nomad_tpu_torch/csrc/world_scatter.cu",
@@ -2460,7 +2757,9 @@ def check_local_scatters(shape):
                       else "nomad_tpu/parallel/sharded.py:386"),
             jax_function=f"serving_update_fns ({name[:-6]})",
             launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+            bound_ms=bound, bound_by=by, library_ms=lib_ms,
+            burst_ms=burst, library_burst_ms=lib_burst)
+    entries["set_rows_local"].update(stall_reading("sharded", mesh))
     return entries
 
 
@@ -2713,8 +3012,11 @@ def phase_sharded():
 
     # the main path: the engine stream over (4, 2) against the
     # single-device engine, identical per-job row maps
-    maps_1, _, _, wall_1 = shard_stream(None)
+    maps_1, launches_1, _, wall_1 = shard_stream(None)
     maps_s, launches, st, wall_s = shard_stream((4, 2))
+    log(f"sharded: launches per dirty update, engine stream: (4, 2) "
+        f"{_per_update(launches, 'set_rows_local')}; single-device "
+        f"{_per_update(launches_1, 'set_rows')}")
     if maps_s != maps_1:
         raise AssertionError("sharded stream: placements differ from the "
                              "single-device engine's")
@@ -2758,7 +3060,8 @@ def phase_sharded():
             raise AssertionError(f"sharded donation off: {off}")
         entries["add_rank1_local"]["launches"] = off["add_rank1_local"]
         log(f"sharded: donation off, 10 C2M evals on (4, 2): "
-            f"add_rank1_local launched {off['add_rank1_local']} times")
+            f"add_rank1_local launched {off['add_rank1_local']} times; "
+            f"{_per_update(off, 'add_rank1_local')}")
     finally:
         os.environ.pop("NOMAD_TPU_DONATE", None)
         stop_engines()

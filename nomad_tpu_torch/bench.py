@@ -346,16 +346,31 @@ def bench_c2m(n_nodes=10000, n_batch=96, batch_count=1000,
 
 def _basis_matches_host(eng) -> bool:
     """Every resident world's device basis equals its host snapshot, bit
-    for bit (after the device's queued work)."""
+    for bit, after the queued work of every device it uses (a mesh
+    world's: each distinct device of its mesh).  A mesh world's basis is
+    its node shards concatenated in order.
+
+    Bit for bit holds because every bench scenario places integer sizes
+    (C2M's 30 MHz / 60 MB): on a mesh the merged basis u0 +
+    psum_wave(exact - u0) then rounds nowhere.  A world with non-integer
+    sizes would differ there from the host's rank-1 updates by up to
+    1.19e-07 (PERF.md section 6)."""
     import torch
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize(eng.device)
     ok = True
     for w in list(eng._worlds.values()):
+        devs = {w.device} if w.mesh is None else \
+            {d for row in w.mesh.devices for d in row}
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         _, basis = w.device_arrays()
-        ok = ok and basis is not None and np.array_equal(
-            basis.cpu().numpy().view(np.uint32),
-            w.host_basis().view(np.uint32))
+        if basis is None:
+            ok = False
+            continue
+        dev = torch.cat([s.cpu() for s in basis]) \
+            if isinstance(basis, list) else basis.cpu()
+        ok = ok and np.array_equal(dev.numpy().view(np.uint32),
+                                   w.host_basis().view(np.uint32))
     return ok
 
 

@@ -50,8 +50,9 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
         "place_batch_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P] * 6,
     },
     "world_scatter": {
-        "set_rows_launch": [_P, _P, _P, _I, _I, _I, _P],
-        "add_rank1_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+        # (segment records, their count, stream)
+        "set_rows_launch": [_P, _I, _P],
+        "add_rank1_launch": [_P, _I, _P],
     },
     "preempt": {
         "preempt_launch": [_P] * 5 + [_I] * 4 + [_P] * 4,

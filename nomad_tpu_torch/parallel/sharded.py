@@ -1053,22 +1053,19 @@ def place_bulk_batch_sharded(mesh: Mesh, capacity, used0, feasible, affinity,
 def serving_update_fns(mesh: Mesh):
     """(set_rows, add_rank1) over a node-sharded resident matrix (a list
     of per-shard tensors): each shard scatters only the global rows it
-    owns (K5' in world.py).  Row and value operands come per shard (on
-    the shard's device); the matrix shards are updated in place."""
-    from nomad_tpu_torch.parallel.world import add_rank1_local, set_rows_local
+    owns (K5' in world.py), and the shards of one device go in one
+    launch (world.scatter_shards, as DeviceWorld's updates do).  Row and
+    value operands come per shard (on the shard's device); the matrix
+    shards are updated in place."""
+    from nomad_tpu_torch.parallel.world import scatter_shards
 
     def set_fn(dev: list, rows: list, vals: list) -> list:
-        off = 0
-        for i, d in enumerate(dev):
-            set_rows_local(d, rows[i], vals[i], off)
-            off += d.shape[0]
+        scatter_shards("set_rows_local", [(dev, list(zip(rows, vals)))])
         return dev
 
     def add_fn(dev: list, rows: list, counts: list, dem: list) -> list:
-        off = 0
-        for i, d in enumerate(dev):
-            add_rank1_local(d, rows[i], counts[i], dem[i], off)
-            off += d.shape[0]
+        scatter_shards("add_rank1_local",
+                       [(dev, list(zip(rows, counts, dem)))])
         return dev
 
     return set_fn, add_fn

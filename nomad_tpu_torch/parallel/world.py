@@ -22,19 +22,22 @@ as bucketed dirty-row scatters:
 
 On a serving mesh (`DeviceWorld(mesh=...)`) each matrix lives as a list
 of node-shard tensors, shard i (rows [i*n, (i+1)*n)) on the mesh's
-device (i, 0); the scatters run per shard with the shard's row offset
-(K5', `set_rows_local` / `add_rank1_local`, the reference's
-`serving_update_fns`), so each shard writes only the rows it owns.
+device (i, 0); each shard scatters with its row offset (K5',
+`set_rows_local` / `add_rank1_local`, the reference's
+`serving_update_fns`), so it writes only the rows it owns.
 
-The scatters (K5, K5') are hand-written CUDA (csrc/world_scatter.cu)
-with plain PyTorch versions beside them.  Both update the resident
-tensor in place: every use of it is ordered on the engine's one stream,
-so a kernel that read the old rows has finished before a scatter
-rewrites them.
+The scatters (K5, K5') are one hand-written CUDA kernel pair
+(csrc/world_scatter.cu) that takes a table of segments, with plain
+PyTorch versions beside it.  A world update stages everything it
+scatters on one card (both matrices' dirty rows, every shard's) in one
+buffer, uploads it without blocking and launches once on that card.
+Both update the resident tensor in place: every use of it is ordered on
+the engine's one stream, so a kernel that read the old rows has
+finished before a scatter rewrites them.
 """
 from __future__ import annotations
 
-import ctypes
+import struct
 import threading
 from typing import Optional, Tuple
 
@@ -47,28 +50,27 @@ from nomad_tpu_torch.ops import _build
 
 # dirty-row buckets of the row scatter
 ROW_BUCKETS = (64, 512, 4096)
+# resources a world row holds (the kernel moves a row as one float4)
+R = 4
+# segments one launch takes (csrc/world_scatter.cu MAX_SEGS); a call
+# with more launches once per MAX_SEGMENTS
+MAX_SEGMENTS = 32
+# byte alignment of every part of a staged operand buffer, and of the
+# destinations and values the kernel reads as float4
+ALIGN = 16
 
 # kernel launches per wrapper (the plain versions never count); the
-# *_local wrappers are the sharded world's (K5')
+# *_local names are the sharded world's (K5')
 launches = {"set_rows": 0, "add_rank1": 0, "set_rows_local": 0,
             "add_rank1_local": 0}
+# staged operand buffers per name, on every device: one a card a world
+# update or rank-1 apply touches
+staged = dict.fromkeys(launches, 0)
 
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _check_scatter(d: torch.Tensor, rows: torch.Tensor, *others) -> None:
-    if d.dtype != torch.float32 or d.dim() != 2 or not d.is_contiguous():
-        raise ValueError("world scatter: basis must be contiguous f32[N, R]")
-    if rows.dtype != torch.int32 or rows.dim() != 1:
-        raise ValueError("world scatter: rows must be i32[B]")
-    for t in (rows,) + others:
-        if t.device != d.device:
-            raise ValueError(f"world scatter: operand on {t.device}, "
-                             f"basis on {d.device}")
-        if not t.is_contiguous():
-            raise ValueError("world scatter: operand not contiguous")
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.float32): torch.float32}
+# the C entry points, (set_rows_launch, add_rank1_launch), taken once
+_entries: list = []
 
 
 def _live_rows(d: torch.Tensor, rows: torch.Tensor,
@@ -86,12 +88,16 @@ def _live_rows(d: torch.Tensor, rows: torch.Tensor,
 
 
 def set_rows_plain(d: torch.Tensor, rows: torch.Tensor,
-                   vals: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
+                   vals: torch.Tensor, row_offset: int = 0,
+                   olds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of set_rows: d[rows - off] = vals in place, rows
     outside [off, off + N) dropped (`d.at[r].set(v, mode="drop")`, and on
-    a shard `_set_rows_local`).  Returns d."""
+    a shard `_set_rows_local`).  With `olds` (f32[B, R], the rows' old
+    host values) each row becomes vals + (d - olds): what the device row
+    holds beyond the host snapshot stays.  Returns d."""
     keep = _live_rows(d, rows, row_offset)
-    d[rows[keep].long() - row_offset] = vals[keep]
+    r = rows[keep].long() - row_offset
+    d[r] = vals[keep] if olds is None else vals[keep] + (d[r] - olds[keep])
     return d
 
 
@@ -109,86 +115,222 @@ def add_rank1_plain(d: torch.Tensor, rows: torch.Tensor,
     return d
 
 
-def _set_rows(name: str, d, rows, vals, row_offset: int):
-    _check_scatter(d, rows, vals)
-    B, R = vals.shape
-    if rows.shape[0] != B or R != d.shape[1] or vals.dtype != torch.float32:
-        raise ValueError(f"{name}: vals must be f32[B, R]")
-    if d.device.type == "cpu":
-        return set_rows_plain(d, rows, vals, row_offset)
-    if d.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {d.device}")
-    lib = _build.load("world_scatter")
-    rc = lib.set_rows_launch(_ptr(d), _ptr(rows), _ptr(vals), B, d.shape[0],
-                             int(row_offset), ctypes.c_void_p(
-                                 torch.cuda.current_stream(d.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches[name] += 1
-    return d
+def scatter_segments_plain(name: str, segs) -> None:
+    """Plain version of scatter_segments: each segment in order through
+    set_rows_plain, or add_rank1_plain for the add_rank1* names."""
+    add = name.startswith("add")
+    for d, off, rows, *ops in segs:
+        if add:
+            add_rank1_plain(d, rows, *ops, off)
+        else:
+            set_rows_plain(d, rows, ops[0], off, *ops[1:])
 
 
-def _add_rank1(name: str, d, rows, counts, dem, row_offset: int):
-    _check_scatter(d, rows, counts, dem)
+_F32, _I32 = torch.float32, torch.int32
+_ROW_STRIDES = (R, 1)           # a contiguous f32[n, R] (or [B, R])
+_DEM_SHAPE = (R,)
+_pack_record = struct.Struct("9q").pack
+
+
+def _rows_of(v: torch.Tensor, B: int, dev: int) -> bool:
+    """v is a contiguous f32[B, R] on device index `dev`."""
+    return v.dtype is _F32 and v.stride() == _ROW_STRIDES \
+        and v.shape == (B, R) and v.get_device() == dev
+
+
+def _record(name: str, seg, add: bool, dev: int) -> bytes:
+    """One segment's launch record (csrc/world_scatter.cu `fill`: d, rows,
+    vals, olds, counts, dem, B, n, off), checked: raises on anything the
+    kernel does not take.  `dev` is the first destination's
+    get_device(); each check is one attribute read, since the wrapper's
+    host time is most of what a launch costs."""
+    if len(seg) != 5 and (add or len(seg) != 4):
+        raise ValueError(f"{name}: a segment is (d, off, rows, counts, dem)"
+                         if add else f"{name}: a segment is (d, off, rows, "
+                         f"vals[, olds])")
+    d, rows, x = seg[0], seg[2], seg[3]
+    if d.dtype is not _F32 or d.stride() != _ROW_STRIDES \
+            or d.shape[1] != R:
+        raise ValueError(f"{name}: destination must be contiguous "
+                         f"f32[N, {R}]")
+    if rows.dtype is not _I32 or rows.stride() != (1,):
+        raise ValueError(f"{name}: rows must be contiguous i32[B]")
     B = rows.shape[0]
-    if counts.shape != (B,) or counts.dtype != torch.int32 \
-            or dem.shape != (d.shape[1],) or dem.dtype != torch.float32:
-        raise ValueError(f"{name}: counts must be i32[B], dem f32[R]")
-    if d.device.type == "cpu":
-        return add_rank1_plain(d, rows, counts, dem, row_offset)
-    if d.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {d.device}")
-    lib = _build.load("world_scatter")
-    rc = lib.add_rank1_launch(_ptr(d), _ptr(rows), _ptr(counts), _ptr(dem),
-                              B, d.shape[0], int(row_offset),
-                              ctypes.c_void_p(
-                                  torch.cuda.current_stream(d.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches[name] += 1
-    return d
+    pd = d.data_ptr()
+    if add:
+        dem = seg[4]
+        if x.dtype is not _I32 or x.shape != (B,) or x.stride() != (1,) \
+                or dem.dtype is not _F32 or dem.shape != _DEM_SHAPE \
+                or dem.stride() != (1,):
+            raise ValueError(f"{name}: counts must be i32[B], dem f32[R]")
+        if d.get_device() != dev or rows.get_device() != dev \
+                or x.get_device() != dev or dem.get_device() != dev:
+            raise ValueError(f"{name}: segments on more than one device")
+        if pd % ALIGN:
+            raise ValueError(f"{name}: destination must be {ALIGN}-byte "
+                             f"aligned")
+        return _pack_record(pd, rows.data_ptr(), 0, 0, x.data_ptr(),
+                            dem.data_ptr(), B, d.shape[0], seg[1])
+    if not _rows_of(x, B, dev):
+        raise ValueError(f"{name}: vals must be contiguous f32[B, R] on "
+                         f"the destination's device")
+    if d.get_device() != dev or rows.get_device() != dev:
+        raise ValueError(f"{name}: segments on more than one device")
+    pv, po = x.data_ptr(), 0
+    if len(seg) == 5:
+        if not _rows_of(seg[4], B, dev):
+            raise ValueError(f"{name}: olds must be contiguous f32[B, R] "
+                             f"on the destination's device")
+        po = seg[4].data_ptr()
+    if (pd | pv | po) % ALIGN:
+        raise ValueError(f"{name}: destination and values must be "
+                         f"{ALIGN}-byte aligned")
+    return _pack_record(pd, rows.data_ptr(), pv, po, 0, 0, B, d.shape[0],
+                        seg[1])
+
+
+def scatter_segments(name: str, segs) -> None:
+    """K5/K5' (csrc/world_scatter.cu): every segment of `segs`, all on one
+    device, in one launch (one per MAX_SEGMENTS), in place.  A segment is
+    (d, off, rows, vals[, olds]) for the set_rows* names or (d, off,
+    rows, counts, dem) for the add_rank1* names: d f32[n, 4] holds global
+    rows [off, off + n), rows i32[B] (pad rows and rows outside d drop),
+    vals and olds f32[B, 4] (see set_rows_plain), counts i32[B], dem
+    f32[4].  `name` is the launch counter.
+    CUDA tensors launch the kernel; CPU tensors take
+    scatter_segments_plain."""
+    add = name.startswith("add")
+    if not segs:
+        raise ValueError(f"{name}: no segments")
+    d0 = segs[0][0]
+    dev = d0.get_device()
+    recs = [_record(name, seg, add, dev) for seg in segs]
+    if not d0.is_cuda:
+        if d0.device.type != "cpu":
+            raise ValueError(f"{name}: unsupported device {d0.device}")
+        scatter_segments_plain(name, segs)
+        return
+    if not _entries:
+        lib = _build.load("world_scatter")
+        _entries[:] = [lib.set_rows_launch, lib.add_rank1_launch]
+    fn = _entries[add]
+    # the current stream's handle, as torch.cuda.current_stream(dev)
+    # .cuda_stream gives it, without building a Stream object (which
+    # takes more host time than the launch itself)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    for k in range(0, len(recs), MAX_SEGMENTS):
+        part = recs[k:k + MAX_SEGMENTS]
+        rc = fn(part[0] if len(part) == 1 else b"".join(part), len(part),
+                stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        launches[name] += 1
+
+
+def shard_offsets(m) -> list:
+    """(tensor, global row offset) of each node shard of a resident
+    matrix: a tensor is one shard at offset 0, a mesh world's list its
+    shards in order."""
+    if isinstance(m, torch.Tensor):
+        return [(m, 0)]
+    out, off = [], 0
+    for t in m:
+        out.append((t, off))
+        off += t.shape[0]
+    return out
+
+
+def scatter_shards(name: str, pieces) -> None:
+    """Scatter `pieces`, each (resident matrix, its operands for each node
+    shard: (rows, vals[, olds]) or (rows, counts, dem), on that shard's
+    device).  Every node shard is a segment holding its global rows
+    (rows outside it drop), and all the segments on one device go in one
+    scatter_segments call: a mesh of one card repeated launches once for
+    every shard of every piece.  DeviceWorld's updates and the sharded
+    serving_update_fns both scatter through here."""
+    by_dev: dict = {}
+    for m, ops in pieces:
+        for (d, off), o in zip(shard_offsets(m), ops, strict=True):
+            by_dev.setdefault(d.device, []).append((d, off, *o))
+    for segs in by_dev.values():
+        scatter_segments(name, segs)
 
 
 def set_rows(d: torch.Tensor, rows: torch.Tensor,
              vals: torch.Tensor) -> torch.Tensor:
-    """K5 set_rows wrapper (in place, returns d).  CUDA tensors launch
-    csrc/world_scatter.cu; CPU tensors take the plain version."""
-    return _set_rows("set_rows", d, rows, vals, 0)
+    """K5 set_rows: one segment of scatter_segments (in place, returns
+    d)."""
+    scatter_segments("set_rows", [(d, 0, rows, vals)])
+    return d
 
 
 def add_rank1(d: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
               dem: torch.Tensor) -> torch.Tensor:
-    """K5 add_rank1 wrapper (in place, returns d).  CUDA tensors launch
-    csrc/world_scatter.cu; CPU tensors take the plain version."""
-    return _add_rank1("add_rank1", d, rows, counts, dem, 0)
+    """K5 add_rank1: one segment of scatter_segments (in place, returns
+    d)."""
+    scatter_segments("add_rank1", [(d, 0, rows, counts, dem)])
+    return d
 
 
 def set_rows_local(d: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
                    row_offset: int) -> torch.Tensor:
     """K5' set_rows on one node shard holding global rows [row_offset,
     row_offset + N): global `rows` translate to local ones, the rest
-    drop.  CUDA tensors launch csrc/world_scatter.cu; CPU tensors take
-    the plain version."""
-    return _set_rows("set_rows_local", d, rows, vals, row_offset)
+    drop.  One segment of scatter_segments."""
+    scatter_segments("set_rows_local", [(d, int(row_offset), rows, vals)])
+    return d
 
 
 def add_rank1_local(d: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
                     dem: torch.Tensor, row_offset: int) -> torch.Tensor:
     """K5' add_rank1 on one node shard (see set_rows_local)."""
-    return _add_rank1("add_rank1_local", d, rows, counts, dem, row_offset)
+    scatter_segments("add_rank1_local",
+                     [(d, int(row_offset), rows, counts, dem)])
+    return d
+
+
+def pack_offsets(arrays) -> Tuple[list, int]:
+    """Byte offset of each array in one staged buffer, each at an
+    ALIGN-byte boundary, and the buffer's size."""
+    offs, end = [], 0
+    for a in arrays:
+        offs.append(end)
+        end += -(-a.nbytes // ALIGN) * ALIGN
+    return offs, end
+
+
+def stage(name: str, arrays, device: torch.device) -> list:
+    """Upload numpy `arrays` (i32 or f32) to `device` as one buffer;
+    returns a tensor for each, a view of that buffer.  On CUDA the host
+    buffer is pinned and the copy non-blocking on the current stream, so
+    nothing waits for the work already queued there; PyTorch's caching
+    host allocator keeps the pinned block from reuse until the copy has
+    run.  On the CPU the buffer is a private copy.  Counted in
+    `staged[name]`."""
+    offs, size = pack_offsets(arrays)
+    host = torch.empty(size, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    hb = host.numpy()
+    for a, o in zip(arrays, offs):
+        hb[o:o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).ravel()
+    buf = host.to(device, non_blocking=True)
+    staged[name] += 1
+    return [buf[o:o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
+            for a, o in zip(arrays, offs)]
 
 
 def warm_scatter(shape: tuple, device=None, mesh=None) -> None:
     """Build the row-scatter kernel and run it once per ROW_BUCKET for a
-    world of `shape` (N, R) (sharded over `mesh` when given), so a
-    measured window's first dirty-row update pays neither.  Every row
-    index is N (dropped), against a throwaway zero world, never a
-    resident one."""
-    N, R = shape
+    world of `shape` (N, R) (sharded over `mesh` when given: one staged
+    upload and one launch a card), so a measured window's first
+    dirty-row update pays neither.  Every row index is N (dropped),
+    against a throwaway zero world, never a resident one."""
+    n, r = shape
     w = DeviceWorld(mesh=mesh, device=device)
-    dev = w._put_full(np.zeros((N, R), np.float32))
+    dev = w._put_full(np.zeros((n, r), np.float32))
     for b in ROW_BUCKETS:
-        w._set_rows(dev, np.full(b, N, np.int32), np.zeros((b, R), np.float32))
+        w._scatter(w._names[0], [(dev, (np.full(b, n, np.int32),
+                                        np.zeros((b, r), np.float32)))])
 
 
 class DeviceWorld:
@@ -205,6 +347,9 @@ class DeviceWorld:
         self.mesh = mesh
         self.device = mesh.device(0, 0) if mesh is not None \
             else resolve_device(device)
+        # the launch counters of its (set, add) scatters
+        self._names = ("set_rows", "add_rank1") if mesh is None \
+            else ("set_rows_local", "add_rank1_local")
         self.lock = threading.Lock()
         self.shape: Optional[tuple] = None       # shapes of current epoch
         self._cap_last: Optional[np.ndarray] = None
@@ -231,77 +376,73 @@ class DeviceWorld:
             return put(self.mesh, arr, 0)
         return torch.from_numpy(arr).to(self.device)
 
-    def _put_operands(self, *arrays):
-        """Upload of scatter operands (rows/counts/values), private
-        copies as for _put_full; on a mesh, one upload to each distinct
-        shard device and a list over the shards for each operand."""
-        if self.mesh is None:
-            return tuple(torch.from_numpy(np.array(a)).to(self.device)
-                         for a in arrays)
-        devs = self.mesh.column(0)
-        per = {d: [torch.tensor(np.array(a), device=d) for a in arrays]
-               for d in dict.fromkeys(devs)}
-        return tuple([per[d][k] for d in devs] for k in range(len(arrays)))
+    def _scatter(self, name: str, pieces) -> None:
+        """Scatter `pieces`, each (resident matrix, its numpy operands:
+        rows and vals, or rows, counts and demand) through scatter_shards,
+        with the operands of every piece staged in one upload a card.
+        Caller holds self.lock."""
+        arrays = [a for _, ops in pieces for a in ops]
+        views: dict = {}
+        shard_ops = []
+        k = 0
+        for m, ops in pieces:
+            per = []
+            for d, _ in shard_offsets(m):
+                v = views.get(d.device)
+                if v is None:
+                    v = views[d.device] = stage(name, arrays, d.device)
+                per.append(v[k:k + len(ops)])
+            shard_ops.append((m, per))
+            k += len(ops)
+        scatter_shards(name, shard_ops)
 
-    def _set_rows(self, dev, rows: np.ndarray, vals: np.ndarray):
-        rows_dev, vals_dev = self._put_operands(rows, vals)
-        if self.mesh is None:
-            return set_rows(dev, rows_dev, vals_dev)
-        from nomad_tpu_torch.parallel.sharded import serving_update_fns
-        set_fn, _ = serving_update_fns(self.mesh)
-        return set_fn(dev, rows_dev, vals_dev)
-
-    def _update_one(self, host: np.ndarray, last: Optional[np.ndarray],
-                    dev, force_scatter: bool = False
-                    ) -> Tuple[np.ndarray, object, bool]:
-        """Sync one matrix; returns (new snapshot, new device array,
-        full-upload?).  Caller holds self.lock.  `force_scatter` (the
-        chained donated-carry pipeline): the device array holds in-flight
-        placements the host snapshot lacks, so a full upload would erase
-        them — large churn scatters in bucket-sized chunks instead."""
+    def _diff(self, host: np.ndarray, last: Optional[np.ndarray], dev,
+              force_scatter: bool = False
+              ) -> Tuple[np.ndarray, Optional[list]]:
+        """Diff one matrix against the snapshot shipped last; returns (new
+        snapshot, the (rows, vals) chunks to scatter), chunks None when
+        the matrix ships in full and [] when it is clean.  Caller holds
+        self.lock.  `force_scatter` (the chained donated-carry
+        pipeline): the device array holds in-flight placements the host
+        snapshot lacks, so a full upload would erase them — large churn
+        scatters in bucket-sized chunks instead, and each chunk is
+        (rows, vals, olds) with the rows' old snapshot values, so the
+        scatter keeps a dirty row's in-flight part (vals + (device -
+        olds)) where a set, as the reference's, would erase it."""
         N = host.shape[0]
-        B = None
-        changed = None
-        if last is not None and last.shape == host.shape and \
-                dev is not None:
-            changed = np.nonzero(np.any(last != host, axis=1))[0]
-            if changed.size == 0:
-                self.stats["clean_hits"] += 1
-                return last, dev, False
-            if changed.size <= N // 4 or force_scatter:
-                B = next((b for b in ROW_BUCKETS if b >= changed.size),
-                         None)
-            if B is None and force_scatter:
-                # churn beyond the largest bucket: chunked scatters
-                Bmax = ROW_BUCKETS[-1]
-                changed_vals = np.array(host[changed], dtype=np.float32)
-                snap = last.copy()
-                snap[changed] = changed_vals
-                for off in range(0, changed.size, Bmax):
-                    cr = changed[off:off + Bmax]
-                    cv = changed_vals[off:off + Bmax]
-                    b = next(b for b in ROW_BUCKETS if b >= cr.size)
-                    rows = np.full(b, N, np.int32)
-                    rows[:cr.size] = cr
-                    vals = np.zeros((b, host.shape[1]), np.float32)
-                    vals[:cr.size] = cv
-                    dev = self._set_rows(dev, rows, vals)
-                self.stats["rows_scattered"] += int(changed.size)
-                return snap, dev, False
-        if B is None:
-            snap = np.array(host, dtype=np.float32)
-            return snap, self._put_full(snap), True
+        if last is None or last.shape != host.shape or dev is None:
+            return np.array(host, dtype=np.float32), None
+        # a row's R == 4 compare flags read as one uint32: np.any(axis=1)
+        # without numpy's slow reduction over a 4-wide axis
+        changed = np.flatnonzero(
+            np.ascontiguousarray(last != host).view(np.uint32))
+        if changed.size == 0:
+            self.stats["clean_hits"] += 1
+            return last, []
+        Bmax = ROW_BUCKETS[-1]
+        if not force_scatter and changed.size > min(N // 4, Bmax):
+            return np.array(host, dtype=np.float32), None
         # read the dirty rows once: `host` may be live and the snapshot
         # must equal what shipped
         changed_vals = np.array(host[changed], dtype=np.float32)
-        rows = np.full(B, N, np.int32)           # pad slots drop
-        rows[:changed.size] = changed
-        vals = np.zeros((B, host.shape[1]), np.float32)
-        vals[:changed.size] = changed_vals
         snap = last.copy()
         snap[changed] = changed_vals
+        chunks = []
+        for off in range(0, changed.size, Bmax):
+            cr = changed[off:off + Bmax]
+            b = next(b for b in ROW_BUCKETS if b >= cr.size)
+            rows = np.full(b, N, np.int32)           # pad slots drop
+            rows[:cr.size] = cr
+            vals = np.zeros((b, host.shape[1]), np.float32)
+            vals[:cr.size] = changed_vals[off:off + Bmax]
+            if not force_scatter:
+                chunks.append((rows, vals))
+                continue
+            olds = np.zeros_like(vals)
+            olds[:cr.size] = last[cr]
+            chunks.append((rows, vals, olds))
         self.stats["rows_scattered"] += int(changed.size)
-        return snap, self._set_rows(dev, rows, vals), False
+        return snap, chunks
 
     # ------------------------------------------------------------- public
 
@@ -310,8 +451,12 @@ class DeviceWorld:
         """Bring the resident pair up to date with the host truth;
         returns (capacity_dev, basis_dev).  `capacity` may be the live
         matrix (it is copied before any caching decision); `basis` must
-        already be a private copy.  `force_scatter` forbids the basis
-        full-upload fallback (chained donated-carry dispatches)."""
+        already be a private copy.  `force_scatter` (chained
+        donated-carry dispatches) forbids the basis full-upload fallback
+        and keeps the in-flight placements of its dirty rows (`_diff`).
+        Both matrices' dirty rows go up in one staged buffer a card and
+        scatter in one launch a card, and nothing waits for the work
+        already queued on the stream."""
         with self.lock:
             shape = (capacity.shape, basis.shape)
             if shape != self.shape:              # new cluster epoch
@@ -322,12 +467,21 @@ class DeviceWorld:
                 self._basis_dev = self._put_full(self._basis_last)
                 self.stats["full_uploads"] += 1
                 return self._cap_dev, self._basis_dev
-            self._cap_last, self._cap_dev, full_c = self._update_one(
-                capacity, self._cap_last, self._cap_dev)
-            self._basis_last, self._basis_dev, full_b = self._update_one(
-                basis, self._basis_last, self._basis_dev,
-                force_scatter=force_scatter)
-            if full_c or full_b:
+            cap_last, cap_chunks = self._diff(capacity, self._cap_last,
+                                              self._cap_dev)
+            basis_last, basis_chunks = self._diff(
+                basis, self._basis_last, self._basis_dev, force_scatter)
+            if cap_chunks is None:
+                self._cap_dev = self._put_full(cap_last)
+            if basis_chunks is None:
+                self._basis_dev = self._put_full(basis_last)
+            # both matrices' dirty rows: one upload and one launch a card
+            pieces = [(self._cap_dev, c) for c in cap_chunks or ()] + \
+                [(self._basis_dev, c) for c in basis_chunks or ()]
+            if pieces:
+                self._scatter(self._names[0], pieces)
+            self._cap_last, self._basis_last = cap_last, basis_last
+            if cap_chunks is None or basis_chunks is None:
                 self.stats["full_uploads"] += 1
                 self.stats["steady_reuploads"] += 1
             return self._cap_dev, self._basis_dev
@@ -389,16 +543,7 @@ class DeviceWorld:
                 return
             if self._basis_dev is None:
                 return                   # loaned out: next update ships
-            rows_dev, counts_dev, d_dev = self._put_operands(*clipped)
-            if self.mesh is None:
-                self._basis_dev = add_rank1(self._basis_dev, rows_dev,
-                                            counts_dev, d_dev)
-            else:
-                from nomad_tpu_torch.parallel.sharded import \
-                    serving_update_fns
-                _, add_fn = serving_update_fns(self.mesh)
-                self._basis_dev = add_fn(self._basis_dev, rows_dev,
-                                         counts_dev, d_dev)
+            self._scatter(self._names[1], [(self._basis_dev, clipped)])
             self.stats["rank1_applies"] += 1
 
     def apply_rank1_host(self, rows: np.ndarray, counts: np.ndarray,
