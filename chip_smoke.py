@@ -5,26 +5,34 @@
 
 Phases, all run in this order:
   build    compile every CUDA kernel from nomad_tpu_torch/csrc (one nvcc
-           per source, all started together) and print nvcc's register
-           and spill report
+           per source, all started together), print nvcc's register
+           and spill report and K1/K4's cluster size
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the main path gives it (N = 16,384 node rows, the
            bucket of a 10,000-node cluster): integer outputs equal, float
-           outputs within the tests' tolerances (K1, K2) or bit-equal
-           (K3, K4, K5, K6), K4 also at the bench spine's longest chain
+           outputs within the tests' tolerances (K2) or bit-equal
+           (K1, K3, K4, K5, K6), K4 also at the bench spine's longest chain
            (512 groups), K5 also as two segments of one launch at every
            bucket; CUDA-event times of the kernel, of the plain version
            and, for K5, of the one PyTorch call that computes the same
            function, one launch between an event pair and (K5) a burst
            of 50; the stall reading (DeviceWorld.update with dirty rows in
            both matrices behind a kernel of 70 ms in flight, on the host
-           clock, beside blocking uploads of the same operands).  Then
-           K1 and K4 past the shared-memory sort,
-           at 32,768 and 131,072 rows (20,000- and 100,000-node
-           clusters, K4 also on a fresh cluster where each wave sorts
-           every ready row), and the stage probe's units K8a-K8f at the
-           bench's shape (N = 10,000, M = 16, R = 4), each against its
-           plain version, K8f also against the K8a->K8e kernel chain
+           clock, beside blocking uploads of the same operands).  K1
+           and K4 (one thread-block cluster each) bit-equal to their
+           plain versions on each path of their selection (the rows at
+           the top score, the radix select in one round and in several,
+           with ties at its threshold, count 0; the path of each K1
+           case's first wave is logged from the selection's model), with
+           -0.0 usages and deltas that cancel, sparse and dense, with the
+           exact carry, at 10,000, 16,384, 32,768 and 131,072 rows, each
+           case also under random delays at every exchange phase (six
+           seeds); then at 32,768 and 131,072 rows (20,000- and
+           100,000-node clusters, K4 also on a fresh cluster where
+           every ready row is in the wave), and the stage probe's units
+           K8a-K8f at the bench's shape (N = 10,000, M = 16, R = 4),
+           each against its plain version, K8f also against the
+           K8a->K8e kernel chain.
   slice    the engine-off path (NOMAD_TPU_ENGINE=0): the scheduler's
            eval-to-commit path through the entry points a user calls
            (Harness(device="cuda") -> GenericScheduler -> DenseStack ->
@@ -324,6 +332,9 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    lib = _build.load("place_bulk")
+    log(f"build: K1/K4 launch one cluster of "
+        f"{lib.place_bulk_cluster_size()} blocks x 1024 threads")
 
 
 def _bulk_call(fn, a, dev):
@@ -332,7 +343,8 @@ def _bulk_call(fn, a, dev):
     args = (t(a["cap"]), t(a["used"]), t(a["feas"]), t(a["aff"]),
             a["has_aff"], a["desired"], t(a["pen"]), t(a["coll"]),
             t(a["demand"]), a["count"])
-    return lambda: fn(*args)
+    kw = dict(spread_algorithm=a.get("spread", False))
+    return lambda: fn(*args, **kw)
 
 
 def _compare_floats(name, got, ref):
@@ -346,9 +358,36 @@ def _compare_floats(name, got, ref):
     return err
 
 
-def check_bulk(a, label, place_all):
-    """Kernel vs plain on the card; returns (max_abs_err, waves, rows
-    that took instances, kernel callable, plain callable)."""
+# seeds of K1/K4's delays at every exchange phase (place_bulk.cu
+# `jitter`) under which the selection cases run again
+JITTER_SEEDS = range(1, 7)
+
+
+def jittered(label, fn, want):
+    """fn() (a K1/K4 call) again under each of JITTER_SEEDS, every
+    output bit-equal to `want` (the plain version's, as numpy arrays):
+    a missing barrier in the cluster's exchanges shows here."""
+    import torch
+    from nomad_tpu_torch.ops import _build
+    lib = _build.load("place_bulk")
+    stream = torch.cuda.current_stream().cuda_stream
+    try:
+        for seed in JITTER_SEEDS:
+            if lib.place_bulk_set_jitter(seed, stream) != 0:
+                raise RuntimeError("place_bulk_set_jitter failed")
+            got = fn()
+            got = got if isinstance(got, (tuple, list)) else (got,)
+            for i, (g, w) in enumerate(zip(got, want)):
+                _bitwise(f"{label} under delays (seed {seed}) output {i}",
+                         g.cpu().numpy(), w)
+    finally:
+        lib.place_bulk_set_jitter(0, stream)
+
+
+def check_bulk(a, label, place_all, jitter=False):
+    """Kernel vs plain on the card (and, with jitter, again under each of
+    JITTER_SEEDS); returns (max_abs_err, waves, rows that took instances,
+    kernel callable, plain callable)."""
     import torch
     from nomad_tpu_torch.ops import place as tp
     dev = torch.device("cuda")
@@ -358,6 +397,9 @@ def check_bulk(a, label, place_all):
     torch.cuda.synchronize()
     p_out = plain()
     torch.cuda.synchronize()
+    _bitwise(f"place_bulk {label}", k_out.cpu().numpy(), p_out.cpu().numpy())
+    if jitter:
+        jittered(f"place_bulk {label}", kern, (p_out.cpu().numpy(),))
     kr = tp.unpack_bulk(k_out.cpu().numpy())
     pr = tp.unpack_bulk(p_out.cpu().numpy())
     np.testing.assert_array_equal(kr[0], pr[0], err_msg=f"{label} assign")
@@ -365,13 +407,30 @@ def check_bulk(a, label, place_all):
         raise AssertionError(f"{label}: (placed, n_eval, n_exh, waves) "
                              f"kernel {kr[1:4] + (kr[5],)} plain "
                              f"{pr[1:4] + (pr[5],)}")
-    if kr[1] == 0 or (place_all and kr[1] != a["count"]):
+    if (a["count"] > 0 and kr[1] == 0) or \
+            (place_all and kr[1] != a["count"]):
         raise AssertionError(f"{label}: placed {kr[1]} of {a['count']}")
     err = max(_compare_floats(f"{label} used", kr[6], pr[6]),
               _compare_floats(f"{label} scores", kr[4], pr[4]))
     log(f"kernels: place_bulk {label}: placed {kr[1]}/{a['count']} in "
-        f"{kr[5]} waves, integers equal, max |err| {err:.3g}")
+        f"{kr[5]} waves, bit-equal{' under every seed' if jitter else ''} "
+        f"({first_wave_path(a)})")
     return err, kr[5], int(np.count_nonzero(kr[0])), kern, plain
+
+
+def first_wave_path(a):
+    """How the kernel selects the first wave's rows on K1 inputs `a`,
+    from the test-only model of its algorithm (ops/place.py
+    bulk_wave_select_model) on the plain version's grid."""
+    import torch
+    from nomad_tpu_torch.ops import place as tp
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()  # noqa
+    ms, fits_m, score_m = tp.bulk_wave_grid(
+        t(a["cap"]), t(a["used"]), t(a["demand"]), t(a["feas"]), t(a["aff"]),
+        a["has_aff"], float(a["desired"]), t(a["pen"]), t(a["coll"]),
+        a.get("spread", False), tp._FILL_GRID)
+    _, _, info = tp.bulk_wave_select_model(ms, fits_m, score_m, a["count"])
+    return f"first wave: path {info['path']}, {info['rounds']} round(s)"
 
 
 def check_scan(fields, label):
@@ -455,9 +514,9 @@ def phase_kernels():
     err_o, *_ = check_bulk(a_over, "beyond capacity", False)
     err_f, *_ = check_bulk(fractional(bulk_inputs(6, main_path=False)),
                            "fractional", True)
+    bound, by = bulk_bound_ms(a_main, waves, run_rows)
     ms = time_cuda(kern)
     plain_ms = time_cuda(plain)
-    bound, by = bulk_bound_ms(a_main, waves, run_rows)
     entries["place_bulk"] = dict(
         name="place_bulk", route="cuda",
         source="nomad_tpu_torch/csrc/place_bulk.cu",
@@ -467,6 +526,7 @@ def phase_kernels():
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
     log(f"kernels: place_bulk C2M group N={N_ROWS}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+    check_bulk_select()
 
     f_main = scan_inputs(4, main_path=True)
     err_m, kern, plain = check_scan(f_main, "rack spread")
@@ -634,31 +694,35 @@ def c2m_eval_inputs(seed: int, n_rows: int = N_ROWS, n_nodes: int = N_NODES,
             np.concatenate([light] * E), 0)
 
 
-def _batch_bulk_case(label, inputs, sparse, exact, fill_grid):
+def _batch_bulk_case(label, inputs, sparse, exact, fill_grid, spread=False,
+                     host_check=True, jitter=False):
     """K4 kernel vs plain on the card, bit for bit (and, with the exact
-    carry, against the host rank-1 update); returns unpack_bulk_batch of
-    the kernel's output."""
+    carry and host_check, against the host rank-1 update; with jitter,
+    again under each of JITTER_SEEDS); returns unpack_bulk_batch of the
+    kernel's output."""
     import torch
     from nomad_tpu_torch import native
     from nomad_tpu_torch.ops import place as tp
     cap, used, heavy, dyn, D = inputs
     t = lambda x: torch.from_numpy(np.array(x)).cuda()
     E, n = heavy.shape[0], cap.shape[0]
-    outs = []
-    for fn in (tp.place_bulk_batch, tp.place_bulk_batch_plain):
-        outs.append([x.cpu().numpy() for x in fn(
-            t(cap), t(used), t(heavy), t(dyn), D, sparse_out=sparse,
-            fill_grid=fill_grid, exact_out=exact)])
+    calls = [lambda fn=fn: fn(
+        t(cap), t(used), t(heavy), t(dyn), D, sparse_out=sparse,
+        fill_grid=fill_grid, exact_out=exact, spread_algorithm=spread)
+        for fn in (tp.place_bulk_batch, tp.place_bulk_batch_plain)]
+    outs = [[x.cpu().numpy() for x in call()] for call in calls]
     torch.cuda.synchronize()
     for i, part in enumerate(("packed", "used", "exact")[:len(outs[0])]):
         _bitwise(f"place_bulk_batch {label} {part}", outs[0][i], outs[1][i])
+    if jitter:
+        jittered(f"place_bulk_batch {label}", calls[0], outs[1])
     res = tp.unpack_bulk_batch(outs[0][0], n, sparse=sparse)
     light = dyn.reshape(E, -1)
     want = np.rint(light[:, 2]).astype(np.int32)
     if not np.array_equal(res[2], want):
         raise AssertionError(f"place_bulk_batch {label}: placed "
                              f"{res[2].tolist()} of {want.tolist()}")
-    if exact:
+    if exact and host_check:
         host = used.copy()
         for e in range(E):
             rows = np.flatnonzero(res[0][e])
@@ -667,8 +731,134 @@ def _batch_bulk_case(label, inputs, sparse, exact, fill_grid):
         _bitwise(f"place_bulk_batch {label} exact vs host rank-1",
                  outs[0][2], host)
     log(f"kernels: place_bulk_batch {label}, N={n}: placed "
-        f"{int(res[2].sum())}, bit-equal")
+        f"{int(res[2].sum())}, bit-equal"
+        f"{' under every seed' if jitter else ''}")
     return res
+
+
+# row counts of the selection cases: a 10,000-node cluster with no
+# padding rows (not a multiple of the cluster's threads), and the buckets
+# of a 10,000- and of a 100,000-node cluster
+SELECT_WORLDS = ((10000, 10000), (N_ROWS, N_NODES), (32768, 20000),
+                 (131072, 100000))
+
+
+def select_k1_inputs(kind, seed, n_rows, n_nodes):
+    """K1 inputs for one path of the kernels' selection: "ties" a strict
+    wave (worst fit) whose threshold score is shared by many rows, count
+    300; "rounds" a strict wave of nearly distinct scores whose first
+    5,000 rows span several KMAX rounds (desired 1 on heterogeneous
+    fractional nodes, no co-placements); "staircase" a strict wave whose
+    count 20 spans twelve one-row score levels and part of a tied one
+    (the radix select's threshold among ties); "toprounds" a fresh
+    cluster, where every ready row ties at the top score, count 5,000
+    (the first rows at the top in several KMAX rounds); "zero" count 0; "negzero" the C2M group with every 7th node's usage
+    -0.0 (the plain version turns it into +0.0 on rows that take
+    nothing)."""
+    if kind == "rounds":
+        a = fractional(bulk_inputs(seed, False, n_rows, n_nodes))
+        a["desired"], a["count"] = 1, 5000
+        a["coll"][:] = 0
+        return a
+    a = bulk_inputs(seed, True, n_rows, n_nodes)
+    if kind == "ties":
+        a["spread"], a["count"] = True, 300
+    elif kind == "staircase":
+        rows = np.arange(12) * 7 + 3
+        a["used"][rows, 0] = 1200 + 10 * np.arange(12)
+        a["used"][rows, 1] = a["used"][rows, 0] * 2
+        a["count"] = a["desired"] = 20
+    elif kind == "toprounds":
+        a["used"][:] = 0.0
+        a["coll"][:] = 0
+        a["count"] = 5000
+    elif kind == "zero":
+        a["count"] = 0
+    else:
+        a["used"][:n_nodes:7] = -0.0
+        a["used"][n_nodes:] = -0.0
+    return a
+
+
+def select_k4_inputs(seed, n_rows, n_nodes, counts, desired=None,
+                     negzero=False, fractional_nodes=False):
+    """A K4 chain for the selection cases: one eval per entry of
+    `counts` (0 is a pad), each with random feasibility, 20
+    co-placements unless desired is 1, and deltas on odd evals: three
+    random ones, a pair that cancels (+v then -v on one row) and one
+    that takes a row's usage to exactly 0.  negzero: every 7th node's
+    usage (and the padding rows') -0.0."""
+    from nomad_tpu_torch.ops import place as tp
+    rng = np.random.default_rng(seed)
+    a = bulk_inputs(seed, not fractional_nodes, n_rows, n_nodes)
+    if fractional_nodes:
+        a = fractional(a)
+    if negzero:
+        a["used"][:n_nodes:7] = -0.0
+        a["used"][n_nodes:] = -0.0
+    heavy, lights = [], []
+    for e, count in enumerate(counts):
+        feas = a["feas"].copy()
+        feas[:n_nodes] = rng.random(n_nodes) < 0.95
+        coll = np.zeros(n_rows, np.int32)
+        if desired != 1:
+            coll[rng.choice(n_nodes, 20, replace=False)] = 1
+        heavy.append(tp.pack_bulk_heavy(feas, a["aff"], a["pen"], coll))
+        deltas = []
+        if e % 2:
+            deltas = _deltas(rng, 3, n_nodes)
+            r, r0 = (int(x) for x in rng.choice(n_nodes, 2, replace=False))
+            v = np.array([300, 512, 0, 0], np.float32)
+            deltas += [(r, v), (r, -v), (r0, -a["used"][r0])]
+        d = count if desired is None else desired
+        lights.append(tp.pack_bulk_light(False, max(d, 1), count,
+                                          a["demand"], deltas, n_rows,
+                                          DELTA_BUCKET))
+    return (a["cap"], a["used"], np.stack(heavy), np.concatenate(lights),
+            DELTA_BUCKET)
+
+
+def check_bulk_select():
+    """K1 and K4 bit-equal to their plain versions on each path of the
+    kernels' selection (select_k1_inputs, select_k4_inputs), at 10,000,
+    16,384, 32,768 and 131,072 rows; K4 sparse and dense, with deltas
+    (some that cancel), the exact carry, count-0 pads and -0.0 usages.
+    Each case also under every seed of JITTER_SEEDS."""
+    from nomad_tpu_torch.ops import place as tp
+    fg = tp.fill_grid_for(10)
+    for n_rows, n_nodes in SELECT_WORLDS:
+        for kind in ("ties", "rounds", "staircase", "toprounds", "zero",
+                     "negzero"):
+            check_bulk(select_k1_inputs(kind, 41, n_rows, n_nodes),
+                       f"{kind} N={n_rows}", True, jitter=True)
+        small = select_k4_inputs(42, n_rows, n_nodes, [10, 100, 0, 10, 7],
+                                 negzero=True)
+        for sparse in (True, False):
+            for exact in (False, True):
+                # the host rank-1 update touches only the assigned rows,
+                # so it keeps the -0.0 usages the reference's add turns
+                # into +0.0: only the plain version is held here
+                _batch_bulk_case(
+                    f"E=5 counts 10/100/0/10/7, deltas that cancel, -0.0 "
+                    f"usages, {'sparse' if sparse else 'dense'}"
+                    f"{', exact carry' if exact else ''}", small, sparse,
+                    exact, tp.fill_grid_for(100), host_check=False,
+                    jitter=True)
+        _batch_bulk_case(
+            "E=4 worst fit counts 300/10/0/300 (strict waves, threshold "
+            "ties), dense, exact carry",
+            select_k4_inputs(43, n_rows, n_nodes, [300, 10, 0, 300]),
+            False, True, tp._FILL_GRID, spread=True, jitter=True)
+        _batch_bulk_case(
+            "E=3 desired 1 counts 5000/0/3000 on fractional nodes (several "
+            "KMAX rounds), dense, exact carry",
+            select_k4_inputs(44, n_rows, n_nodes, [5000, 0, 3000], desired=1,
+                             fractional_nodes=True),
+            False, True, tp._FILL_GRID, jitter=True)
+        _batch_bulk_case(
+            "E=17 C2M chain with deltas and a count-0 pad, sparse, exact "
+            "carry", batch_bulk_inputs(45, 16, n_rows, n_nodes), True, True,
+            fg, jitter=True)
 
 
 # the longest chain the bench's spine gives one K4 launch: the engine's
@@ -689,8 +879,9 @@ def check_batch_bulk():
     t = lambda x: torch.from_numpy(np.array(x)).cuda()   # noqa: E731
     fill_grid = tp.fill_grid_for(10)
     main = c2m_eval_inputs(14)
-    _batch_bulk_case("E=10 C2M eval, D=0, sparse, exact carry (main path)",
-                     main, True, True, fill_grid)
+    m_res = _batch_bulk_case(
+        "E=10 C2M eval, D=0, sparse, exact carry (main path)", main, True,
+        True, fill_grid)
     bench_chain = batch_bulk_inputs(15, BENCH_CHAIN - 1)
     res = _batch_bulk_case(
         f"E={BENCH_CHAIN} C2M chain with deltas and a count-0 pad, sparse, "
@@ -698,10 +889,10 @@ def check_batch_bulk():
         bench_chain, True, True, fill_grid)
     b_args = tuple(t(x) for x in bench_chain[:4]) + (bench_chain[4],)
     kw = dict(sparse_out=True, fill_grid=fill_grid, exact_out=True)
+    bound, by = _k4_bound(bench_chain, res, fill_grid, True)
     b_ms = time_cuda(lambda: tp.place_bulk_batch(*b_args, **kw), reps=5)
     b_plain_ms = time_cuda(lambda: tp.place_bulk_batch_plain(*b_args, **kw),
                            reps=2, warmup=1)
-    bound, by = _k4_bound(bench_chain, res, fill_grid, True)
     log(f"kernels: place_bulk_batch E={BENCH_CHAIN} bench chain: kernel "
         f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms, bound {bound:.6f} ms "
         f"({by})")
@@ -723,18 +914,20 @@ def check_batch_bulk():
     plain = lambda: tp.place_bulk_batch_plain(*args, **kw)
     m_args = tuple(t(x) for x in main[:4]) + (main[4],)
     m_kern = lambda: tp.place_bulk_batch(*m_args, **kw)
-    ms = time_cuda(kern)
-    plain_ms = time_cuda(plain, reps=5, warmup=1)
+    m_bound, m_by = _k4_bound(main, m_res, fill_grid, True)
     m_ms = time_cuda(m_kern)
+    plain_ms = time_cuda(plain, reps=5, warmup=1)
     assign, _, placed, _, _, waves = timed
     nbytes = (n * 16 * 3 + heavy.nbytes + dyn.nbytes
               + E * (3 * tp.SPARSE_CAP + 4) * 4)
     cells = sum(bulk_cells(n, int(waves[e]), int(np.count_nonzero(assign[e])),
                            fill_grid) for e in range(E) if placed[e] > 0)
     bound, by = _bound(nbytes, cells * OPS_PER_CELL)
+    ms = time_cuda(kern)
     log(f"kernels: place_bulk_batch E={E} sparse: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); E=10 D=0 "
-        f"(main path, no exact carry): kernel {m_ms:.4f} ms")
+        f"(main path, no exact carry): kernel {m_ms:.4f} ms, bound "
+        f"{m_bound:.6f} ms ({m_by})")
     return dict(name="place_bulk_batch", route="cuda",
                 source="nomad_tpu_torch/csrc/place_bulk.cu",
                 replaces="nomad_tpu/ops/place.py:729",
@@ -1151,10 +1344,9 @@ def _k4_bound(inputs, res, fill_grid, sparse):
 def check_bulk_large():
     """K1 and K4 past the shared-memory sort (the repair of the
     16,384-row ceiling), at the row counts of a 20,000- and a
-    100,000-node cluster, against their plain versions: K1 integers
-    equal and floats within the tests' tolerances, K4 bit-equal.  K4 on
-    a fresh cluster, where every ready row ties and each wave sorts the
-    whole cluster, and at bench.py bench_kernel_100k_nodes' dispatch
+    100,000-node cluster, against their plain versions, bit for bit.
+    K4 on a fresh cluster, where every ready row ties and is in the
+    wave, and at bench.py bench_kernel_100k_nodes' dispatch
     shape (8 evals of count 512, dense, fill grid 64), timed."""
     import torch
     from nomad_tpu_torch.ops import place as tp
@@ -1173,9 +1365,9 @@ def check_bulk_large():
         _batch_bulk_case(
             "E=17 C2M chain with deltas and a count-0 pad, dense",
             batch_bulk_inputs(34, 16, n_rows, n_nodes), False, False, fg)
+        bound, by = bulk_bound_ms(a, waves, run_rows)
         ms = time_cuda(kern, reps=5)
         plain_ms = time_cuda(plain, reps=3, warmup=1)
-        bound, by = bulk_bound_ms(a, waves, run_rows)
         log(f"kernels: place_bulk C2M group N={n_rows}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
         shape = c2m_eval_inputs(35, n_rows, n_nodes, fresh=True, E=8,
@@ -1187,10 +1379,10 @@ def check_bulk_large():
             shape, False, True, fg)
         args = tuple(t(x) for x in shape[:4]) + (0,)
         kw = dict(sparse_out=False, fill_grid=fg)
+        bound, by = _k4_bound(shape, res, fg, False)
         ms = time_cuda(lambda: tp.place_bulk_batch(*args, **kw), reps=5)
         plain_ms = time_cuda(lambda: tp.place_bulk_batch_plain(*args, **kw),
                              reps=3, warmup=1)
-        bound, by = _k4_bound(shape, res, fg, False)
         log(f"kernels: place_bulk_batch E=8 count=512 fresh world N={n_rows}: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bound:.6f} ms ({by}), waves {res[5].tolist()}")

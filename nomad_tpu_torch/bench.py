@@ -128,7 +128,10 @@ class _SteadyGate:
 
 def _log_plan_submit(scenario: str, rec: Record) -> dict:
     """Per-scenario p50/p99 plan-submit and plan-evaluate latency; resets
-    the series so scenarios don't pollute each other."""
+    the series so scenarios don't pollute each other.  Called after the
+    scenario's server stopped: a worker samples a submit after its plan
+    is evaluated, which can be after the plan's allocs are visible, and
+    only the joined workers have sampled every submit."""
     from nomad_tpu_torch.telemetry import global_metrics
     s = global_metrics.take_sample("nomad.plan.submit")
     ev = global_metrics.take_sample("nomad.plan.evaluate")
@@ -302,10 +305,10 @@ def bench_dev_agent_sim(device="cuda", rec: Optional[Record] = None):
         lat.sort()
         log(f"dev-agent sim: p50 register->placed latency "
             f"{lat[len(lat)//2]*1000:.0f} ms (6 allocs, 3 tgs, 5 nodes)")
-        _log_plan_submit("dev_agent", rec)
-        return lat[len(lat)//2]
     finally:
         s.stop()
+    _log_plan_submit("dev_agent", rec)
+    return lat[len(lat)//2]
 
 
 def bench_c2m(n_nodes=10000, n_batch=96, batch_count=1000,
@@ -338,10 +341,10 @@ def bench_c2m(n_nodes=10000, n_batch=96, batch_count=1000,
         log(f"C2M spine: {placed}/{want} allocs in {dt:.1f}s "
             f"({placed/dt:.0f} allocs/s)")
         rec.allocs["c2m"] = {"placed": placed, "want": want}
-        _log_plan_submit("c2m", rec)
-        return placed / dt
     finally:
         s.stop()
+    _log_plan_submit("c2m", rec)
+    return placed / dt
 
 
 def _basis_matches_host(eng) -> bool:
@@ -493,10 +496,10 @@ def bench_c2m_1m(n_nodes=10000, n_jobs=10000, groups_per_job=10,
                     f"pipeline_overlap={ds['pipeline_overlap_s']}s "
                     f"commit_overlap={ds['commit_overlap_s']}s "
                     f"wave={ds.get('wave')} fused={ds['fused']}")
-        _log_plan_submit(scenario, rec)
-        return placed / dt, placed, want
     finally:
         s.stop()
+    _log_plan_submit(scenario, rec)
+    return placed / dt, placed, want
 
 
 def bench_smoke(workers=8, device="cuda", rec: Optional[Record] = None):
@@ -540,10 +543,10 @@ def bench_scan_spread(n_nodes=10000, n_jobs=60, count=100, workers=48,
             f"batched_evals={batched})")
         if eng:
             log(f"scan-spread engine stats: {eng.stats}")
-        _log_plan_submit("scan_spread", rec)
-        return placed / dt
     finally:
         s.stop()
+    _log_plan_submit("scan_spread", rec)
+    return placed / dt
 
 
 def bench_device_constrained(n_nodes=10000, n_jobs=20, count=100,
@@ -584,10 +587,10 @@ def bench_device_constrained(n_nodes=10000, n_jobs=20, count=100,
         rec.allocs["device"] = {"placed": placed, "want": want}
         log(f"device-constrained: {placed}/{want} GPU allocs in {dt:.1f}s "
             f"({placed/dt:.0f} allocs/s)")
-        _log_plan_submit("device", rec)
-        return placed / dt
     finally:
         s.stop()
+    _log_plan_submit("device", rec)
+    return placed / dt
 
 
 def bench_preemption_heavy(n_nodes=10000, workers=48, n_service=10,
@@ -623,10 +626,10 @@ def bench_preemption_heavy(n_nodes=10000, workers=48, n_service=10,
                         if a.desired_status == "evict")
         log(f"preemption-heavy: {placed}/{want} high-prio allocs in "
             f"{dt:.1f}s ({placed/dt:.0f} allocs/s, {preempted} preempted)")
-        _log_plan_submit("preemption", rec)
-        return placed / dt
     finally:
         s.stop()
+    _log_plan_submit("preemption", rec)
+    return placed / dt
 
 
 def bench_kernel_c2m_scale(device="cuda"):

@@ -42,8 +42,10 @@ _BULK = [_P] * 19 + [_I] * 5
 _ARGTYPES: Dict[str, Dict[str, List]] = {
     "place_bulk": {
         "place_bulk_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _P, _P, _P, _P],
-        "place_bulk_batch_launch": [_P] * 4 + [_I] * 8 + [_P] * 6,
+                              _I, _I, _I, _P, _P, _P],
+        "place_bulk_batch_launch": [_P] * 4 + [_I] * 8 + [_P] * 4,
+        "place_bulk_cluster_size": [],
+        "place_bulk_set_jitter": [_I, _P],
     },
     "place_scan": {
         "place_scan_launch": [_P] * 18 + [_I] * 6 + [_P] * 6,

@@ -53,11 +53,13 @@ PACKED_WIDTH = 5 + 2 * TOP_K
 # reciprocal, so the port multiplies by the same f32 constant (the CUDA
 # kernels use 1.0f / 18.0f, the identical value)
 FIT_NORM = float(np.float32(1.0) / np.float32(18.0))
-# the bulk kernel sorts its wave set in shared memory, 8 bytes a row, up
-# to this many rows; past it in a global scratch the wrapper allocates
+# the one-block sorts of K7e and K8 sort in shared memory, 8 bytes a row,
+# up to this many rows; past it in a global scratch (`sort_scratch`)
 BULK_SMEM_ROWS = 16384
-# its sort key holds a row in 24 bits
+# the bulk kernels' keys hold a row in 24 bits
 BULK_MAX_ROWS = 1 << 24
+# keys one selection round of K1/K4 takes (csrc/place_bulk.cu KMAX)
+BULK_KMAX = 2048
 # the scan kernel keeps per-spread statistics in shared memory
 SCAN_MAX_SPREADS = 64
 
@@ -430,6 +432,131 @@ def bulk_run_lengths(ms, fits_m, score_m, second):
     return torch.sum(torch.cumprod(ok_m.to(torch.int32), dim=1), dim=1)
 
 
+def bulk_wave_allocs(ms, fits_m, score_m, remaining: int):
+    """One wave of `_bulk_loop` on its grid: the wave set (strict rows,
+    cur > s*, if any, else the rows tied at the top score), its runs in
+    greedy order (score desc, stable argsort -> row asc among ties),
+    capped cumulatively at `remaining`.  Returns (per-node instances
+    i64[N], any_fit)."""
+    neg_inf = float("-inf")
+    fits = fits_m[:, 0]
+    cur = torch.where(fits, score_m[:, 0], torch.full_like(score_m[:, 0], neg_inf))
+    any_fit = bool(torch.any(fits))
+    s_star = torch.max(torch.where(fits_m[:, 1], score_m[:, 1],
+                                   torch.full_like(cur, neg_inf)))
+    strict = fits & (cur > s_star)
+    top2 = torch.topk(cur, 2).values
+    tie = fits & (cur == top2[0])
+    wave = strict if bool(torch.any(strict)) else tie
+    second = torch.where(cur == top2[0], top2[1], top2[0])
+    run = bulk_run_lengths(ms, fits_m, score_m, second)
+    base = torch.where(wave, run, torch.zeros_like(run))
+    order = torch.argsort(torch.where(wave, -cur,
+                                      torch.full_like(cur, float("inf"))),
+                          stable=True)
+    base_sorted = base[order]
+    prefix = torch.cumsum(base_sorted, dim=0) - base_sorted
+    alloc_sorted = torch.minimum(torch.clamp(remaining - prefix, min=0),
+                                 base_sorted)
+    per_node = torch.zeros(cur.shape[0], dtype=torch.int64, device=cur.device)
+    per_node[order] = alloc_sorted.to(torch.int64)
+    return per_node, any_fit
+
+
+def _score_words(cur: np.ndarray) -> np.ndarray:
+    """u32 words whose unsigned order is the order of -cur (the kernel's
+    `orderable(-cur + 0.0f)`: +0.0 and -0.0 give one word)."""
+    u = (-cur.astype(np.float32) + np.float32(0.0)).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u,
+                    u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def bulk_wave_select_model(ms, fits_m, score_m, remaining: int,
+                           kmax: int = BULK_KMAX):
+    """Model of one wave of csrc/place_bulk.cu (K1/K4), used only by the
+    tests, which hold it equal to `bulk_wave_allocs` (the plain version's
+    full argsort).  Only the first k = min(remaining, |wave|) keys of the
+    greedy order (score desc, row asc) can take instances, so the kernel
+    selects them: the first rows at the top score in row order when
+    there are k of them ("top", in rounds of at most `kmax` keys); else
+    a radix select (8
+    bits a pass over the 32-bit score word) for the threshold, the rows
+    above it and the first rows at it in row order, in rounds of at most
+    `kmax` keys ("radix").  It sorts only the selected keys, computes
+    runs for the selected rows only (capped at min(M, remaining)) and
+    caps them cumulatively.  Returns (per-node instances i64[N], any_fit,
+    {"path", "rounds"})."""
+    neg_inf = np.float32(-np.inf)
+    fits_m = fits_m.cpu().numpy()
+    score_m = score_m.cpu().numpy()
+    ms = ms.cpu().numpy()
+    N, M = fits_m.shape
+    per_node = np.zeros(N, np.int64)
+    info = {"path": None, "rounds": 0}
+    fits = fits_m[:, 0]
+    cur = np.where(fits, score_m[:, 0], neg_inf).astype(np.float32)
+    if not fits.any():
+        return torch.from_numpy(per_node), False, info
+    s_star = np.max(np.where(fits_m[:, 1], score_m[:, 1], neg_inf))
+    top1, top2 = np.sort(cur)[::-1][:2]    # lax.top_k: duplicates count
+    n_top = int(np.count_nonzero(cur == top1))
+    strict = top1 > s_star
+    wave = (cur > s_star) if strict else (cur == top1)
+    run_cap = min(M, remaining)
+    words = _score_words(cur)
+    rows = np.arange(N)
+
+    def take(sel, run_base):
+        """Runs of the selected rows (in key order), capped cumulatively."""
+        second = np.where(cur[sel] == top1, top2, top1)
+        ok = fits_m[sel] & ((score_m[sel] > second[:, None]) | (ms == 1.0))
+        run = np.minimum(np.cumprod(ok, axis=1).sum(axis=1), run_cap)
+        pre = run_base + np.cumsum(run) - run
+        per_node[sel] = np.minimum(np.maximum(remaining - pre, 0), run)
+        info["rounds"] += 1
+        return run_base + int(run.sum())
+
+    def first_keys(mask, q):
+        idx = np.flatnonzero(mask)
+        return idx[np.lexsort((idx, words[idx]))][:q]
+
+    k = min(remaining, int(np.count_nonzero(wave)))
+    run_base = 0
+    if n_top >= k:
+        info["path"] = "top"
+        at_top = np.flatnonzero(cur == top1)
+        for base in range(0, k, kmax):
+            if run_base >= remaining:
+                break
+            run_base = take(at_top[base:base + kmax], run_base)
+    else:
+        info["path"] = "radix"
+        taken, lo = 0, None                # lo: (word, row) last taken
+        while taken < k and run_base < remaining:
+            q = min(kmax, k - taken)
+            elig = wave.copy()
+            if lo is not None:
+                elig &= (words > lo[0]) | ((words == lo[0]) & (rows > lo[1]))
+            prefix, need = 0, q
+            for shift in (24, 16, 8, 0):
+                m = elig if shift == 24 else \
+                    elig & ((words >> np.uint32(shift + 8)) == prefix)
+                hist = np.bincount((words[m] >> np.uint32(shift)) & 255,
+                                   minlength=256)
+                cum = np.cumsum(hist)
+                b = int(np.argmax(cum >= need))
+                need -= int(cum[b] - hist[b])
+                prefix = (prefix << 8) | b
+            thr = np.uint32(prefix)
+            sel = np.concatenate([
+                first_keys(elig & (words < thr), q),
+                np.flatnonzero(elig & (words == thr))[:need]])
+            run_base = take(sel, run_base)
+            taken += q
+            lo = (words[sel[-1]], int(sel[-1]))
+    return torch.from_numpy(per_node), True, info
+
+
 def place_bulk_plain(capacity, used0, feasible, affinity, has_affinity: bool,
                      desired: int, penalty, coll0, demand, count: int,
                      spread_algorithm: bool = False, max_waves: int = 65536,
@@ -452,32 +579,8 @@ def place_bulk_plain(capacity, used0, feasible, affinity, has_affinity: bool,
         ms, fits_m, score_m = bulk_wave_grid(
             capacity, used, demand, feasible, affinity, has_affinity,
             desired_f, penalty, coll, spread_algorithm, fill_grid)
-        fits = fits_m[:, 0]
-        cur = torch.where(fits, score_m[:, 0], torch.full_like(score_m[:, 0], neg_inf))
-        any_fit = bool(torch.any(fits))
-        s_star = torch.max(torch.where(fits_m[:, 1], score_m[:, 1],
-                                       torch.full_like(cur, neg_inf)))
-        strict = fits & (cur > s_star)
-        top2 = torch.topk(cur, 2).values
-        tie = fits & (cur == top2[0])
-        wave = strict if bool(torch.any(strict)) else tie
-        second = torch.where(cur == top2[0], top2[1], top2[0])
-        run = bulk_run_lengths(ms, fits_m, score_m, second)
-
-        # greedy-order the wave's runs (score desc, stable -> row asc among
-        # ties) and cap cumulatively at the remaining count
-        base = torch.where(wave, run, torch.zeros_like(run))
-        remaining = count - placed
-        order = torch.argsort(torch.where(wave, -cur,
-                                          torch.full_like(cur, float("inf"))),
-                              stable=True)
-        base_sorted = base[order]
-        prefix = torch.cumsum(base_sorted, dim=0) - base_sorted
-        alloc_sorted = torch.minimum(torch.clamp(remaining - prefix, min=0),
-                                     base_sorted)
-        per_node = torch.zeros(N, dtype=torch.int64, device=dev)
-        per_node[order] = alloc_sorted.to(torch.int64)
-
+        per_node, any_fit = bulk_wave_allocs(ms, fits_m, score_m,
+                                             count - placed)
         used = used + per_node[:, None].to(f32) * demand
         coll = coll + per_node.to(coll.dtype)
         assign = assign + per_node.to(torch.int32)
@@ -517,8 +620,8 @@ def place_bulk(capacity, used0, feasible, affinity, has_affinity: bool,
         raise ValueError(f"place_bulk: R={R}, kernel takes {NUM_RESOURCE_DIMS}")
     if not 4 <= N <= BULK_MAX_ROWS:
         raise ValueError(
-            f"place_bulk: N={N}; the kernel's sort key holds a row in 24 "
-            f"bits and takes 4..{BULK_MAX_ROWS} rows")
+            f"place_bulk: N={N}; the kernel's key holds a row in 24 bits "
+            f"and takes 4..{BULK_MAX_ROWS} rows")
     if fill_grid not in FILL_GRID_BUCKETS:
         # the kernel packs each row's run (<= fill_grid) into 8 key bits
         raise ValueError(f"place_bulk: fill_grid={fill_grid}; the kernel "
@@ -533,14 +636,13 @@ def place_bulk(capacity, used0, feasible, affinity, has_affinity: bool,
     _check("place_bulk.demand", demand, dev, f32, (R,))
     lib = _build.load("place_bulk")
     out = torch.empty((N, R + 3), dtype=f32, device=dev)
-    scratch = torch.empty((3, N), dtype=i32, device=dev)
-    keys = sort_scratch(N, dev)
+    scratch = torch.empty((2, N), dtype=i32, device=dev)
     rc = lib.place_bulk_launch(
         _ptr(capacity), _ptr(used0), _ptr(feasible), _ptr(affinity),
         int(bool(has_affinity)), int(desired), _ptr(penalty), _ptr(coll0),
         _ptr(demand), int(count), int(bool(spread_algorithm)),
         int(max_waves), int(fill_grid), N, _ptr(out), _ptr(scratch),
-        _opt_ptr(keys), _stream(dev))
+        _stream(dev))
     if rc != 0:
         raise RuntimeError(f"place_bulk kernel launch failed: CUDA error {rc}")
     launches["place_bulk"] += 1
@@ -944,8 +1046,8 @@ def place_bulk_batch(capacity: torch.Tensor, used0: torch.Tensor,
                          f"{NUM_RESOURCE_DIMS}")
     if not 4 <= N <= BULK_MAX_ROWS:
         raise ValueError(
-            f"place_bulk_batch: N={N}; the kernel's sort key holds a row in "
-            f"24 bits and takes 4..{BULK_MAX_ROWS} rows")
+            f"place_bulk_batch: N={N}; the kernel's key holds a row in 24 "
+            f"bits and takes 4..{BULK_MAX_ROWS} rows")
     if fill_grid not in FILL_GRID_BUCKETS:
         raise ValueError(f"place_bulk_batch: fill_grid={fill_grid}; the "
                          f"kernel takes one of {FILL_GRID_BUCKETS}")
@@ -960,14 +1062,12 @@ def place_bulk_batch(capacity: torch.Tensor, used0: torch.Tensor,
     width = 3 * SPARSE_CAP + 4 if sparse_out else 2 * N + 4
     packed = torch.empty((E, width), dtype=f32, device=dev)
     used = torch.empty((N, R), dtype=f32, device=dev)
-    scratch = torch.empty((3, N), dtype=torch.int32, device=dev)
-    delta = torch.empty((N if D else 1, R), dtype=f32, device=dev)
-    keys = sort_scratch(N, dev)
+    scratch = torch.empty((2, N), dtype=torch.int32, device=dev)
     rc = lib.place_bulk_batch_launch(
         _ptr(capacity), _ptr(used0), _ptr(heavy), _ptr(dyn), E, N, int(D),
         int(bool(sparse_out)), int(bool(spread_algorithm)), int(max_waves),
         int(fill_grid), int(bool(exact_out)), _ptr(used), _ptr(packed),
-        _ptr(scratch), _ptr(delta), _opt_ptr(keys), _stream(dev))
+        _ptr(scratch), _stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"place_bulk_batch kernel launch failed: CUDA error {rc}")

@@ -321,8 +321,9 @@ def test_bulk_batch_matches_reference_past_the_shared_memory_sort(case):
 
 
 def test_bulk_wrappers_take_rows_past_the_shared_memory_sort():
-    """The row ceiling is the sort key's 24 row bits, not shared memory;
-    past BULK_SMEM_ROWS the wrapper allocates a global key scratch."""
+    """The row ceiling is the key's 24 row bits, not shared memory; past
+    BULK_SMEM_ROWS the one-block sorts of K7e and K8 take a global key
+    scratch (K1/K4 select their keys and need none)."""
     assert tp.BULK_MAX_ROWS == 1 << 24
     assert tp.sort_scratch(tp.BULK_SMEM_ROWS, torch.device("cpu")) is None
     keys = tp.sort_scratch(100_000, torch.device("cpu"))
