@@ -27,7 +27,13 @@ Phases, all run in this order:
            -0.0 usages and deltas that cancel, sparse and dense, with the
            exact carry, at 10,000, 16,384, 32,768 and 131,072 rows, each
            case also under random delays at every exchange phase (six
-           seeds); then at 32,768 and 131,072 rows (20,000- and
+           seeds); K2 and K3 (one cluster each, rows' scores cached
+           between slots) on the edge cases of their cached step
+           (ops/place.py scan_model_cases), K3 bit-equal and K2 within
+           the tolerances, each case again under three seeds of the
+           delays, as are K3's main shape and E = 8 chain, and K3 at
+           131,072 rows and past the rows its cluster caches in shared
+           memory; then at 32,768 and 131,072 rows (20,000- and
            100,000-node clusters, K4 also on a fresh cluster where
            every ready row is in the wave), and the stage probe's units
            K8a-K8f at the bench's shape (N = 10,000, M = 16, R = 4),
@@ -76,7 +82,8 @@ Phases, all run in this order:
            the card: bench_c2m_1m at 10,000 nodes with 1,000 jobs
            (100,000 allocs, 48 workers), whose stage probe launches
            K8a-K8f; bench_scan_spread at full size (10,000 nodes, 60
-           spread service jobs of count 100, K3); and
+           spread service jobs of count 100, K3, each launch's chain
+           length E logged); and
            bench_kernel_100k_nodes (K4 over 131,072 rows).  Every alloc
            committed, device_stages present, the steady-state and fused
            checks clean, the device basis equal to its host snapshot.
@@ -234,26 +241,27 @@ def bulk_inputs(seed: int, main_path: bool, n_rows: int = N_ROWS,
                 desired=200, pen=pen, coll=coll, demand=demand, count=200)
 
 
-def scan_inputs(seed: int, main_path: bool):
-    """Seeded K2 inputs (PlaceInputs fields) over N_ROWS rows.  main_path:
+def scan_inputs(seed: int, main_path: bool, n_rows: int = N_ROWS,
+                n_nodes: int = N_NODES):
+    """Seeded K2 inputs (PlaceInputs fields) over n_rows rows.  main_path:
     one rack-spread group of a 50-slot service job (S = 64, the slot
     bucket) on a partly loaded cluster; otherwise three groups with
     targeted and even spreads, affinities, penalties, co-placements and
     per-node instance budgets."""
     rng = np.random.default_rng(seed)
-    n = N_NODES
+    n = n_nodes
     g, s, k, v = (1, 64, 1, RACKS) if main_path else (3, 64, 2, 16)
-    cap = np.zeros((N_ROWS, 4), np.float32)
+    cap = np.zeros((n_rows, 4), np.float32)
     cap[:n] = [4000, 8192, 102400, 1000]
     if not main_path:
         cap[:n, 0] = rng.choice([2000, 4000, 8000], n)
         cap[:n, 1] = rng.choice([4096, 8192, 16384], n)
-    used = np.zeros((N_ROWS, 4), np.float32)
+    used = np.zeros((n_rows, 4), np.float32)
     used[:n, 0] = rng.integers(0, 8, n) * 100
     used[:n, 1] = rng.integers(0, 8, n) * 256
-    feas = np.zeros((g, N_ROWS), bool)
+    feas = np.zeros((g, n_rows), bool)
     feas[:, :n] = rng.random((g, n)) < (1.0 if main_path else 0.9)
-    vidx = np.full((g, k, N_ROWS), v, np.int32)
+    vidx = np.full((g, k, n_rows), v, np.int32)
     vidx[:, :, :n] = np.arange(n) % v if main_path else \
         rng.integers(0, v + 1, (g, k, n))
     desired = np.full((g, k, v + 1), -1.0, np.float32)
@@ -269,14 +277,14 @@ def scan_inputs(seed: int, main_path: bool):
     demand[:50] = [500, 256, 150, 0]
     fields = dict(
         capacity=cap, used=used, feasible=feas,
-        affinity=np.zeros((g, N_ROWS), np.float32),
+        affinity=np.zeros((g, n_rows), np.float32),
         has_affinity=np.zeros(g, bool),
         desired_count=np.full(g, 50, np.int32),
-        penalty=np.zeros((g, N_ROWS), bool),
-        tg_count=np.zeros((g, N_ROWS), np.int32),
+        penalty=np.zeros((g, n_rows), bool),
+        tg_count=np.zeros((g, n_rows), np.int32),
         spread_vidx=vidx, spread_desired=desired, spread_targeted=targeted,
         spread_wfrac=wfrac, spread_counts=counts, spread_active=active,
-        place_cap=np.full((g, N_ROWS), -1, np.int32),
+        place_cap=np.full((g, n_rows), -1, np.int32),
         demand=demand, slot_tg=slot_tg, slot_active=slot_active)
     if not main_path:
         targeted[:] = rng.random((g, k)) < 0.5
@@ -332,9 +340,11 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    lib = _build.load("place_bulk")
     log(f"build: K1/K4 launch one cluster of "
-        f"{lib.place_bulk_cluster_size()} blocks x 1024 threads")
+        f"{_build.load('place_bulk').place_bulk_cluster_size()} blocks, "
+        f"K2/K3 one of "
+        f"{_build.load('place_scan').place_scan_cluster_size()}, "
+        f"x 1024 threads")
 
 
 def _bulk_call(fn, a, dev):
@@ -358,30 +368,33 @@ def _compare_floats(name, got, ref):
     return err
 
 
-# seeds of K1/K4's delays at every exchange phase (place_bulk.cu
-# `jitter`) under which the selection cases run again
+# seeds of the cluster kernels' delays at every exchange phase
+# (cluster.cuh `jitter`) under which the K1/K4 selection cases and the
+# K2/K3 cases run again
 JITTER_SEEDS = range(1, 7)
+SCAN_JITTER_SEEDS = range(1, 4)
 
 
-def jittered(label, fn, want):
-    """fn() (a K1/K4 call) again under each of JITTER_SEEDS, every
-    output bit-equal to `want` (the plain version's, as numpy arrays):
-    a missing barrier in the cluster's exchanges shows here."""
+def jittered(label, fn, want, kernel="place_bulk", seeds=JITTER_SEEDS):
+    """fn() (a call of `kernel`'s library: K1/K4, or K2/K3 with
+    "place_scan") again under each of `seeds`, every output bit-equal to
+    `want` (numpy arrays): a missing barrier in the cluster's exchanges
+    shows here."""
     import torch
     from nomad_tpu_torch.ops import _build
-    lib = _build.load("place_bulk")
+    set_jitter = getattr(_build.load(kernel), f"{kernel}_set_jitter")
     stream = torch.cuda.current_stream().cuda_stream
     try:
-        for seed in JITTER_SEEDS:
-            if lib.place_bulk_set_jitter(seed, stream) != 0:
-                raise RuntimeError("place_bulk_set_jitter failed")
+        for seed in seeds:
+            if set_jitter(seed, stream) != 0:
+                raise RuntimeError(f"{kernel}_set_jitter failed")
             got = fn()
             got = got if isinstance(got, (tuple, list)) else (got,)
             for i, (g, w) in enumerate(zip(got, want)):
                 _bitwise(f"{label} under delays (seed {seed}) output {i}",
                          g.cpu().numpy(), w)
     finally:
-        lib.place_bulk_set_jitter(0, stream)
+        set_jitter(0, stream)
 
 
 def check_bulk(a, label, place_all, jitter=False):
@@ -547,7 +560,9 @@ def phase_kernels():
     log(f"kernels: place_scan rack spread N={N_ROWS} S=64: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
 
-    entries["place_batch"] = check_batch_scan()
+    entries["place_batch"], err_c = check_batch_scan()
+    entries["place_scan"]["max_abs_err"] = max(
+        entries["place_scan"]["max_abs_err"], err_c)
     entries["place_bulk_batch"] = check_batch_bulk()
     entries.update(check_world_scatter())
     entries["preempt"] = check_preempt()
@@ -576,14 +591,15 @@ def _deltas(rng, k, n_nodes=N_NODES):
     return out
 
 
-def batch_scan_inputs(seed: int, E: int, S: int, with_deltas: bool):
+def batch_scan_inputs(seed: int, E: int, S: int, with_deltas: bool,
+                      n_rows: int = N_ROWS, n_nodes: int = N_NODES):
     """K3 inputs: an E-eval chain of rack-spread evals (scan_inputs' main
     path, 64 slots of which 50 active) with the slot axis padded to S,
     each with deltas or none, packed as the engine packs them.  Returns
     (capacity, used0, heavy, dyn, dims)."""
     from nomad_tpu_torch.ops import place as tp
     rng = np.random.default_rng(seed)
-    evals = [scan_inputs(seed + e, main_path=True) for e in range(E)]
+    evals = [scan_inputs(seed + e, True, n_rows, n_nodes) for e in range(E)]
     cap, used = evals[0]["capacity"], evals[0]["used"]
     inps = [tp.PlaceInputs(**f) for f in evals]
     heavy = np.stack([tp.pack_heavy(i) for i in inps])
@@ -594,12 +610,13 @@ def batch_scan_inputs(seed: int, E: int, S: int, with_deltas: bool):
     return cap, used, heavy, dyn, (g, n, k, vp1, S, DELTA_BUCKET)
 
 
-def _batch_scan_case(label, seed, E, S, with_deltas):
-    """K3 kernel vs plain on the card, bit for bit; returns (kernel
-    callable, plain callable, slots placed, inputs)."""
+def _batch_scan_case(label, inputs, want_placed, jitter=False):
+    """K3 kernel vs plain on the card, bit for bit (with jitter, again
+    under each of SCAN_JITTER_SEEDS); returns (kernel callable, plain
+    callable, slots placed)."""
     import torch
     from nomad_tpu_torch.ops import place as tp
-    cap, used, heavy, dyn, dims = batch_scan_inputs(seed, E, S, with_deltas)
+    cap, used, heavy, dyn, dims = inputs
     t = lambda x: torch.from_numpy(np.array(x)).cuda()
     args = (t(cap), t(used), t(heavy), t(dyn), dims)
     kern = lambda: tp.place_batch_packed(*args)
@@ -608,31 +625,102 @@ def _batch_scan_case(label, seed, E, S, with_deltas):
     p_packed, p_used = plain()
     torch.cuda.synchronize()
     kp, pp = k_packed.cpu().numpy(), p_packed.cpu().numpy()
+    pu = p_used.cpu().numpy()
     _bitwise(f"place_batch {label} packed", kp, pp)
-    _bitwise(f"place_batch {label} used", k_used.cpu().numpy(),
-             p_used.cpu().numpy())
+    _bitwise(f"place_batch {label} used", k_used.cpu().numpy(), pu)
+    if jitter:
+        jittered(f"place_batch {label}", kern, (pp, pu), "place_scan",
+                 SCAN_JITTER_SEEDS)
     placed = int((tp.unpack_outputs(kp)[0] >= 0).sum())
-    if placed != 50 * E:
+    if placed != want_placed:
         raise AssertionError(f"place_batch {label}: placed {placed} of "
-                             f"{50 * E} slots")
-    log(f"kernels: place_batch {label}, N={N_ROWS} S={S}: placed {placed} "
-        f"slots, bit-equal")
-    return kern, plain, placed, (heavy, dyn, dims)
+                             f"{want_placed} slots")
+    log(f"kernels: place_batch {label}, N={dims[1]} S={dims[4]}: placed "
+        f"{placed} slots, bit-equal"
+        f"{' under every seed' if jitter else ''}")
+    return kern, plain, placed
+
+
+def check_scan_cases():
+    """K2 and K3 on the card on every edge case of the cached step
+    (ops/place.py scan_model_cases, the CPU tests' cases), binpack and
+    spread: K3 bit-equal to its plain version, K2 with equal integers
+    and floats within RTOL/ATOL; each again under SCAN_JITTER_SEEDS, K3
+    bit-equal to the plain version and K2 to its own undelayed output."""
+    import torch
+    from nomad_tpu_torch.convert import place_inputs_from_numpy
+    from nomad_tpu_torch.ops import place as tp
+    t = lambda x: torch.from_numpy(np.array(x)).cuda()
+    err = 0.0
+    cases = tp.scan_model_cases()
+    for label, evals, deltas in cases:
+        cap, used, heavy, dyn, dims = tp.scan_case_batch(evals, deltas)
+        inp = place_inputs_from_numpy(evals[0], "cuda")
+        for spread in (False, True):
+            name = f"{label} ({'spread' if spread else 'binpack'})"
+            args = (t(cap), t(used), t(heavy), t(dyn), dims)
+            k3 = lambda: tp.place_batch_packed(*args, spread_algorithm=spread)
+            want = [x.cpu().numpy() for x in tp.place_batch_packed_plain(
+                *args, spread_algorithm=spread)]
+            for i, x in enumerate(k3()):
+                _bitwise(f"place_batch case {name} output {i}",
+                         x.cpu().numpy(), want[i])
+            jittered(f"place_batch case {name}", k3, want, "place_scan",
+                     SCAN_JITTER_SEEDS)
+            k2 = lambda: tp.place_eval_packed(inp, spread)
+            got = [x.cpu().numpy() for x in k2()]
+            ref = [x.cpu().numpy() for x in tp.place_eval_plain(inp, spread)]
+            kr, pr = tp.unpack_outputs(got[0]), tp.unpack_outputs(ref[0])
+            for i, nm in ((0, "node"), (3, "n_eval"), (4, "n_exh"),
+                          (5, "top_nodes")):
+                np.testing.assert_array_equal(kr[i], pr[i],
+                                              err_msg=f"{name} {nm}")
+            err = max(err, _compare_floats(f"{name} score", kr[1], pr[1]),
+                      _compare_floats(f"{name} fit", kr[2], pr[2]),
+                      _compare_floats(f"{name} top_scores", kr[6], pr[6]),
+                      _compare_floats(f"{name} used", got[1], ref[1]))
+            jittered(f"place_scan case {name}", k2, got, "place_scan",
+                     SCAN_JITTER_SEEDS)
+    log(f"kernels: K2/K3 edge cases: {2 * len(cases)} "
+        f"(case, algorithm) pairs, K3 bit-equal, K2 integers equal and "
+        f"max |err| {err:.3g}, each again under seeds "
+        f"{list(SCAN_JITTER_SEEDS)} of the delays")
+    return err
 
 
 def check_batch_scan():
-    """K3 kernel vs plain on the card, bit for bit: an E = 8 chain with
-    deltas at S = 64 (timed), and the main path's shape, one rack-spread
-    eval alone with the engine's slot bucket (S = 128) and no deltas."""
+    """K3 kernel vs plain on the card, bit for bit: the main path's shape
+    (one rack-spread eval alone with the engine's slot bucket, S = 128,
+    no deltas) and an E = 8 chain with deltas at S = 64 (timed), both
+    again under the delays; one eval at 131,072 rows (a 100,000-node
+    world, timed) and one past the rows the cluster caches in shared
+    memory (the cache in the global scratch); then the edge cases
+    (check_scan_cases)."""
     from nomad_tpu_torch.parallel.engine import _s_bucket
     s_main = _s_bucket(64)
-    m_kern, m_plain, _, _ = _batch_scan_case(
-        "E=1 rack-spread eval (main path)", 21, 1, s_main, False)
-    kern, plain, placed, (heavy, dyn, dims) = _batch_scan_case(
-        "E=8 rack-spread chain with deltas", 11, 8, 64, True)
+    m_kern, _, _ = _batch_scan_case(
+        "E=1 rack-spread eval (main path)",
+        batch_scan_inputs(21, 1, s_main, False), 50, jitter=True)
+    inputs = batch_scan_inputs(11, 8, 64, True)
+    kern, plain, placed = _batch_scan_case(
+        "E=8 rack-spread chain with deltas", inputs, 400, jitter=True)
+    n_big, nodes_big = LARGE_WORLDS[-1]
+    b_kern, b_plain, _ = _batch_scan_case(
+        "E=1 rack-spread eval",
+        batch_scan_inputs(41, 1, s_main, False, n_big, nodes_big), 50)
+    from nomad_tpu_torch.ops import _build
+    from nomad_tpu_torch.ops import place as tp
+    blocks = _build.load("place_scan").place_scan_cluster_size()
+    _batch_scan_case(
+        "E=1 rack-spread eval, the cache past shared memory",
+        batch_scan_inputs(42, 1, s_main, False,
+                          blocks * (tp.SCAN_SMEM_ROWS + 1), nodes_big), 50)
     ms = time_cuda(kern)
     plain_ms = time_cuda(plain, reps=3, warmup=1)
     m_ms = time_cuda(m_kern)
+    b_ms = time_cuda(b_kern)
+    b_plain_ms = time_cuda(b_plain, reps=3, warmup=1)
+    heavy, dyn, dims = inputs[2:]
     E = heavy.shape[0]
     g, n, k, vp1, S, D = dims
     nbytes = (n * 16 * 3 + heavy.nbytes + dyn.nbytes + E * S * 15 * 4)
@@ -640,13 +728,15 @@ def check_batch_scan():
     bound, by = _bound(nbytes, ops)
     log(f"kernels: place_batch E=8: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); E=1 S={s_main} "
-        f"(main path): kernel {m_ms:.4f} ms")
+        f"(main path): kernel {m_ms:.4f} ms; E=1 S={s_main} N={n_big}: "
+        f"kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms")
+    err = check_scan_cases()
     return dict(name="place_batch", route="cuda",
                 source="nomad_tpu_torch/csrc/place_scan.cu",
                 replaces="nomad_tpu/ops/place.py:403",
                 jax_function="place_batch_packed_jit",
                 launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=None)
+                bound_ms=bound, bound_by=by, library_ms=None), err
 
 
 def batch_bulk_inputs(seed: int, E: int = 16, n_rows: int = N_ROWS,
@@ -2418,8 +2508,20 @@ def phase_bench():
         f"launches {launches}")
     log(f"bench c2m_1m device_stages: {json.dumps(ds)}")
 
+    # each K3 launch's chain length (E) and dims, from the engine's call
+    from nomad_tpu_torch.parallel import engine as engine_mod
+    k3, chains = engine_mod.place_batch_packed, []
+
+    def logged_k3(capacity, used0, heavy, dyn, dims, **kw):
+        chains.append((heavy.shape[0], tuple(int(x) for x in dims)))
+        return k3(capacity, used0, heavy, dyn, dims, **kw)
+
     _reset_counts()
-    sp_rate = bench.bench_scan_spread(device="cuda", rec=rec)
+    engine_mod.place_batch_packed = logged_k3
+    try:
+        sp_rate = bench.bench_scan_spread(device="cuda", rec=rec)
+    finally:
+        engine_mod.place_batch_packed = k3
     sp_launches = _counts()
     got = rec.allocs["scan_spread"]
     if got["placed"] != got["want"] or sp_launches["place_batch"] == 0:
@@ -2430,6 +2532,8 @@ def phase_bench():
         f"x 100, 48 workers): {got['placed']} of {got['want']} committed at "
         f"{sp_rate:.1f} allocs/s; plan.submit p50 {plan['p50']} ms p99 "
         f"{plan['p99']} ms; launches {sp_launches}")
+    log(f"bench scan_spread K3 chains (E, (G, N, K, V1, S, D)) in launch "
+        f"order: {chains}")
 
     _reset_counts()
     traj = bench.bench_kernel_100k_nodes(device="cuda")

@@ -79,17 +79,9 @@
 // Outputs: dense [2N+4], or sparse [3*SPARSE_CAP+4] with the first
 // SPARSE_CAP assigned rows in row order from a cluster prefix count.
 //
-// Checking the barriers: compute-sanitizer's racecheck and synccheck do
-// not run on every machine with the card, so place_bulk_set_jitter(seed)
-// turns on random delays of a few microseconds, per block and per warp,
-// at each `jitter` site: before every write of shared or distributed
-// shared memory that another thread reads and after every barrier that
-// orders such a read.  A missing barrier then shows as an output that differs
-// from the plain version's (chip_smoke.py and the `cuda` tests rerun the
-// selection cases under several seeds).  The kernels are compiled with
-// the sites and without them (template parameter J); a launch takes the
-// delayed form only while a seed other than 0 is set, so the default
-// path runs code without the sites.
+// Checking the barriers: place_bulk_set_jitter(seed) turns on the random
+// delays of cluster.cuh at each `jitter` site (chip_smoke.py and the
+// `cuda` tests rerun the selection cases under several seeds).
 //
 // Numerics: compiled without fast math and with -fmad=false; powf (not
 // __powf); operations in the reference's order (fit/18,
@@ -101,6 +93,7 @@
 #include <cooperative_groups.h>
 
 #include "bulk_common.cuh"
+#include "cluster.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -118,32 +111,6 @@ static_assert(NW == 32, "one warp reads the block's warp records");
 static_assert(CLUSTER <= 32, "one warp reads the cluster's slots");
 
 using Row = BulkRow;
-
-__constant__ unsigned c_jitter = 0u;   // the delays' seed (J kernels)
-
-__device__ __forceinline__ unsigned mix32(unsigned h) {
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  return h ^ (h >> 16);
-}
-
-// A delay from the seed, the site, the clock (in ~9 us steps), the block
-// and the warp: a block sleeps ~16 us at one site in four, the same for
-// all its threads (delays that differed per thread would even out at the
-// block's next barrier and leave the blocks in step), so blocks run
-// ahead of one another; each warp adds up to ~2 us of its own.
-template <bool J>
-__device__ __forceinline__ void jitter(unsigned site) {
-  if constexpr (J) {
-    const unsigned hb = mix32(c_jitter * 0x9E3779B9u ^
-                              blockIdx.x * 0x85EBCA6Bu ^ site * 0x27D4EB2Fu ^
-                              (unsigned)(clock64() >> 14));
-    const unsigned hw = mix32(hb ^ (threadIdx.x >> 5) * 0xC2B2AE35u);
-    __nanosleep(((hb & 3u) == 0u ? 16000u : 0u) + (hw & 2047u));
-  }
-}
 
 // K1's node fields, as the wrapper passes them
 struct K1Fields {
@@ -1018,31 +985,6 @@ place_bulk_batch_kernel(const float* __restrict__ capacity, float* used0,
   cl.sync();    // no block exits while another reads its shared memory
 }
 
-bool jitter_on = false;   // place_bulk_set_jitter's seed is not 0
-
-template <class... ExpTypes, class... Args>
-cudaError_t cluster_launch(void (*kernel)(ExpTypes...), size_t smem,
-                           cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER, 1, 1);
-  cfg.blockDim = dim3(NT, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 // dynamic shared memory of a launch over n rows: the key buffers, and
 // the wave-start scores and instances taken where a thread's slice fits
 // CUR_SLOTS rows
@@ -1060,13 +1002,7 @@ extern "C" int place_bulk_cluster_size() { return CLUSTER; }
 // kernels without the delay sites).  A check's setting: no other host
 // thread may launch K1/K4 meanwhile.
 extern "C" int place_bulk_set_jitter(int seed, void* stream) {
-  const unsigned v = (unsigned)seed;
-  jitter_on = v != 0u;
-  cudaError_t err = cudaMemcpyToSymbolAsync(c_jitter, &v, sizeof(v), 0,
-                                            cudaMemcpyHostToDevice,
-                                            (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaStreamSynchronize((cudaStream_t)stream);
+  return (int)set_jitter(seed, (cudaStream_t)stream);
 }
 
 extern "C" int place_bulk_launch(const float* capacity, const float* used0,
@@ -1081,8 +1017,8 @@ extern "C" int place_bulk_launch(const float* capacity, const float* used0,
     return (int)cudaErrorInvalidValue;
   return (int)cluster_launch(
       jitter_on ? &place_bulk_kernel<true> : &place_bulk_kernel<false>,
-      smem_for(n), (cudaStream_t)stream, capacity, used0,
-      feasible, affinity, has_affinity, desired, penalty, coll0, demand,
+      CLUSTER, NT, SMEM_MAX, smem_for(n), (cudaStream_t)stream, capacity,
+      used0, feasible, affinity, has_affinity, desired, penalty, coll0, demand,
       count, spread, max_waves, fill_grid, n, out, scratch);
 }
 
@@ -1098,7 +1034,7 @@ extern "C" int place_bulk_batch_launch(const float* capacity, float* used0,
   return (int)cluster_launch(
       jitter_on ? &place_bulk_batch_kernel<true>
                 : &place_bulk_batch_kernel<false>,
-      smem_for(n), (cudaStream_t)stream, capacity,
+      CLUSTER, NT, SMEM_MAX, smem_for(n), (cudaStream_t)stream, capacity,
       used0, heavy, dyn, E, n, D, sparse, spread, max_waves, fill_grid,
       exact_out, used, out, scratch);
 }

@@ -48,8 +48,10 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
         "place_bulk_set_jitter": [_I, _P],
     },
     "place_scan": {
-        "place_scan_launch": [_P] * 18 + [_I] * 6 + [_P] * 6,
-        "place_batch_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P] * 6,
+        "place_scan_launch": [_P] * 18 + [_I] * 6 + [_P] * 7,
+        "place_batch_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P] * 7,
+        "place_scan_cluster_size": [],
+        "place_scan_set_jitter": [_I, _P],
     },
     "world_scatter": {
         # (segment records, their count, stream)

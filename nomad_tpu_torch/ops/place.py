@@ -60,8 +60,12 @@ BULK_SMEM_ROWS = 16384
 BULK_MAX_ROWS = 1 << 24
 # keys one selection round of K1/K4 takes (csrc/place_bulk.cu KMAX)
 BULK_KMAX = 2048
-# the scan kernel keeps per-spread statistics in shared memory
+# the scan kernel lists a group's active spreads in shared memory
+# (csrc/place_scan.cu MAXK)
 SCAN_MAX_SPREADS = 64
+# rows a K2/K3 cluster block caches in shared memory; past them the cache
+# is in the global scratch (csrc/place_scan.cu SMEM_ROWS)
+SCAN_SMEM_ROWS = 16384
 
 # kernel launches per wrapper (the plain versions never count)
 launches = {"place_bulk": 0, "place_scan": 0, "place_batch": 0,
@@ -324,6 +328,23 @@ def _device_of(t: torch.Tensor) -> torch.device:
     return dev
 
 
+def _scan_scratch(lib, G: int, N: int, K: int, Vp1: int,
+                  dev: torch.device) -> Tuple[torch.Tensor, ...]:
+    """K2/K3's device scratch: the eval's tg_count and place_cap
+    (i32[G, N]); each cluster block's spread state (its copy of the
+    counts and desired counts, one group's boost tables, the spreads'
+    weights and flags) and the rows' cached scores, both used where the
+    block's shared memory does not hold them (csrc/place_scan.cu
+    spread_floats, SMEM_SPREAD, SMEM_ROWS)."""
+    i32, f32 = torch.int32, torch.float32
+    blocks = lib.place_scan_cluster_size()
+    spread = (2 * G + 1) * K * Vp1 + 2 * G * K
+    return (torch.empty((G, N), dtype=i32, device=dev),
+            torch.empty((G, N), dtype=i32, device=dev),
+            torch.empty((blocks, spread), dtype=f32, device=dev),
+            torch.empty((3, N), dtype=f32, device=dev))
+
+
 def place_eval_packed(inp: PlaceInputs, spread_algorithm: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 wrapper: (packed f32[S, 5 + 2*TOP_K], used f32[N, R]).  CUDA
@@ -357,9 +378,7 @@ def place_eval_packed(inp: PlaceInputs, spread_algorithm: bool = False
     lib = _build.load("place_scan")
     packed = torch.empty((S, PACKED_WIDTH), dtype=torch.float32, device=dev)
     used = torch.empty((N, R), dtype=torch.float32, device=dev)
-    tg_count = torch.empty((G, N), dtype=torch.int32, device=dev)
-    place_cap = torch.empty((G, N), dtype=torch.int32, device=dev)
-    counts = torch.empty((G, K, Vp1), dtype=torch.float32, device=dev)
+    tg_count, place_cap, spread, rows = _scan_scratch(lib, G, N, K, Vp1, dev)
     rc = lib.place_scan_launch(
         _ptr(inp.capacity), _ptr(inp.used), _ptr(inp.feasible),
         _ptr(inp.affinity), _ptr(inp.has_affinity), _ptr(inp.desired_count),
@@ -370,7 +389,7 @@ def place_eval_packed(inp: PlaceInputs, spread_algorithm: bool = False
         _ptr(inp.slot_tg), _ptr(inp.slot_active),
         G, N, K, Vp1, S, int(bool(spread_algorithm)),
         _ptr(packed), _ptr(used), _ptr(tg_count), _ptr(place_cap),
-        _ptr(counts), _stream(dev))
+        _ptr(spread), _ptr(rows), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"place_scan kernel launch failed: CUDA error {rc}")
     launches["place_scan"] += 1
@@ -936,17 +955,395 @@ def place_batch_packed(capacity: torch.Tensor, used0: torch.Tensor,
     lib = _build.load("place_scan")
     packed = torch.empty((E, S, PACKED_WIDTH), dtype=f32, device=dev)
     used = torch.empty((N, R), dtype=f32, device=dev)
-    tg_count = torch.empty((G, N), dtype=torch.int32, device=dev)
-    place_cap = torch.empty((G, N), dtype=torch.int32, device=dev)
-    counts = torch.empty((G, K, Vp1), dtype=f32, device=dev)
+    tg_count, place_cap, spread, rows = _scan_scratch(lib, G, N, K, Vp1, dev)
     rc = lib.place_batch_launch(
         _ptr(capacity), _ptr(used0), _ptr(heavy), _ptr(dyn), E, G, N, K,
         Vp1, S, D, int(bool(spread_algorithm)), _ptr(packed), _ptr(used),
-        _ptr(tg_count), _ptr(place_cap), _ptr(counts), _stream(dev))
+        _ptr(tg_count), _ptr(place_cap), _ptr(spread), _ptr(rows),
+        _stream(dev))
     if rc != 0:
         raise RuntimeError(f"place_batch kernel launch failed: CUDA error {rc}")
     launches["place_batch"] += 1
     return packed, used
+
+
+# --------------------------------------------------------------------------
+# K2/K3's cached step: a model for the tests
+# --------------------------------------------------------------------------
+
+def _partial_scores(inp: PlaceInputs, g: int, d: torch.Tensor,
+                    used: torch.Tensor, tg_count: torch.Tensor,
+                    place_cap: torch.Tensor, spread_algorithm: bool):
+    """The scoring stack of `place_eval_plain` up to the spread term, on
+    every row, in its order: (partial f32[N], fit f32[N], feasible
+    bool[N], fits bool[N], scorers f32[N])."""
+    f32 = torch.float32
+    feas = inp.feasible[g] & (place_cap[g] != 0)
+    util = used + d
+    fits = torch.all(util <= inp.capacity, dim=-1) & feas
+    fit_score = score_fit(inp.capacity, util, spread_algorithm) * FIT_NORM
+    total = fit_score
+    n_scorers = torch.ones_like(fit_score)
+    coll = tg_count[g].to(f32)
+    anti = -(coll + 1.0) / torch.clamp(inp.desired_count[g].to(f32), min=1.0)
+    has_coll = coll > 0.0
+    total = total + torch.where(has_coll, anti, torch.zeros_like(anti))
+    n_scorers = n_scorers + has_coll.to(f32)
+    pen = inp.penalty[g].to(f32)
+    total = total - pen
+    n_scorers = n_scorers + pen
+    aff = inp.affinity[g]
+    aff_on = inp.has_affinity[g] & (aff != 0.0)
+    total = total + torch.where(aff_on, aff, torch.zeros_like(aff))
+    n_scorers = n_scorers + aff_on.to(f32)
+    return total, fit_score, feas, fits, n_scorers
+
+
+def _boost_tables(inp: PlaceInputs, g: int, counts: torch.Tensor):
+    """[(k, f32[V+1])]: for each active spread of group `g`, in order, the
+    boost `_spread_boost` gives a row of each value index (V = missing),
+    from the counts f32[K, V+1]."""
+    Vp1 = counts.shape[1]
+    V = Vp1 - 1
+    big = torch.tensor(3.4e38, dtype=torch.float32)
+    missing = torch.arange(Vp1) >= V
+    out = []
+    for k in torch.nonzero(inp.spread_active[g]).flatten().tolist():
+        cur = counts[k]
+        des = inp.spread_desired[g, k]
+        neg1 = torch.full_like(cur, -1.0)
+        t = torch.where(missing, neg1, torch.where(
+            des >= 0.0, (des - (cur + 1.0)) / torch.clamp(des, min=1e-9)
+            * inp.spread_wfrac[g, k], neg1))
+        placed = cur[:V] > 0.0
+        minc = torch.min(torch.where(placed, cur[:V], big))
+        maxc = torch.max(torch.where(placed, cur[:V], -big))
+        minc_ = torch.clamp(minc, min=1e-9)
+        e = torch.where(cur != minc, (minc - cur) / minc_,
+                        torch.where(minc == maxc, neg1,
+                                    ((maxc - minc) / minc_).expand_as(cur)))
+        e = torch.where(missing, neg1, e)
+        e = torch.where(torch.any(placed), e, torch.zeros_like(cur))
+        out.append((k, torch.where(inp.spread_targeted[g, k], t, e)))
+    return out
+
+
+def _cluster_top_k(masked: torch.Tensor, blocks: int):
+    """lax.top_k(masked, TOP_K) as the kernel forms it: each block's
+    top-5 of its contiguous rows, then the top-5 of those lists."""
+    N = masked.shape[0]
+    rb = -(-N // blocks)
+    vals, rows = [], []
+    for b in range(blocks):
+        lo, hi = min(N, b * rb), min(N, (b + 1) * rb)
+        if hi > lo:
+            v, i = _lax_top_k(masked[lo:hi], min(TOP_K, hi - lo))
+            vals.append(v)
+            rows.append(i + lo)
+    vals, rows = torch.cat(vals), torch.cat(rows)
+    by_row = torch.argsort(rows)
+    vals, rows = vals[by_row], rows[by_row]
+    order = torch.sort(vals, descending=True, stable=True).indices[:TOP_K]
+    return vals[order], rows[order]
+
+
+def _scan_eval_model(inp: PlaceInputs, used: torch.Tensor,
+                     spread_algorithm: bool, blocks: int, stats: dict):
+    """One eval of the cached step (csrc/place_scan.cu `scan_eval`) on
+    CPU tensors; returns (packed f32[S, PACKED_WIDTH], used)."""
+    f32 = torch.float32
+    N = inp.capacity.shape[0]
+    S = inp.demand.shape[0]
+    V = inp.spread_counts.shape[-1] - 1
+    used = used.clone()
+    tg_count = inp.tg_count.clone()
+    place_cap = inp.place_cap.clone()
+    counts = inp.spread_counts.clone()
+    out = torch.empty((S, PACKED_WIDTH), dtype=f32)
+    cache_key, cache, prev = None, None, -1
+    for s in range(S):
+        if not bool(inp.slot_active[s]):
+            out[s, :5] = torch.tensor([-1.0, 0.0, 0.0, 0.0, 0.0])
+            out[s, 5:5 + TOP_K] = torch.arange(TOP_K, dtype=f32)
+            out[s, 5 + TOP_K:] = float("-inf")
+            prev = -1
+            continue
+        g = int(inp.slot_tg[s])
+        d = inp.demand[s]
+        key = (g, d.numpy().tobytes())
+        if key != cache_key:
+            # a new eval, group or demand: every row
+            cache = list(_partial_scores(inp, g, d, used, tg_count,
+                                         place_cap, spread_algorithm))
+            cache_key = key
+            stats["full"] = stats.get("full", 0) + 1
+        part, fit, feas, fits, n_sc = cache
+        sb = torch.zeros(N, dtype=f32)
+        tables = _boost_tables(inp, g, counts[g])
+        for k, tab in tables:
+            sb = sb + tab[torch.clamp(inp.spread_vidx[g, k].long(), max=V)]
+        sb_on = sb != 0.0
+        total = part + torch.where(sb_on, sb, torch.zeros_like(sb))
+        masked = torch.where(fits, total / (n_sc + sb_on.to(f32)),
+                             torch.full_like(total, float("-inf")))
+        top_s, top_n = _cluster_top_k(masked, blocks)
+        sel = int(top_n[0])
+        ok = bool(top_s[0] > float("-inf"))
+        out[s, 0] = float(sel) if ok else -1.0
+        out[s, 1] = top_s[0] if ok else 0.0
+        out[s, 2] = fit[sel] if ok else 0.0
+        out[s, 3] = float(torch.sum(feas))
+        out[s, 4] = float(torch.sum(feas & ~fits))
+        out[s, 5:5 + TOP_K] = top_n.to(f32)
+        out[s, 5 + TOP_K:] = top_s
+        if ok:
+            for k, _ in tables:
+                v = int(inp.spread_vidx[g, k, sel])
+                if v < V:
+                    counts[g, k, v] += 1.0
+            # the reference adds 0 to the row at every slot but the one
+            # that picked it: once before this update unless it was the
+            # previous slot's pick
+            base = used[sel] + 0.0 if s > 0 and prev != sel else used[sel]
+            used[sel] = base + d
+            tg_count[g, sel] += 1
+            if place_cap[g, sel] > 0:
+                place_cap[g, sel] -= 1
+            # the picked row alone takes its new partial (computed with the
+            # vector arithmetic: torch's CPU pow rounds a one-element
+            # tensor differently from a long one)
+            new = _partial_scores(inp, g, d, used, tg_count, place_cap,
+                                  spread_algorithm)
+            for c, x in zip(cache, new):
+                c[sel] = x[sel]
+            stats["rows"] = stats.get("rows", 0) + 1
+        prev = sel if ok else -1
+    if S > 0:
+        # the last slot's `+ 0` on every row but its pick
+        keep = torch.arange(N) == prev
+        used = torch.where(keep[:, None], used, used + 0.0)
+    return out, used
+
+
+def place_eval_cached_model(inp: PlaceInputs, spread_algorithm: bool = False,
+                            blocks: int = 8, stats: Optional[dict] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model of K2's cached step (csrc/place_scan.cu), used only by the
+    tests, which hold it bit-equal to `place_eval_plain`.  Each row keeps
+    its partial score (the stack up to the spread term), fit, scorer
+    count and flags; every row is rescored at the eval's first active
+    slot and when a slot's group or demand differs from the last active
+    slot's, otherwise only the picked row after its carry update; the
+    spread term comes from per-value boost tables; the top-5 is merged
+    from `blocks` blocks' lists; the `+ 0` the reference adds to every
+    row is applied only where it changes a bit.  `stats` counts full
+    rescores ("full") and single-row rescores ("rows")."""
+    return _scan_eval_model(inp, inp.used, spread_algorithm, blocks,
+                            {} if stats is None else stats)
+
+
+def place_batch_cached_model(capacity: torch.Tensor, used0: torch.Tensor,
+                             heavy: torch.Tensor, dyn: torch.Tensor,
+                             dims: Tuple[int, ...],
+                             spread_algorithm: bool = False, blocks: int = 8,
+                             stats: Optional[dict] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model of K3 (csrc/place_scan.cu) for the tests, which hold it
+    bit-equal to `place_batch_packed_plain`: each eval's deltas added by
+    row, at the row's first delta, in list order (rows outside [0, N)
+    dropped), then `place_eval_cached_model`'s scan."""
+    G, N, K, Vp1, S, D = dims
+    R = capacity.shape[1]
+    E = heavy.shape[0]
+    light = dyn.reshape(E, -1)
+    stats = {} if stats is None else stats
+    used = used0.clone()
+    outs = []
+    for e in range(E):
+        f = _unpack_heavy(heavy[e], G, N, K, Vp1)
+        demand, slot_tg, slot_active, rows, vals = \
+            _unpack_light(light[e], S, R, D)
+        rl = rows.tolist()
+        for k, r in enumerate(rl):
+            if 0 <= r < N and r not in rl[:k]:
+                for j in range(k, D):
+                    if rl[j] == r:
+                        used[r] = used[r] + vals[j]
+        inp = PlaceInputs(capacity=capacity, used=used, demand=demand,
+                          slot_tg=slot_tg, slot_active=slot_active, **f)
+        packed, used = _scan_eval_model(inp, used, spread_algorithm, blocks,
+                                        stats)
+        outs.append(packed)
+    return torch.stack(outs), used
+
+
+def _case_world(rng, n: int):
+    """Capacity and usage of n rows (integer sizes, as real nodes have)."""
+    cap = np.zeros((n, 4), np.float32)
+    cap[:, 0] = rng.choice([2000, 4000, 8000], n)
+    cap[:, 1] = rng.choice([4096, 8192, 16384], n)
+    cap[:, 2:] = [100000, 1000]
+    used = np.zeros((n, 4), np.float32)
+    used[:, 0] = rng.integers(0, 8, n) * 100
+    used[:, 1] = rng.integers(0, 8, n) * 256
+    return cap, used
+
+
+def _case_eval(rng, cap, used, g: int, s: int, k: int, v: int) -> dict:
+    """One eval's fields (numpy) with every scoring feature on."""
+    n = cap.shape[0]
+    desired = np.full((g, k, v + 1), -1.0, np.float32)
+    counts = np.zeros((g, k, v + 1), np.float32)
+    counts[..., :v] = rng.integers(0, 3, (g, k, v))
+    demand = np.zeros((s, 4), np.float32)
+    demand[:, :2] = [300, 512]
+    return dict(
+        capacity=cap, used=used, feasible=rng.random((g, n)) < 0.9,
+        affinity=rng.choice(np.array([-1.0, -0.5, 0.0, 0.0, 0.5, 1.0],
+                                     np.float32), (g, n)),
+        has_affinity=rng.random(g) < 0.5,
+        desired_count=rng.integers(1, 20, g).astype(np.int32),
+        penalty=rng.random((g, n)) < 0.05,
+        tg_count=(rng.random((g, n)) < 0.1).astype(np.int32),
+        spread_vidx=rng.integers(0, v + 1, (g, k, n)).astype(np.int32),
+        spread_desired=desired, spread_targeted=np.zeros((g, k), bool),
+        spread_wfrac=rng.choice(np.array([0.25, 0.5, 1.0], np.float32),
+                                (g, k)),
+        spread_counts=counts, spread_active=np.ones((g, k), bool),
+        place_cap=np.full((g, n), -1, np.int32), demand=demand,
+        slot_tg=np.zeros(s, np.int32), slot_active=np.ones(s, bool))
+
+
+def scan_model_cases(seed: int = 0) -> list:
+    """The edge cases of K2/K3's cached step, which the tests and
+    chip_smoke.py hold the model and the kernels to: [(label, evals,
+    deltas)], `evals` one chain's fields (numpy, one world; K2 takes the
+    first), `deltas` each eval's [(row, f32[R])].  Most share one shape
+    (3 groups, 3 spreads over 6 values, 24 slots, 61 rows: not a
+    multiple of the cluster's 8 blocks), so that the reference compiles
+    them once."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    n, g3, s24, k3, v6 = 61, 3, 24, 3, 6
+
+    def add(label, evals, deltas=None):
+        cases.append((label, evals, deltas or [[] for _ in evals]))
+
+    def one_spread(f):
+        f["spread_active"][:, 1:] = False
+        return f
+
+    cap, used = _case_world(rng, n)
+    new = lambda c=cap, u=used: _case_eval(rng, c, u, g3, s24, k3, v6)  # noqa
+
+    f = one_spread(new())
+    f["slot_tg"][:] = [0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 1, 1] * 2
+    f["demand"][2:4, :2] = [500, 256]          # demand changes, group 0
+    f["demand"][4:7, :2] = [100, 1024]
+    f["demand"][10:15, 0] = 200
+    add("group and demand change mid-scan", [f, f])
+
+    f = new()
+    f["slot_active"][:] = [1, 1, 0, 1, 0, 0, 1, 1, 1, 0, 1, 1] * 2
+    f["slot_tg"][:] = [0, 0, 1, 0, 1, 1, 0, 0, 1, 0, 0, 2] * 2
+    add("inactive slots between active ones", [f, f])
+
+    # four row classes, identical within a class, spread over the blocks:
+    # the fifth place always ties with rows past it
+    cls = rng.permutation(np.repeat(np.arange(4), [3, 4, 25, n - 32]))
+    cc = np.array([[4000, 8192], [8000, 16384], [4000, 4096],
+                   [2000, 8192]], np.float32)
+    cu = np.array([[1200, 2048], [800, 512], [0, 0], [400, 1024]],
+                  np.float32)
+    tcap, tused = cap.copy(), used.copy()
+    tcap[:, :2], tused[:, :2] = cc[cls], cu[cls]
+    f = one_spread(new(tcap, tused))
+    f["feasible"][:] = True
+    f["affinity"][0] = np.array([0.5, 0.0, -0.5, 1.0], np.float32)[cls]
+    f["penalty"][:] = False
+    f["tg_count"][:] = 0
+    f["spread_vidx"][0, 0] = cls % 3
+    add("ties at the top-5 boundary", [f, f])
+
+    f = one_spread(new())
+    f["feasible"][:] = False
+    f["feasible"][0, [7, 30, 58]] = True
+    f["place_cap"][0, [7, 30, 58]] = 1
+    add("fewer than 5 rows fit", [f, f])
+
+    f = one_spread(new())
+    f["place_cap"][0] = rng.choice(np.array([-1, 0, 1, 2], np.int32), n,
+                                   p=[0.4, 0.1, 0.3, 0.2])
+    f["demand"][:, :2] = [100, 256]
+    add("place_cap reaching 0", [f, f])
+
+    f = new()
+    f["spread_counts"][0, 0, :v6] = 2.0        # even spread, min == max
+    f["spread_counts"][1] = 0.0                # nothing placed yet
+    f["spread_targeted"][:, 1] = True
+    f["spread_desired"][:, 1, :v6] = rng.integers(0, 6, (g3, v6))
+    f["spread_active"][:, 2] = False
+    f["spread_vidx"][:, :, ::4] = v6           # missing attribute
+    f["slot_tg"][:] = [0, 1] * 12
+    add("spreads: min == max, targeted, missing attribute", [f, f])
+
+    f = new()
+    f["spread_targeted"][1] = [True, False, True]
+    f["spread_desired"][1, :, :v6] = rng.integers(0, 6, (k3, v6))
+    f["spread_active"][2, 1] = False
+    f["slot_tg"][:] = rng.integers(0, g3, s24)
+    f["demand"][:, :2] = rng.integers(1, 6, (s24, 2)) * [100, 256]
+    add("mixed: three groups, three spreads", [f, f])
+
+    f = one_spread(new())
+    f["feasible"][:] = True
+    f["spread_vidx"][0, 0] = np.arange(n) % 5
+    f["demand"][:, :2] = [100, 256]
+    add("rack spread (one group, one demand)", [f, f])
+
+    # deltas on a repeated row, on rows past N, and ones that cancel (a
+    # negative row the reference wraps, as JAX indexes, and the port drops;
+    # no caller packs one), on rows whose cpu usage is -0.0
+    du = used.copy()
+    du[::3, 0] = -0.0
+    evals, deltas = [], []
+    for e in range(3):
+        evals.append(new(cap, du))
+        r = 3 * int(rng.integers(0, n // 3))
+        v = np.array([100, 256, 0, 0], np.float32)
+        deltas.append([(r, v), (n, v), (r, 2 * v), (n + 5, v),
+                       ((r + 1) % n, v), ((r + 1) % n, -v), (r, -v)])
+    add("deltas: repeated rows, rows past N", evals, deltas)
+
+    # -0.0 usages, and -0.0 demands on the dims they leave at 0
+    zu = used.copy()
+    zu[:, 2:] = -0.0
+    zu[::3, 0] = -0.0
+    for s in (1, s24):
+        f = one_spread(_case_eval(rng, cap, zu, g3, s, k3, v6))
+        f["demand"][:, 2:] = -0.0
+        f["demand"][:, :2] = [0, 2048]
+        f["penalty"][:] = False
+        add(f"-0.0 usages, S = {s}", [f, f])
+
+    f = _case_eval(rng, cap, used, 2, 8, 2, 1500)
+    f["slot_tg"][:] = [0, 0, 1, 1, 0, 1, 1, 0]
+    add("1,500 spread values (the state past shared memory)", [f, f])
+
+    cap5, used5 = _case_world(rng, 5)
+    used5[1] = -0.0
+    add("N = 5 rows", [_case_eval(rng, cap5, used5, 1, 7, 1, 3)] * 2)
+    return cases
+
+
+def scan_case_batch(evals, deltas, D: int = 8):
+    """One case's K3 inputs (numpy): (capacity, used0, heavy, dyn, dims)."""
+    inps = [PlaceInputs(**f) for f in evals]
+    heavy = np.stack([pack_heavy(i) for i in inps])
+    dyn = np.concatenate([pack_light(i, d, D) for i, d in zip(inps, deltas)])
+    G, N, K, Vp1 = heavy_dims(inps[0])
+    return (evals[0]["capacity"], evals[0]["used"], heavy, dyn,
+            (G, N, K, Vp1, inps[0].demand.shape[0], D))
 
 
 # --------------------------------------------------------------------------
