@@ -6,7 +6,8 @@
 Phases, all run in this order:
   build    compile every CUDA kernel from nomad_tpu_torch/csrc (one nvcc
            per source, all started together), print nvcc's register
-           and spill report and K1/K4's cluster size
+           and spill report (K6's as one line, failing on a stack frame)
+           and K1/K4's cluster size
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the main path gives it (N = 16,384 node rows, the
            bucket of a 10,000-node cluster): integer outputs equal, float
@@ -35,7 +36,10 @@ Phases, all run in this order:
            131,072 rows and past the rows its cluster caches in shared
            memory; then at 32,768 and 131,072 rows (20,000- and
            100,000-node clusters, K4 also on a fresh cluster where
-           every ready row is in the wave), and the stage probe's units
+           every ready row is in the wave), K6 on every shape of
+           PREEMPT_SHAPES (A = 4 to 64, R = 3, +inf and NaN distances;
+           its time there both as the wrapper call and as the kernel
+           alone, from the profiler), and the stage probe's units
            K8a-K8f at the bench's shape (N = 10,000, M = 16, R = 4),
            each against its plain version, K8f also against the
            K8a->K8e kernel chain.
@@ -72,7 +76,9 @@ Phases, all run in this order:
            preempting; 16 workers): all 500 committed, every victim
            evicted and at least 10 priority below its preemptor, a
            preemption eval for each victim's job, K6 launched in that
-           window; in both, every eval a worker failed failed at the
+           window, and the window's find split (FindSplit: each find's
+           uploads, K6 launch and reads on the host clock); in both,
+           every eval a worker failed failed at the
            scheduler's attempt limit and at nothing else (a kernel's
            launch error would count there); after each (idle, or
            stopped), committed usage equals the live allocs' sum within
@@ -183,6 +189,28 @@ def time_burst(fn, n: int = 50, reps: int = 5, warmup: int = 3) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e) / n)
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, name: str, n: int = 20) -> float:
+    """Mean device time in ms of the CUDA kernels whose name holds
+    `name`, over n calls of fn() under torch.profiler (CUDA activity):
+    the kernel alone, without the host work between a CUDA-event pair
+    around its wrapper.  NaN when the profiler records no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total += (getattr(ev, "device_time_total", 0.0)
+                      or getattr(ev, "cuda_time_total", 0.0))
+            count += ev.count
+    return total / count / 1e3 if count else float("nan")
 
 
 def host_us(fn, n: int = 2000, reps: int = 5) -> float:
@@ -337,6 +365,9 @@ def phase_build():
     log(f"build: {len(logs)} kernels in {time.time() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, text in logs.items():
+        if name == "preempt":
+            preempt_ptxas(text)
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
@@ -345,6 +376,40 @@ def phase_build():
         f"K2/K3 one of "
         f"{_build.load('place_scan').place_scan_cluster_size()}, "
         f"x 1024 threads")
+
+
+def preempt_ptxas(text):
+    """K6's ptxas report, one line for its 48 instantiations (R = 1..8
+    times 1..32 slots a lane): registers and stack frame of each, which
+    must be 0 bytes (the node's state in registers)."""
+    import re
+    frames, regs = {}, {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            frames[name] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    kernels = {k: v for k, v in frames.items() if "preempt_kernel" in k}
+    if not kernels:
+        log("  preempt: no ptxas report (the library was built before)")
+        return
+    shape = lambda k: "R={}, SL={}".format(        # noqa: E731
+        *re.search(r"ILi(\d+)ELi(\d+)E", k).groups())
+    path = [regs.get(k) for k in kernels if shape(k) == "R=4, SL=1"]
+    log(f"  preempt: {len(kernels)} kernels, stack frame "
+        f"{min(kernels.values())}-{max(kernels.values())} bytes, registers "
+        f"{min(regs[k] for k in kernels)}-{max(regs[k] for k in kernels)} "
+        f"(R=4, SL=1, the path's: {path[0] if path else 'n/a'})")
+    big = {shape(k): v for k, v in kernels.items() if v > 0}
+    if big:
+        raise AssertionError(f"preempt: stack frames {big} (the state must "
+                             f"stay in registers)")
 
 
 def _bulk_call(fn, a, dev):
@@ -875,9 +940,11 @@ def select_k4_inputs(seed, n_rows, n_nodes, counts, desired=None,
     """A K4 chain for the selection cases: one eval per entry of
     `counts` (0 is a pad), each with random feasibility, 20
     co-placements unless desired is 1, and deltas on odd evals: three
-    random ones, a pair that cancels (+v then -v on one row) and one
-    that takes a row's usage to exactly 0.  negzero: every 7th node's
-    usage (and the padding rows') -0.0."""
+    random ones, a pair that cancels (+v then -v on one row), one that
+    takes a row's usage to exactly 0, and rows -1 and -n_rows (which the
+    reference takes as n_rows - 1 and 0), -n_rows - 1 and n_rows (which
+    it drops).  negzero: every 7th node's usage (and the padding rows')
+    -0.0."""
     from nomad_tpu_torch.ops import place as tp
     rng = np.random.default_rng(seed)
     a = bulk_inputs(seed, not fractional_nodes, n_rows, n_nodes)
@@ -899,7 +966,8 @@ def select_k4_inputs(seed, n_rows, n_nodes, counts, desired=None,
             deltas = _deltas(rng, 3, n_nodes)
             r, r0 = (int(x) for x in rng.choice(n_nodes, 2, replace=False))
             v = np.array([300, 512, 0, 0], np.float32)
-            deltas += [(r, v), (r, -v), (r0, -a["used"][r0])]
+            deltas += [(r, v), (r, -v), (r0, -a["used"][r0]),
+                       (-1, v), (-n_rows, v), (-n_rows - 1, v), (n_rows, v)]
         d = count if desired is None else desired
         lights.append(tp.pack_bulk_light(False, max(d, 1), count,
                                           a["demand"], deltas, n_rows,
@@ -1281,14 +1349,19 @@ def stall_reading(label, mesh=None):
                 stall_stage_ms=med["stage"], stall_launch_ms=med["launch"])
 
 
-def preempt_inputs(seed: int, A: int = 16, R: int = 4, edge: bool = False):
+def preempt_inputs(seed: int, A: int = 16, R: int = 4, edge: bool = False,
+                   special: bool = False):
     """Seeded K6 inputs over N_ROWS rows (rows past N_NODES hold no
     candidate).  The path's shape: every node filled by nine identical
     420 MHz / 850 MB filler allocs, three at each of priorities 20, 30
-    and 40, with about 5% of its capacity free (bench.py
-    bench_preemption_heavy), against a 420 MHz / 850 MB ask.  edge: rows
-    already met, rows without a valid candidate, rows that cannot be met
-    and mixed candidate sizes, in turn."""
+    and 40 (the first A of them where A < 9), with about 5% of its
+    capacity free (bench.py bench_preemption_heavy), against a 420 MHz /
+    850 MB ask.  edge: rows already met, rows without a valid candidate,
+    rows that cannot be met and mixed candidate sizes, in turn.
+    special: in turn, rows whose lowest tier's distances are all +inf
+    behind two invalid candidates (so the reference picks off the tier,
+    an invalid candidate first), rows with NaN resources in the first
+    tier and the second, and path rows."""
     rng = np.random.default_rng(seed)
     n = N_NODES
     cap = np.array([4000, 8192, 102400, 1000][:R], np.float32)
@@ -1296,11 +1369,25 @@ def preempt_inputs(seed: int, A: int = 16, R: int = 4, edge: bool = False):
     res = np.zeros((N_ROWS, A, R), np.float32)
     prio = np.zeros((N_ROWS, A), np.int32)
     valid = np.zeros((N_ROWS, A), bool)
-    res[:n, :9] = one
-    prio[:n, :9] = np.repeat([20, 30, 40], 3)
-    valid[:n, :9] = True
+    k = min(A, 9)
+    res[:n, :k] = one
+    prio[:n, :k] = np.repeat([20, 30, 40], 3)[:k]
+    valid[:n, :k] = True
     rem = np.zeros((N_ROWS, R), np.float32)
     rem[:n] = cap - 9 * one
+    if special:
+        kind = np.arange(N_ROWS) % 3
+        live = np.arange(N_ROWS) < n
+        inf = live & (kind == 0)
+        valid[inf, :2] = False
+        res[inf, :2] = rng.choice([105.5, 210.0, 420.0],
+                                  size=(int(inf.sum()), 2, R))
+        res[inf, 2:6, 0] = 1e37            # (420 - 1e37)^2 / 420^2 = +inf
+        prio[inf, 2:6] = 10
+        nan = live & (kind == 1)
+        res[nan, 1, 1] = np.nan
+        res[nan, 2, 0] = np.nan
+        res[nan, 4, 0] = np.nan
     if edge:
         kind = np.arange(N_ROWS) % 4
         live = np.arange(N_ROWS) < n
@@ -1356,18 +1443,30 @@ def preempt_bound_ms(x, picked, met0, max_steps):
     return _bound(nbytes, ops)
 
 
+# K6's shapes: (label, preempt_inputs keywords, max_steps); max_steps is
+# the Preemptor's min(A, 32)
+PREEMPT_SHAPES = (("path shape", {}, 16),
+                  ("edge rows", {"edge": True}, 16),
+                  ("A=4", {"A": 4, "edge": True}, 4),
+                  ("A=8", {"A": 8, "edge": True}, 8),
+                  ("A=32", {"A": 32, "edge": True}, 32),
+                  ("A=64", {"A": 64, "edge": True}, 32),
+                  ("R=3", {"R": 3, "edge": True}, 16),
+                  ("inf and NaN rows", {"special": True}, 16))
+
+
 def check_preempt():
     """K6 against its plain version on the card, bit for bit in met,
-    picked and avail: the path's shape (N = 16,384, A = 16, R = 4,
-    max_steps = 16, ties on every node), the edge rows, A = 64 with
-    max_steps = 32, and R = 3; times at the path's shape."""
+    picked and avail, on every PREEMPT_SHAPES entry: the path's shape
+    (N = 16,384, A = 16, R = 4, max_steps = 16, ties on every node), the
+    edge rows at A = 16, 4, 8, 32 and 64 (one to 32 lanes a node, and two
+    slots a lane) and at R = 3, and rows whose tier's distances are +inf
+    or NaN; at each shape the wrapper call's time (CUDA events) and the
+    kernel's alone (the profiler), the plain version's at the path's."""
     import torch
     from nomad_tpu_torch.ops import preempt as tk
-    main_kern = main_plain = None
-    for label, kw, steps in (("path shape", {}, 16),
-                             ("edge rows", {"edge": True}, 16),
-                             ("A=64", {"A": 64, "edge": True}, 32),
-                             ("R=3", {"R": 3, "edge": True}, 16)):
+    times = {}
+    for label, kw, steps in PREEMPT_SHAPES:
         x = preempt_inputs(21, **kw)
         t = [torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in x]
         kern = lambda t=t, steps=steps: tk.preempt_for_task_group(
@@ -1388,8 +1487,11 @@ def check_preempt():
                 _bitwise(f"preempt {label} {nm}", g, w)
         met = got[0].cpu().numpy()
         picked = got[1].cpu().numpy()
+        avail = got[2].cpu().numpy()
         log(f"kernels: preempt {label}: {int(met.sum())} of {N_ROWS} rows "
-            f"met, {int(picked.sum())} victims picked, bit-equal")
+            f"met, {int(picked.sum())} victims picked, "
+            f"{int(np.isnan(avail).any(axis=1).sum())} rows with a NaN "
+            f"avail, bit-equal")
         if label == "path shape":
             if not met[:N_NODES].all() or \
                     not (picked[:N_NODES].sum(axis=1) == 1).all() or \
@@ -1400,10 +1502,27 @@ def check_preempt():
             main_kern, main_plain = kern, plain
             met0 = (x[3] >= x[4]).all(axis=1)
             bound, by = preempt_bound_ms(x, picked, met0, steps)
-    ms = time_cuda(main_kern)
+        if label == "inf and NaN rows":
+            kind = np.arange(N_NODES) % 3
+            # the +inf tier: an invalid candidate picked off the tier
+            if not picked[:N_NODES][kind == 0, 0].all():
+                raise AssertionError("preempt inf rows: candidate 0 (off "
+                                     "the +inf tier) must be picked")
+            # NaN wins at its lowest index
+            if not picked[:N_NODES][kind == 1, 1].all() or \
+                    met[:N_NODES][kind == 1].any():
+                raise AssertionError("preempt NaN rows: candidate 1 (the "
+                                     "first NaN) picked, never met")
+        times[label] = (time_cuda(kern),
+                        kernel_device_ms(kern, "preempt_kernel"))
+    ms, dev_ms = times["path shape"]
     plain_ms = time_cuda(main_plain)
     log(f"kernels: preempt N={N_ROWS} A=16 R=4 max_steps=16: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        f"{ms:.4f} ms (the wrapper call between CUDA events; the kernel "
+        f"alone {dev_ms:.4f} ms on the profiler), plain {plain_ms:.4f} ms, "
+        f"bound {bound:.6f} ms ({by})")
+    log("kernels: preempt times, call / kernel alone: " + "; ".join(
+        f"{label} {c:.4f} / {d:.4f} ms" for label, (c, d) in times.items()))
     return dict(name="preempt", route="cuda",
                 source="nomad_tpu_torch/csrc/preempt.cu",
                 replaces="nomad_tpu/ops/preempt.py:72",
@@ -2324,6 +2443,105 @@ def spine_e2e():
         s.stop()
 
 
+class FindSplit:
+    """What each Preemptor.find spends around K6 while installed, on the
+    host clock: its three blocking uploads (cand_valid, remaining and
+    demand, scheduler/preemption.py `find`), K6's launch (the wrapper
+    call) and its two reads (met and picked `.cpu()`, the first of
+    which waits for the kernel).  It swaps the preemption module's
+    `torch` for a proxy whose `from_numpy(...).to()` is timed and its
+    `preempt_for_task_group` for a wrapper whose outputs time `.cpu()`;
+    the calls themselves are unchanged.  Uploads a thread makes before
+    its find's three (the Preemptor's first build uploads its candidate
+    matrices) are kept apart."""
+
+    def __init__(self):
+        import threading
+        self.records = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _up(self, dt):
+        ups = getattr(self._local, "ups", None)
+        if ups is None:
+            ups = self._local.ups = []
+        ups.append(dt)
+
+    def install(self):
+        import torch
+        from nomad_tpu_torch.scheduler import preemption as pre
+        split = self
+
+        class Upload:
+            def __init__(self, t):
+                self._t = t
+
+            def to(self, *a, **k):
+                t0 = time.perf_counter()
+                out = self._t.to(*a, **k)
+                split._up(time.perf_counter() - t0)
+                return out
+
+        class Read:
+            def __init__(self, t, rec):
+                self._t, self._rec = t, rec
+
+            def cpu(self):
+                t0 = time.perf_counter()
+                out = self._t.cpu()
+                self._rec["read_s"] += time.perf_counter() - t0
+                return out
+
+        class Torch:
+            def __getattr__(self, name):
+                return getattr(torch, name)
+
+            def from_numpy(self, a):
+                return Upload(torch.from_numpy(a))
+
+        real = pre.preempt_for_task_group
+
+        def kernel(*args, **kw):
+            ups = getattr(self._local, "ups", [])
+            self._local.ups = []
+            t0 = time.perf_counter()
+            met, picked, avail = real(*args, **kw)
+            rec = dict(upload_s=sum(ups[-3:]), build_upload_s=sum(ups[:-3]),
+                       launch_s=time.perf_counter() - t0, read_s=0.0)
+            with self._lock:
+                self.records.append(rec)
+            return Read(met, rec), Read(picked, rec), avail
+
+        self._saved = (pre.torch, pre.preempt_for_task_group)
+        pre.torch, pre.preempt_for_task_group = Torch(), kernel
+
+    def uninstall(self):
+        from nomad_tpu_torch.scheduler import preemption as pre
+        pre.torch, pre.preempt_for_task_group = self._saved
+
+    def report(self, n, window, kernel_s):
+        """One line over the first n finds (the window's); kernel_s: K6's
+        device time in the window (the profiler's)."""
+        recs = self.records[:n]
+        if not recs:
+            return "no find"
+        parts = ("upload_s", "launch_s", "read_s")
+        med = {k: statistics.median(r[k] for r in recs) for k in parts}
+        tot = {k: sum(r[k] for r in recs) for k in parts}
+        around = sum(tot.values())
+        build = [r["build_upload_s"] for r in recs if r["build_upload_s"]]
+        return (f"{len(recs)} finds; medians: uploads "
+                f"{med['upload_s'] * 1e3:.4f} ms, K6 launch "
+                f"{med['launch_s'] * 1e3:.4f} ms, reads "
+                f"{med['read_s'] * 1e3:.4f} ms, sum "
+                f"{sum(med.values()) * 1e3:.4f} ms; sums: uploads "
+                f"{tot['upload_s']:.4f} s, launches {tot['launch_s']:.4f} s, "
+                f"reads {tot['read_s']:.4f} s, {around:.4f} s in all over "
+                f"the workers (K6 on the card {kernel_s:.6f} s) in the "
+                f"{window:.3f} s window; {len(build)} Preemptor builds "
+                f"uploaded their candidates in {sum(build):.4f} s")
+
+
 def spine_preemption():
     """bench.py bench_preemption_heavy's shape at full size: 10,000 nodes
     in 50 racks filled to ~95% by three batch jobs of count 30,000
@@ -2377,6 +2595,8 @@ def spine_preemption():
         _reset_counts()
         tk.launches["preempt"] = 0
         acked0 = s.broker.stats["acked"]
+        split = FindSplit()
+        split.install()
         # the device's share of the window, from the device time the
         # profiler records (kernels and copies; CUDA activity only: the
         # workers' host work is not traced)
@@ -2390,19 +2610,25 @@ def spine_preemption():
             _wait_for(lambda: s.broker.ready_count() == 0, 300,
                       "no ready eval")
             launches = {**_counts(), "preempt": tk.launches["preempt"]}
+            n_finds = len(split.records)
             evals = s.broker.stats["acked"] - acked0
             partial = s.applier.stats["partial"] - partial0
             torch.cuda.synchronize()
             window = time.perf_counter() - t0
-        dev_us = sum(getattr(ev, "device_time_total", 0.0)
-                     or getattr(ev, "cuda_time_total", 0.0)
-                     for ev in prof.key_averages())
+        dev = {ev.key: (getattr(ev, "device_time_total", 0.0)
+                        or getattr(ev, "cuda_time_total", 0.0))
+               for ev in prof.key_averages()}
+        dev_us = sum(dev.values())
+        k6_s = sum(v for k, v in dev.items() if "preempt_kernel" in k) / 1e6
         busy = (f"{dev_us / 1e6 / window:.5f}" if dev_us > 0
                 else "not measured (the profiler recorded no device time)")
         eng = s._engine
         t0 = time.perf_counter()
         s.stop()
         stop_s = time.perf_counter() - t0
+        split.uninstall()
+        log(f"spine preemption: the find split (host clock): "
+            f"{split.report(n_finds, window, k6_s)}")
         # the window's failures and those of the cascade that ran on
         # until the stop
         causes = _failures(workers) - failures0

@@ -88,6 +88,15 @@ __device__ __forceinline__ unsigned int orderable(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// The row a packed (value-encoded) delta row lands on, as the
+// reference's `used.at[rows].add(vals, mode="drop")` indexes it: JAX
+// counts a row in [-n, 0) from the end; any other row outside [0, n)
+// stays outside, for the caller to drop.  n is the usage matrix's rows.
+__device__ __forceinline__ int wrap_delta_row(float packed, int n) {
+  const int r = (int)packed;
+  return (r < 0 && r >= -n) ? r + n : r;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

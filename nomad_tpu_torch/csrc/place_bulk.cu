@@ -63,9 +63,11 @@
 // K4 per eval: read the light block (has_aff, desired, count, demand,
 // D delta rows and values) and the heavy row f32[4N] (feasible > 0.5,
 // affinity, penalty > 0.5, coll0 value-encoded); the owner of each
-// delta row adds that row's deltas (summed in their order from 0.0, as
-// the reference builds its delta matrix) to the chain carry and backs
-// them out after the eval's tail, so deltas stay scoped to their eval.
+// delta row (a row in [-n, 0) taken as row + n, as JAX indexes; other
+// rows outside [0, n) dropped) adds that row's deltas (summed in their
+// order from 0.0, as the reference builds its delta matrix) to the
+// chain carry and backs them out after the eval's tail, so deltas stay
+// scoped to their eval.
 // Rows without a delta see `used + 0.0` in the reference (a -0.0 usage
 // becomes +0.0): the passes that read every row anyway (the wave's row
 // pass, or the tail of an eval without a wave) write that back where it
@@ -908,14 +910,14 @@ place_bulk_batch_kernel(const float* __restrict__ capacity, float* used0,
     // this eval's deltas on this block's rows: each row's deltas summed
     // in their order from 0.0 (the reference's delta matrix), then added
     auto delta_row = [&](int k, float* dm) -> int {
-      const int r = (int)l[3 + R + k];
+      const int r = wrap_delta_row(l[3 + R + k], n);
       if (r < c.lo || r >= c.hi) return -1;
       for (int j = 0; j < k; ++j)
-        if ((int)l[3 + R + j] == r) return -1;   // summed at its first
+        if (wrap_delta_row(l[3 + R + j], n) == r) return -1;   // at its first
 #pragma unroll
       for (int d = 0; d < R; ++d) dm[d] = 0.0f;
       for (int j = k; j < D; ++j) {
-        if ((int)l[3 + R + j] != r) continue;
+        if (wrap_delta_row(l[3 + R + j], n) != r) continue;
 #pragma unroll
         for (int d = 0; d < R; ++d) dm[d] = dm[d] + l[3 + R + D + j * R + d];
       }

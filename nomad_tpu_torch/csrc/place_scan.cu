@@ -63,8 +63,8 @@
 //    exits while another reads its shared memory.
 //  - K3 adds each eval's deltas into the usage carry before its slots
 //    and keeps them (the reference's chain carries them on): each delta
-//    row's owner adds its deltas in list order, rows outside [0, N)
-//    dropped.
+//    row's owner adds its deltas in list order, a row in [-N, 0) taken
+//    as row + N (JAX's index), other rows outside [0, N) dropped.
 //  - The reference adds the carry to every row at every slot (0 to all
 //    but the picked row), which turns a -0.0 usage into +0.0; the scores
 //    do not see the sign of a zero, so the kernel adds 0 to a row only
@@ -813,13 +813,14 @@ place_batch_kernel(const float* __restrict__ capacity,
     const float* vals = rows + D;
     jitter<J>(15);
     for (int k = tid; k < D; k += NT) {
-      const int r = (int)rows[k];
+      const int r = wrap_delta_row(rows[k], c.N);
       if (r < c.lo || r >= c.hi) continue;
       bool first = true;
-      for (int j = 0; j < k && first; ++j) first = (int)rows[j] != r;
+      for (int j = 0; j < k && first; ++j)
+        first = wrap_delta_row(rows[j], c.N) != r;
       if (!first) continue;
       for (int j = k; j < D; ++j) {
-        if ((int)rows[j] != r) continue;
+        if (wrap_delta_row(rows[j], c.N) != r) continue;
 #pragma unroll
         for (int d = 0; d < R; ++d)
           used[(size_t)r * R + d] = used[(size_t)r * R + d] + vals[j * R + d];

@@ -887,9 +887,11 @@ def _unpack_light(l: torch.Tensor, S: int, R: int, D: int):
 def _scatter_add_rows(x: torch.Tensor, rows: torch.Tensor,
                       vals: torch.Tensor) -> torch.Tensor:
     """x.at[rows].add(vals, mode="drop"), deltas added one after another
-    in their order (rows outside [0, N) dropped); returns a new tensor."""
+    in their order; a row in [-N, 0) lands on row + N, as JAX indexes,
+    other rows outside [0, N) drop.  Returns a new tensor."""
     x = x.clone()
     N = x.shape[0]
+    rows = torch.where((rows < 0) & (rows >= -N), rows + N, rows)
     for k in torch.nonzero((rows >= 0) & (rows < N)).flatten().tolist():
         r = int(rows[k])
         x[r] = x[r] + vals[k]
@@ -1150,8 +1152,9 @@ def place_batch_cached_model(capacity: torch.Tensor, used0: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Model of K3 (csrc/place_scan.cu) for the tests, which hold it
     bit-equal to `place_batch_packed_plain`: each eval's deltas added by
-    row, at the row's first delta, in list order (rows outside [0, N)
-    dropped), then `place_eval_cached_model`'s scan."""
+    row, at the row's first delta, in list order (a row in [-N, 0) taken
+    as row + N, other rows outside [0, N) dropped), then
+    `place_eval_cached_model`'s scan."""
     G, N, K, Vp1, S, D = dims
     R = capacity.shape[1]
     E = heavy.shape[0]
@@ -1163,7 +1166,7 @@ def place_batch_cached_model(capacity: torch.Tensor, used0: torch.Tensor,
         f = _unpack_heavy(heavy[e], G, N, K, Vp1)
         demand, slot_tg, slot_active, rows, vals = \
             _unpack_light(light[e], S, R, D)
-        rl = rows.tolist()
+        rl = [r + N if -N <= r < 0 else r for r in rows.tolist()]
         for k, r in enumerate(rl):
             if 0 <= r < N and r not in rl[:k]:
                 for j in range(k, D):
@@ -1301,9 +1304,8 @@ def scan_model_cases(seed: int = 0) -> list:
     f["demand"][:, :2] = [100, 256]
     add("rack spread (one group, one demand)", [f, f])
 
-    # deltas on a repeated row, on rows past N, and ones that cancel (a
-    # negative row the reference wraps, as JAX indexes, and the port drops;
-    # no caller packs one), on rows whose cpu usage is -0.0
+    # deltas on a repeated row, on rows past N, and ones that cancel, on
+    # rows whose cpu usage is -0.0
     du = used.copy()
     du[::3, 0] = -0.0
     evals, deltas = [], []
@@ -1333,6 +1335,18 @@ def scan_model_cases(seed: int = 0) -> list:
     cap5, used5 = _case_world(rng, 5)
     used5[1] = -0.0
     add("N = 5 rows", [_case_eval(rng, cap5, used5, 1, 7, 1, 3)] * 2)
+
+    # negative delta rows (no caller packs one): the reference takes a row
+    # in [-N, 0) as row + N, as JAX indexes, and drops -N - 1 and N; -1
+    # and N - 1 are one row, as are r - N and r
+    evals, deltas = [], []
+    v = np.array([100, 256, 0, 0], np.float32)
+    for e in range(2):
+        evals.append(new())
+        r = int(rng.integers(1, n - 1))
+        deltas.append([(-1, v), (-n, 2 * v), (-n - 1, v), (n, v),
+                       (n - 1, -v), (r - n, v), (r, 3 * v)])
+    add("deltas: negative rows", evals, deltas)
     return cases
 
 

@@ -34,8 +34,8 @@ from nomad_tpu_torch.ops.place import _check, _ptr, _stream
 
 BIG = 3.4e38
 INT32_MAX = 2**31 - 1
-# the kernel keeps a node's picked set as 32 per-lane bit masks and its
-# needed/avail state in per-lane arrays of MAX_DIMS
+# the kernel gives a node at most one warp, 32 slots a lane (a bit mask),
+# and instantiates its register state for R = 1..MAX_DIMS
 MAX_CANDIDATES = 32 * 32
 MAX_DIMS = 8
 
