@@ -100,7 +100,14 @@ Phases, all run in this order:
            independent evals (N = 16,384) and in laned bulk chains
            (N = 16,384 and 131,072) checked bit for bit against its plain
            version, each function bit-equal to its plain form and equal
-           to the unsharded K2/K3/K4 in rows, counts and waves; K5' on
+           to the unsharded K2/K3/K4 in rows, counts and waves; K7e's
+           selection cases (tests/_sharded_cases.py, at N =
+           16,384, and count-512 evals at 131,072), every K7c-K7g call
+           checked, each case again under six seeds of the delays of
+           K7c's cluster exchange, and K7e alone on waves that tie +0.0
+           and -0.0; K7c's time a launch by kind (a begin with a wave, a
+           count-0 begin and tail, a wave), and every K7 time a launch;
+           K5' on
            every shard, every shard of a mesh in one launch, and the
            stall reading on a mesh world; then the engine phase's
            10,000-node stream on a (4, 2)
@@ -375,7 +382,8 @@ def phase_build():
         f"{_build.load('place_bulk').place_bulk_cluster_size()} blocks, "
         f"K2/K3 one of "
         f"{_build.load('place_scan').place_scan_cluster_size()}, "
-        f"x 1024 threads")
+        f"x 1024 threads; K7c one of "
+        f"{_build.load('sharded').bulk_stats_cluster_size()} blocks")
 
 
 def preempt_ptxas(text):
@@ -2885,30 +2893,54 @@ class K7Check:
         return call
 
     def timed(self, name, reps=20):
-        """(kernel ms, plain ms) of the kept step: its launches one after
-        another, the state restored before each step outside the timed
-        events (in reverse call order, so buffers the shards share end
-        as they were before the step's first call)."""
-        import torch
+        """(kernel ms, plain ms) a launch of the kept step (step_ms)."""
         calls = self.kept[name]
-        out = []
-        for fn in (self.orig[name], getattr(self.k7, name + "_plain")):
-            times = []
-            for r in range(reps + 2):
-                for _, state, before in reversed(calls):
-                    for t, b in zip(state, before):
-                        t.copy_(b)
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                for args, _, _ in calls:
-                    fn(*args)
-                e.record()
-                e.synchronize()
-                if r >= 2:
-                    times.append(s.elapsed_time(e))
-            out.append(statistics.median(times))
-        return out[0], out[1]
+        return (step_ms(calls, self.orig[name], reps),
+                step_ms(calls, getattr(self.k7, name + "_plain"), reps))
+
+    def device(self, name):
+        """The kernel alone, ms a launch over the kept step (profiler)."""
+        return step_device_ms(self.kept[name], self.orig[name],
+                              f"{name}_kernel")
+
+
+def restore(calls):
+    """The state of a step `calls` [(args, state, state before)] as it was
+    before it (restored in reverse call order, so buffers the shards
+    share end as they were before the step's first call)."""
+    for _, state, before in reversed(calls):
+        for t, b in zip(state, before):
+            t.copy_(b)
+
+
+def step_ms(calls, fn, reps=20):
+    """CUDA-event time a launch of fn over the step `calls` (its launches
+    one after another, over their count), median of `reps`, the state
+    restored before each repetition outside the timed events."""
+    import torch
+    times = []
+    for r in range(reps + 2):
+        restore(calls)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for args, _, _ in calls:
+            fn(*args)
+        e.record()
+        e.synchronize()
+        if r >= 2:
+            times.append(s.elapsed_time(e))
+    return statistics.median(times) / len(calls)
+
+
+def step_device_ms(calls, fn, kernel):
+    """The device time of the CUDA kernels named `kernel`, ms a launch,
+    over steps of fn (torch.profiler)."""
+    def step():
+        restore(calls)
+        for args, _, _ in calls:
+            fn(*args)
+    return kernel_device_ms(step, kernel)
 
 
 def _k7_work(name, args) -> tuple:
@@ -2948,11 +2980,12 @@ def _k7_work(name, args) -> tuple:
 
 
 def _k7_bound(name, calls) -> tuple:
-    """A K7 kernel's bound over the kept step's launches on all its
-    shards: their bytes over the card's memory rate, or their float
-    operations over its f32 rate, the larger."""
+    """A K7 kernel's bound a launch, over the kept step's launches on all
+    its shards: their bytes over the card's memory rate, or their float
+    operations over its f32 rate, the larger, over the launch count."""
     work = [_k7_work(name, args) for args, _, _ in calls]
-    return _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    bound, by = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    return bound / len(calls), by
 
 
 def shard_scan_chain(seeds, S, with_deltas, main_path=True):
@@ -3477,6 +3510,173 @@ def shard_load(shape, n_jobs=LOAD_JOBS, workers=48):
         stop_engines()
 
 
+def _shard_outputs(out):
+    import torch
+    return [x.cpu().numpy() for x in out[:6]] + \
+        [torch.cat(list(out[6])).cpu().numpy()]
+
+
+def check_shard_select(shape=(4, 2)):
+    """K7e's selection cases (tests/_sharded_cases.py: a tie wave
+    with more tied rows than `remaining`, strict waves at one score and
+    split across a shard boundary, a `remaining` of at least the wave,
+    scores of exactly 0.0, lane pads with deltas, repeated delta rows, a
+    usage row at +inf under deltas) at N = 16,384 on a mesh of the card
+    repeated: every K7c-K7g call checked bit for bit against its plain
+    version (K7Check, every call), the function bit-equal to its plain
+    form, and again under each of JITTER_SEEDS of K7c's cluster delays;
+    the count-512 evals on a fresh 100,000-node world at N = 131,072
+    (where K7e sorted in a global scratch before) under the delays; and
+    K7e alone on waves whose scores tie +0.0 and -0.0."""
+    import torch
+    from nomad_tpu_torch.ops import place as tp
+    from nomad_tpu_torch.ops import sharded as k7
+    from nomad_tpu_torch.parallel import sharded as ps
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import _sharded_cases
+    mesh = _mesh(shape)
+    W = shape[1]
+    runs = [(label, cap, used, f, spread, 64) for label, cap, used, f, spread
+            in _sharded_cases.bulk_select_cases(N_ROWS, shape[0], W)]
+    n_rows, n_nodes = LARGE_WORLDS[-1]
+    cap, used, f = shard_bulk_lanes(45, W, 4 // W, n_rows, n_nodes,
+                                    count=512, fresh=True)
+    runs.append((f"count-512 evals at N={n_rows}", cap, used, f, False,
+                 tp.fill_grid_for(512)))
+    for label, cap, used, f, spread, fg in runs:
+        args = [f[k] for k in SHARD_BULK_ORDER]
+        kw = dict(spread_algorithm=spread, fill_grid=fg)
+        chk = K7Check(shape, limit=1 << 30)
+        with chk:
+            out = _shard_outputs(ps.place_bulk_batch_sharded(mesh, cap, used,
+                                                             *args, **kw))
+        plain = _shard_outputs(ps.place_bulk_batch_sharded_plain(
+            mesh, cap, used, *args, **kw))
+        for k, (x, y) in enumerate(zip(out, plain)):
+            _bitwise(f"selection case {label}: output {k}", x, y)
+        jittered(f"selection case {label}",
+                 lambda: [torch.from_numpy(x) for x in _shard_outputs(
+                     ps.place_bulk_batch_sharded(mesh, cap, used, *args,
+                                                 **kw))],
+                 out, kernel="sharded")
+        log(f"sharded: selection case {label} on {shape}, N="
+            f"{f['feasible'].shape[2]}: placed {out[2].tolist()} of "
+            f"{f['count'].tolist()} in waves {out[5].tolist()}; "
+            f"{chk.seen['bulk_stats']} K7c and {chk.seen['bulk_order']} K7e "
+            f"calls bit-equal to their plain versions, the function to its "
+            f"plain form, also under {len(JITTER_SEEDS)} seeds of K7c's "
+            f"delays")
+    check_signed_zero_order()
+
+
+def check_signed_zero_order(n_rows=N_ROWS, n_shards=4, dev="cuda"):
+    """K7e alone against its plain version on each shard of a wave whose
+    gathered scores tie +0.0 and -0.0 (the order word of -cur + 0.0), at
+    `remaining` 1, 17, 700 and 5,000 (two selection rounds), every state
+    tensor bit for bit but the tail's scores (the tail reuses the scores
+    K7c wrote for the shard's rows; these are made up)."""
+    import torch
+    from nomad_tpu_torch.ops import sharded as k7
+    rng = np.random.default_rng(5)
+    n = n_rows // n_shards
+    cur = torch.from_numpy(rng.choice(np.array(
+        [0.5, 0.0, -0.0, -0.25, 0.0, -0.0], np.float32), n_rows)).to(dev)
+    base = torch.from_numpy(rng.integers(0, 3, n_rows).astype(np.int32)).to(dev)
+    stats = torch.tensor([[0.5, 0.5, 0.0, 1.0]], device=dev)
+    z = lambda *s, t=torch.float32: torch.zeros(s, dtype=t, device=dev)  # noqa
+    for remaining in (1, 17, 700, 5000):
+        for i in range(n_shards):
+            outs = []
+            for fn in (k7.bulk_order, k7.bulk_order_plain):
+                sh = k7.BulkShard(
+                    off=i * n, n_rows=n_rows, capacity=z(n, 4) + 1e6,
+                    used=z(n, 4), exact=z(n, 4), delta=z(n, 4),
+                    coll=z(n, t=torch.int32),
+                    feasible=torch.ones((1, n), dtype=torch.bool,
+                                        device=dev),
+                    affinity=z(1, n), penalty=z(1, n, t=torch.bool),
+                    coll0=z(1, n, t=torch.int32),
+                    has_affinity=z(1, t=torch.bool),
+                    desired=torch.ones(1, dtype=torch.int32, device=dev),
+                    demand=torch.tensor([[1.0, 1.0, 0.0, 0.0]],
+                                        device=dev),
+                    count=torch.tensor([remaining], dtype=torch.int32,
+                                       device=dev),
+                    delta_rows=None, delta_vals=None,
+                    assign=z(1, n, t=torch.int32), scores=z(1, n),
+                    partial=z(1, 4, t=torch.int32),
+                    state=z(4, t=torch.int32)).check()
+                fn(sh, 0, stats, cur, base, False, 1000)
+                outs.append([t.cpu().numpy() for t in (
+                    sh.used, sh.coll, sh.assign, sh.state, sh.partial,
+                    sh.exact)])
+            for k, (x, y) in enumerate(zip(*outs)):
+                _bitwise(f"signed-zero order, remaining {remaining}, shard "
+                         f"{i}, tensor {k}", x, y)
+    log(f"sharded: K7e on waves tying +0.0 and -0.0 scores (N={n_rows}, "
+        f"{n_shards} shards, remaining 1, 17, 700, 5000) bit-equal to its "
+        f"plain version")
+
+
+def k7c_kinds(shape=(4, 2)):
+    """K7c's time a launch on (4, 2) at N = 16,384, by kind: a begin with
+    a wave and a count-0 begin-and-tail (a lane pad with 64 delta slots),
+    the first step of each in 2 lanes of C2M chains with deltas (where
+    every eval takes one wave), and a wave of its own, the first in 2
+    lanes of count-512 evals on a fresh world; CUDA events around the
+    step (kernel and plain version) and the kernel alone (profiler).
+    Returns {kind: (ms, plain ms, device ms)}, each a launch."""
+    import torch
+    from nomad_tpu_torch.ops import sharded as k7
+    from nomad_tpu_torch.parallel import sharded as ps
+    mesh = _mesh(shape)
+    kinds = {"begin with a wave": [], "count-0 begin and tail": [],
+             "wave": []}
+    kern = k7.bulk_stats
+    seen = [0]
+
+    def call(*args):
+        sh, e, begin = args[0], args[1], args[2]
+        kind = "wave" if not begin else (
+            "begin with a wave" if int(sh.count[e]) > 0
+            else "count-0 begin and tail")
+        keep = kinds[kind]
+        if not keep or (len(keep) < shape[0] and keep[-1][3] == seen[0] - 1):
+            state = _state_of("bulk_stats", args)
+            keep.append((args, state, [t.clone() for t in state], seen[0]))
+        seen[0] += 1
+        kern(*args)
+
+    lanes = [shard_bulk_lanes(44, shape[1], 8, N_ROWS, N_NODES),
+             shard_bulk_lanes(45, shape[1], 2, N_ROWS, N_NODES, count=512,
+                              fresh=True)]
+    k7.bulk_stats = call
+    try:
+        for cap, used, f in lanes:
+            seen[0] += 1               # no step spans two runs
+            ps.place_bulk_batch_sharded(mesh, cap, used,
+                                        *[f[k] for k in SHARD_BULK_ORDER])
+    finally:
+        k7.bulk_stats = kern
+    torch.cuda.synchronize()
+    out = {}
+    for kind, keep in kinds.items():
+        calls = [(a, st, b) for a, st, b, _ in keep]
+        if len(calls) != shape[0]:
+            raise AssertionError(f"K7c kinds: {len(calls)} {kind} launches")
+        ms = step_ms(calls, kern)
+        plain_ms = step_ms(calls, k7.bulk_stats_plain)
+        dev_ms = step_device_ms(calls, kern, "bulk_stats_kernel")
+        out[kind] = (ms, plain_ms, dev_ms)
+        log(f"sharded: K7c {kind}, N={N_ROWS} on {shape}, "
+            f"{k7.bulk_stats_cluster_size()} blocks a cluster: {ms:.4f} ms a "
+            f"launch (CUDA events over a step of {len(calls)}), plain "
+            f"{plain_ms:.4f}, kernel alone {dev_ms:.4f} ms a launch "
+            f"(profiler)")
+    return out
+
+
 def phase_sharded():
     """The sharded serving path (K7, K5') on meshes of the card repeated.
     Returns the kernels line's entries of K7a-K7g and K5' with the
@@ -3507,6 +3707,8 @@ def phase_sharded():
         if shape == (4, 2):
             kept = chk
         entries.update(check_local_scatters(shape))
+    # K7e's selection cases, K7c's cluster under its delays
+    check_shard_select((4, 2))
     # non-integer sizes (no deltas, so each lane's chain carry is K4's):
     # the merged basis u0 + psum_wave(exact - u0) rounds otherwise than
     # the host's rank-1 adds, one eval after another
@@ -3522,15 +3724,19 @@ def phase_sharded():
         f"is bit-equal")
     for name, (jname, replaces) in K7_UNITS.items():
         ms, plain_ms = kept.timed(name)
+        dev_ms = kept.device(name)
         bound, by = _k7_bound(name, kept.kept[name])
-        log(f"sharded: {jname} N={N_ROWS}, one step on (4, 2) "
-            f"({len(kept.kept[name])} launches): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        log(f"sharded: {jname} N={N_ROWS}, ms a launch over one step on "
+            f"(4, 2) ({len(kept.kept[name])} launches): kernel {ms:.4f} "
+            f"(CUDA events), kernel alone {dev_ms:.4f} (profiler), plain "
+            f"{plain_ms:.4f}, bound {bound:.6f} ({by})")
         entries[name] = dict(
             name=jname, route="cuda", source="nomad_tpu_torch/csrc/sharded.cu",
             replaces=replaces, launches=0, max_abs_err=0.0,
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-            library_ms=None)
+            library_ms=None, device_ms=dev_ms)
+
+    k7c_kinds((4, 2))
 
     # the main path: the engine stream over (4, 2) against the
     # single-device engine, identical per-job row maps

@@ -74,8 +74,10 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
         "scan_local_launch": [_P] * 25 + [_I] * 10 + [_P],
         "scan_apply_launch": [_P] * 9 + [_I] * 7 + [_P],
         "bulk_stats_launch": _BULK + [_I, _I, _P, _P, _I, _I, _I, _P],
+        "bulk_stats_cluster_size": [],
+        "sharded_set_jitter": [_I, _P],
         "bulk_run_launch": _BULK + [_I, _P, _I, _P, _P, _I, _I, _P],
-        "bulk_order_launch": _BULK + [_I, _P, _I, _P, _P, _P, _I, _I, _P],
+        "bulk_order_launch": _BULK + [_I, _P, _I, _P, _P, _I, _I, _P],
         "bulk_counts_launch": [_P, _P, _I, _I, _P],
         "basis_merge_launch": [_P, _P, _P, _I, _I, _P],
     },

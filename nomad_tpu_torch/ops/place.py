@@ -53,7 +53,7 @@ PACKED_WIDTH = 5 + 2 * TOP_K
 # reciprocal, so the port multiplies by the same f32 constant (the CUDA
 # kernels use 1.0f / 18.0f, the identical value)
 FIT_NORM = float(np.float32(1.0) / np.float32(18.0))
-# the one-block sorts of K7e and K8 sort in shared memory, 8 bytes a row,
+# the one-block sorts of K8 sort in shared memory, 8 bytes a row,
 # up to this many rows; past it in a global scratch (`sort_scratch`)
 BULK_SMEM_ROWS = 16384
 # the bulk kernels' keys hold a row in 24 bits

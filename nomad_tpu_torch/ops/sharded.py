@@ -19,13 +19,16 @@ kernels write (parallel/sharded.py sequences them).
 - K7c `bulk_stats`: one bulk wave's statistics on one shard (any fit, the
   m = 2 column's best, the local top-2 of the wave-start scores, which go
   to the gathered score vector); with `begin` it first starts the eval
-  (its deltas, coll0, the lane state).
+  (its deltas, coll0, the lane state).  One thread-block cluster a
+  launch.
 - K7d `bulk_run`: every local row's fill run length (capped at the
   remaining count) in the wave set the gathered statistics give.
 - K7e `bulk_order`: the greedy order over the gathered [N] vectors
   (identical on every shard) and this shard's share of it; the lane
   state, and the eval's tail (final scores, local counts, exact carry,
-  deltas backed out) when the stop test ends the eval.
+  deltas backed out) when the stop test ends the eval.  The kernel
+  selects the order's first min(remaining, |wave|) rows instead of
+  sorting the wave (no global scratch).
 - K7f `bulk_counts`: the psum of the shards' n_eval/n_exh partials.
 - K7g `basis_merge`: `used_tot = u0 + psum_wave(exact - u0)` on one shard.
 
@@ -379,7 +382,6 @@ class BulkShard:
     scores: torch.Tensor          # f32[E, n] output view
     partial: torch.Tensor         # i32[E, COUNTS_W]
     state: torch.Tensor           # i32[STATE_W]
-    keys: Optional[torch.Tensor] = None  # the order sort's global scratch
 
     def check(self) -> "BulkShard":
         _check_same_device("BulkShard", self)
@@ -392,10 +394,11 @@ class BulkShard:
                              "with one eval stride")
         if self.n_rows > (1 << 24):
             raise ValueError("BulkShard: the order key holds a row in 24 bits")
-        if self.used.device.type == "cuda" and \
-                (self.keys is None) != (self.n_rows <= 16384):
-            raise ValueError("BulkShard: the order sort needs a global "
-                             "scratch past 16,384 rows, and only there")
+        for name in ("used", "exact", "delta"):
+            t = getattr(self, name)
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"BulkShard.{name}: the kernels read a row "
+                                 f"as one aligned float4")
         return self
 
     @property
@@ -575,6 +578,11 @@ def bulk_stats(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
     _launched("bulk_stats", rc)
 
 
+def bulk_stats_cluster_size() -> int:
+    """The blocks of K7c's cluster (csrc/sharded.cu STATS_CLUSTER)."""
+    return int(_build.load("sharded").bulk_stats_cluster_size())
+
+
 def bulk_run(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
              base_g: torch.Tensor, spread: bool, fill_grid: int) -> None:
     """K7d wrapper (see bulk_run_plain)."""
@@ -593,11 +601,15 @@ def bulk_order(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
     """K7e wrapper (see bulk_order_plain)."""
     if _kind(sh.used, "bulk_order") == "cpu":
         return bulk_order_plain(sh, e, stats, cur_g, base_g, spread, max_waves)
+    if cur_g.data_ptr() % 16 or base_g.data_ptr() % 16 or \
+            not (cur_g.is_contiguous() and base_g.is_contiguous()):
+        raise ValueError("bulk_order: the kernel reads the gathered vectors "
+                         "16 bytes at a time")
     lib = _build.load("sharded")
     rc = lib.bulk_order_launch(*_bulk_args(sh), int(e), _ptr(stats),
                                stats.shape[0], _ptr(cur_g), _ptr(base_g),
-                               _ptr(sh.keys), int(bool(spread)),
-                               int(max_waves), _stream(sh.used.device))
+                               int(bool(spread)), int(max_waves),
+                               _stream(sh.used.device))
     _launched("bulk_order", rc)
 
 

@@ -63,7 +63,6 @@ from nomad_tpu_torch.ops.place import (
     _spread_boost,
     bulk_run_lengths,
     bulk_wave_grid,
-    sort_scratch,
 )
 
 BIG = 2 ** 31 - 1
@@ -924,7 +923,6 @@ def place_bulk_batch_sharded_staged(mesh: Mesh, capacity, used0, feasible,
                 delta_rows=L["delta_rows"], delta_vals=L["delta_vals"],
                 assign=a_v, scores=s_v, partial=p_v,
                 state=states[d][w, i],
-                keys=sort_scratch(N, d) if d.type == "cuda" else None,
             ).check())
         ctx.append(row)
     slots1 = [(i, i + 1) for i in range(NS)]
