@@ -277,15 +277,15 @@ def bulk_inputs(seed: int, main_path: bool, n_rows: int = N_ROWS,
 
 
 def scan_inputs(seed: int, main_path: bool, n_rows: int = N_ROWS,
-                n_nodes: int = N_NODES):
+                n_nodes: int = N_NODES, values: int = RACKS):
     """Seeded K2 inputs (PlaceInputs fields) over n_rows rows.  main_path:
-    one rack-spread group of a 50-slot service job (S = 64, the slot
-    bucket) on a partly loaded cluster; otherwise three groups with
-    targeted and even spreads, affinities, penalties, co-placements and
-    per-node instance budgets."""
+    one group of a 50-slot service job (S = 64, the slot bucket) spread
+    over `values` values (the racks) on a partly loaded cluster;
+    otherwise three groups with targeted and even spreads, affinities,
+    penalties, co-placements and per-node instance budgets."""
     rng = np.random.default_rng(seed)
     n = n_nodes
-    g, s, k, v = (1, 64, 1, RACKS) if main_path else (3, 64, 2, 16)
+    g, s, k, v = (1, 64, 1, values) if main_path else (3, 64, 2, 16)
     cap = np.zeros((n_rows, 4), np.float32)
     cap[:n] = [4000, 8192, 102400, 1000]
     if not main_path:
@@ -2814,17 +2814,25 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+# K7 wrappers whose state ends in scratch only the kernel keeps (K7a's
+# row cache): restored with the state, not compared with the plain
+# version's, which has none
+_SCRATCH = {"scan_local": 1}
+
+
 def _state_of(name, args):
     """The tensors a K7 call may read after another call changed them or
-    may write: restored before each timed launch, compared after."""
+    may write: restored before each timed launch, compared after (but the
+    last _SCRATCH[name])."""
     from nomad_tpu_torch.ops import sharded as k7
     if name == "scan_local":
         sh, recs = args[0], args[6]
-        return [sh.used, sh.tg_count, sh.place_cap, sh.counts, recs]
+        return [sh.used, sh.tg_count, sh.place_cap, sh.counts, recs, sh.pick,
+                sh.cache]
     if name == "scan_apply":
         sh, recs, out = args[0], args[2], args[3]
-        return [sh.used, sh.tg_count, sh.place_cap, sh.counts, recs] + \
-            ([out] if out is not None else [])
+        return [sh.used, sh.tg_count, sh.place_cap, sh.counts, recs,
+                sh.pick] + ([out] if out is not None else [])
     if name in ("bulk_stats", "bulk_run", "bulk_order"):
         sh = args[0]
         assert isinstance(sh, k7.BulkShard)
@@ -2837,17 +2845,17 @@ def _state_of(name, args):
 
 class K7Check:
     """Wraps ops/sharded.py's kernel wrappers while a sharded function
-    runs on the card: each call (up to `limit` a kernel) runs the kernel,
-    then, from the same state restored, its plain version on the same
-    tensors, and requires every state tensor bit-equal.  The first step
-    of each kernel across the mesh (its launch on every node shard of
-    one lane, every lane for K7f; a scan slot past the first for K7a) is
-    kept for timing.  These launches are the comparison's, not a
-    path's."""
+    runs on the card: each call runs the kernel, then, from the same
+    state restored, its plain version on the same tensors, and requires
+    every state tensor bit-equal (but K7a's cache, which only the kernel
+    keeps: restored, not compared).  The first step of each kernel
+    across the mesh (its launch on every node shard of one lane, every
+    lane for K7f; a scan slot past the first for K7a) is kept for
+    timing.  These launches are the comparison's, not a path's."""
 
-    def __init__(self, shape=(1, 1), limit=64):
+    def __init__(self, shape=(1, 1)):
         from nomad_tpu_torch.ops import sharded as k7
-        self.k7, self.limit = k7, limit
+        self.k7 = k7
         self.seen = {n: 0 for n in K7_UNITS}
         self.step = {n: shape[1] if n == "bulk_counts" else shape[0]
                      for n in K7_UNITS}
@@ -2869,8 +2877,6 @@ class K7Check:
         plain = getattr(self.k7, name + "_plain")
 
         def call(*args):
-            if self.seen[name] >= self.limit:
-                return kern(*args)
             state = _state_of(name, args)
             before = [t.clone() for t in state]
             kern(*args)
@@ -2880,8 +2886,9 @@ class K7Check:
                 t.copy_(b)
             plain(*args)
             torch.cuda.synchronize()
+            compared = len(state) - _SCRATCH.get(name, 0)
             for k, (t, a) in enumerate(zip(state, after)):
-                if not torch.equal(_bits(t), _bits(a)):
+                if k < compared and not torch.equal(_bits(t), _bits(a)):
                     raise AssertionError(f"{name}: kernel and plain differ "
                                          f"in state tensor {k}")
                 t.copy_(a)
@@ -2902,6 +2909,10 @@ class K7Check:
         """The kernel alone, ms a launch over the kept step (profiler)."""
         return step_device_ms(self.kept[name], self.orig[name],
                               f"{name}_kernel")
+
+    def host(self, name):
+        """The wrapper's host time, us a launch over the kept step."""
+        return step_host_us(self.kept[name], self.orig[name])
 
 
 def restore(calls):
@@ -2931,6 +2942,25 @@ def step_ms(calls, fn, reps=20):
         if r >= 2:
             times.append(s.elapsed_time(e))
     return statistics.median(times) / len(calls)
+
+
+def step_host_us(calls, fn, reps=20):
+    """The host time of fn's launches over the step `calls` (the
+    wrapper's Python and the launch, the queue drained before each
+    repetition), us a launch, median of `reps`."""
+    import torch
+    times = []
+    for r in range(reps + 2):
+        restore(calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for args, _, _ in calls:
+            fn(*args)
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if r >= 2:
+            times.append(t / len(calls) * 1e6)
+    return statistics.median(times)
 
 
 def step_device_ms(calls, fn, kernel):
@@ -2988,13 +3018,16 @@ def _k7_bound(name, calls) -> tuple:
     return bound / len(calls), by
 
 
-def shard_scan_chain(seeds, S, with_deltas, main_path=True):
-    """place_batch_sharded operands at N = 16,384: a chain of scan evals
-    (scan_inputs of `seeds`), the slot axis padded to S, each eval with
-    deltas or none; and the K3 operands of the same chain."""
+def shard_scan_chain(seeds, S, with_deltas, main_path=True, n_rows=N_ROWS,
+                     n_nodes=N_NODES, values=RACKS):
+    """place_batch_sharded operands over n_rows rows: a chain of scan
+    evals (scan_inputs of `seeds`, spread over `values` values), the slot
+    axis padded to S, each eval with deltas or none; and the K3 operands
+    of the same chain."""
     from nomad_tpu_torch.ops import place as tp
     rng = np.random.default_rng(seeds[0])
-    evals = [scan_inputs(sd, main_path) for sd in seeds]
+    evals = [scan_inputs(sd, main_path, n_rows, n_nodes, values)
+             for sd in seeds]
     cap, used = evals[0]["capacity"], evals[0]["used"]
     E = len(evals)
     fields = {}
@@ -3007,11 +3040,11 @@ def shard_scan_chain(seeds, S, with_deltas, main_path=True):
                                                 + a.shape[1:], a.dtype)])
                     for a in arrs]
         fields[name] = np.stack(arrs)
-    drows = np.full((E, DELTA_BUCKET), N_ROWS, np.int32)
+    drows = np.full((E, DELTA_BUCKET), n_rows, np.int32)
     dvals = np.zeros((E, DELTA_BUCKET, 4), np.float32)
     deltas = []
     for e in range(E):
-        ds = _deltas(rng, 3) if with_deltas else []
+        ds = _deltas(rng, 3, n_nodes) if with_deltas else []
         deltas.append(ds)
         for d, (row, vec) in enumerate(ds):
             drows[e, d], dvals[e, d] = row, vec
@@ -3024,16 +3057,18 @@ def shard_scan_chain(seeds, S, with_deltas, main_path=True):
     return (cap, used, fields, drows, dvals), k3
 
 
-def check_shard_scan(shape, chk, label, seeds, S, with_deltas, main_path):
+def check_shard_scan(shape, chk, label, seeds, S, with_deltas, main_path,
+                     **world):
     """K7a/K7b on a mesh of the card repeated, every call checked against
     its plain version by `chk`; the whole function bit-equal to its plain
     form (the reference's function over the shard list) and equal to
-    the unsharded K3 in node rows, counts and top-K rows."""
+    the unsharded K3 in node rows, counts and top-K rows.  `world`:
+    shard_scan_chain's n_rows, n_nodes, values."""
     import torch
     from nomad_tpu_torch.ops import place as tp
     from nomad_tpu_torch.parallel import sharded as ps
     mesh = _mesh(shape)
-    ops, k3 = shard_scan_chain(seeds, S, with_deltas, main_path)
+    ops, k3 = shard_scan_chain(seeds, S, with_deltas, main_path, **world)
     with chk:
         packed, used = ps.place_batch_sharded(mesh, *ops)
     torch.cuda.synchronize()
@@ -3057,7 +3092,8 @@ def check_shard_scan(shape, chk, label, seeds, S, with_deltas, main_path):
     placed = int((got[0] >= 0).sum())
     if placed == 0:
         raise AssertionError(f"sharded scan {label}: nothing placed")
-    log(f"sharded: scan {label} on {shape}: placed {placed} slots; kernels "
+    log(f"sharded: scan {label} on {shape}, N={ops[0].shape[0]}: placed "
+        f"{placed} slots; kernels "
         f"bit-equal to their plain versions ({chk.seen['scan_local']} K7a, "
         f"{chk.seen['scan_apply']} K7b calls checked) and the function to "
         f"its plain form; rows, counts and top-K equal the unsharded K3 "
@@ -3516,6 +3552,82 @@ def _shard_outputs(out):
         [torch.cat(list(out[6])).cpu().numpy()]
 
 
+def _cases():
+    """tests/_sharded_cases.py (numpy builders of the sharded path's edge
+    cases, shared with the CPU tests)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import _sharded_cases
+    return _sharded_cases
+
+
+def check_scan_cache_cases():
+    """K7a's cache cases (tests/_sharded_cases.py scan_cache_cases: the
+    group and the demand changing between slots, inactive slots, a pick
+    on every shard and either side of a shard boundary, no feasible row,
+    ties across shards, -0.0 and NaN/+-inf usage under deltas, a spread
+    over 80 values, spreads whose boost tables pass K7a's shared memory)
+    at N = 64 and 16,384 on (4, 2) and (2, 4): every
+    K7a/K7b call bit-equal to its plain version (K7Check), and the
+    function again under SCAN_JITTER_SEEDS of K7a's cluster delays,
+    bit-equal to its first run."""
+    import torch
+    from nomad_tpu_torch.parallel import sharded as ps
+    sc = _cases()
+    seen = {"scan_local": 0, "scan_apply": 0}
+    for shape in ((4, 2), (2, 4)):
+        mesh = _mesh(shape)
+        for n_rows in (64, N_ROWS):
+            for label, cap, used, f, drows, dvals, spread in \
+                    sc.scan_cache_cases(n_rows, shape[0]):
+                def run():
+                    packed, used_sh = ps.place_batch_sharded(
+                        mesh, cap, used, f, drows, dvals, spread)
+                    return packed, torch.cat(used_sh)
+                chk = K7Check(shape)
+                with chk:
+                    want = [x.cpu().numpy() for x in run()]
+                for k in seen:
+                    seen[k] += chk.seen[k]
+                jittered(f"scan cache case {label} on {shape}, N={n_rows}",
+                         run, want, kernel="sharded",
+                         seeds=SCAN_JITTER_SEEDS)
+    log(f"sharded: K7a's cache cases ({len(sc.scan_cache_cases(64, 4))} "
+        f"cases at N = 64 and {N_ROWS} on (4, 2) and (2, 4)): {seen} calls "
+        f"bit-equal to their plain versions; the function bit-equal again "
+        f"under {len(SCAN_JITTER_SEEDS)} seeds of K7a's cluster delays")
+
+
+def check_run_cases():
+    """K7d on its run cases (tests/_sharded_cases.py bulk_run_cases: a run
+    cap of 1, fill grids of 16 and 64, m = 1 forced, rows that fit one
+    instance and not two, no row fitting, the tie and the strict set, a
+    done lane, NaN and +-inf usage) at N = 64 and 16,384 on 2 and 4
+    shards: bit-equal to bulk_run_plain."""
+    import torch
+    from nomad_tpu_torch.ops import sharded as k7
+    sc = _cases()
+    checked = 0
+    for n_rows in (64, N_ROWS):
+        for case in sc.bulk_run_cases(n_rows):
+            fill_grid, spread = case[4], case[5]
+            for NS in (2, 4):
+                outs = []
+                for fn in (k7.bulk_run, k7.bulk_run_plain):
+                    shards, stats, cur_g = sc.bulk_run_shards(case, NS,
+                                                              "cuda")
+                    base = torch.full((n_rows,), -7, dtype=torch.int32,
+                                      device="cuda")
+                    for sh in shards:
+                        fn(sh, 0, stats, cur_g, base, spread, fill_grid)
+                    outs.append(base.cpu().numpy())
+                _bitwise(f"K7d run case {case[0]}, N={n_rows}, {NS} shards",
+                         *outs)
+                checked += NS
+    log(f"sharded: K7d on its run cases ({checked} launches at N = 64 and "
+        f"{N_ROWS} on 2 and 4 shards) bit-equal to bulk_run_plain")
+
+
 def check_shard_select(shape=(4, 2)):
     """K7e's selection cases (tests/_sharded_cases.py: a tie wave
     with more tied rows than `remaining`, strict waves at one score and
@@ -3532,9 +3644,7 @@ def check_shard_select(shape=(4, 2)):
     from nomad_tpu_torch.ops import place as tp
     from nomad_tpu_torch.ops import sharded as k7
     from nomad_tpu_torch.parallel import sharded as ps
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "tests"))
-    import _sharded_cases
+    _sharded_cases = _cases()
     mesh = _mesh(shape)
     W = shape[1]
     runs = [(label, cap, used, f, spread, 64) for label, cap, used, f, spread
@@ -3547,7 +3657,7 @@ def check_shard_select(shape=(4, 2)):
     for label, cap, used, f, spread, fg in runs:
         args = [f[k] for k in SHARD_BULK_ORDER]
         kw = dict(spread_algorithm=spread, fill_grid=fg)
-        chk = K7Check(shape, limit=1 << 30)
+        chk = K7Check(shape)
         with chk:
             out = _shard_outputs(ps.place_bulk_batch_sharded(mesh, cap, used,
                                                              *args, **kw))
@@ -3707,6 +3817,16 @@ def phase_sharded():
         if shape == (4, 2):
             kept = chk
         entries.update(check_local_scatters(shape))
+    # K7a at N = 131,072 and over a spread of 1,000 values; its cache
+    # cases under its cluster's delays; K7d's run cases
+    n_rows, n_nodes = LARGE_WORLDS[-1]
+    check_shard_scan((4, 2), K7Check(), "E=1 rack-spread eval", (48,), 64,
+                     False, True, n_rows=n_rows, n_nodes=n_nodes)
+    check_shard_scan((4, 2), K7Check(), "E=2 eval chain spread over 1,000 "
+                     "values, with deltas", (49, 50), 64, True, True,
+                     values=1000)
+    check_scan_cache_cases()
+    check_run_cases()
     # K7e's selection cases, K7c's cluster under its delays
     check_shard_select((4, 2))
     # non-integer sizes (no deltas, so each lane's chain carry is K4's):
@@ -3725,16 +3845,18 @@ def phase_sharded():
     for name, (jname, replaces) in K7_UNITS.items():
         ms, plain_ms = kept.timed(name)
         dev_ms = kept.device(name)
+        h_us = kept.host(name)
         bound, by = _k7_bound(name, kept.kept[name])
         log(f"sharded: {jname} N={N_ROWS}, ms a launch over one step on "
             f"(4, 2) ({len(kept.kept[name])} launches): kernel {ms:.4f} "
-            f"(CUDA events), kernel alone {dev_ms:.4f} (profiler), plain "
-            f"{plain_ms:.4f}, bound {bound:.6f} ({by})")
+            f"(CUDA events), kernel alone {dev_ms:.4f} (profiler), the "
+            f"wrapper's host time {h_us:.2f} us, plain {plain_ms:.4f}, bound "
+            f"{bound:.6f} ({by})")
         entries[name] = dict(
             name=jname, route="cuda", source="nomad_tpu_torch/csrc/sharded.cu",
             replaces=replaces, launches=0, max_abs_err=0.0,
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-            library_ms=None, device_ms=dev_ms)
+            library_ms=None, device_ms=dev_ms, host_us=h_us)
 
     k7c_kinds((4, 2))
 

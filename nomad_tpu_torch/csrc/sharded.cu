@@ -17,13 +17,15 @@
 //                    n_eval/n_exh, local top-5).  The winner is always
 //                    some shard's local best, so ONE gather a slot does
 //                    (the reference takes two: pmax/pmin, then a psum of
-//                    the masked spread-index gather).
+//                    the masked spread-index gather).  One cluster of
+//                    SCAN_CLUSTER blocks; rows' partial scores cached.
 //   K7b scan_apply   from the gathered records the global selection
 //                    (max score, lowest global row among ties, the
 //                    stable merge of the top-5 lists, equal to the
 //                    single-chip top_k's order); carry updates on this
 //                    shard's rows and its spread-count replica; shard 0
-//                    writes the slot's packed row.
+//                    writes the slot's packed row; the shard's pick word
+//                    gets the local row it changed (-1: none), for K7a.
 //   K7c bulk_stats   one bulk wave's statistics on the shard (top-2 of
 //                    cur, max m = 2 score, any fit) and cur into the
 //                    gathered [N] score vector; with `begin`, the eval's
@@ -32,7 +34,9 @@
 //                    One thread-block cluster a launch (below).
 //   K7d bulk_run     the fill run of every local row in the wave set
 //                    (strict if the gathered top score beats s*, else
-//                    the ties), into the gathered [N] run vector.
+//                    the ties), into the gathered [N] run vector.  A
+//                    grid of blocks of RUN_ROWS rows; a row's cells
+//                    over lanes (below).
 //   K7e bulk_order   the greedy order over the gathered vectors (the
 //                    same on every shard): only its first
 //                    min(remaining, |wave|) rows can take instances, so
@@ -50,11 +54,17 @@
 // local row (~0.7 MB over 16K rows, all shards) and a bulk wave about as
 // much plus the gathered [N] vectors; at 3.35 TB/s that is well under a
 // microsecond, while each slot or wave is two or three dependent
-// launches per shard with a gather between them.  One persistent block
-// of 1024 threads per launch (K7a, K7d, K7e), as K2/K4 were; K7c spreads
-// its row pass over a cluster of STATS_CLUSTER blocks whose parts meet
-// in block 0's shared memory over one cluster barrier (its exchange
-// sites take the random delays of cluster.cuh under sharded_set_jitter).
+// launches per shard with a gather between them.  K7a and K7c spread
+// their row pass over a thread-block cluster whose parts meet in block
+// 0's shared memory over one cluster barrier (the exchange sites take
+// the random delays of cluster.cuh under sharded_set_jitter); K7d is a
+// grid of small blocks (no cross-row reduction); K7e one block of 1024
+// threads.  K7a caches each row's partial score across launches (its
+// section below).
+//
+// Operands: K7a takes one shard's ScanArgs and K7c-K7e its BulkArgs by
+// address, packed once a shard by the wrapper (ops/sharded.py), so a
+// launch builds only its few per-call arguments on the host.
 //
 // Numerics: compiled without fast math and with -fmad=false; powf; the
 // reference's operation order, so scores are the plain versions' bit
@@ -86,35 +96,145 @@ constexpr int ST_PLACED = 0, ST_WAVES = 1, ST_STUCK = 2, ST_DONE = 3;
 constexpr int COUNTS_W = 4;
 
 // ------------------------------------------------------------- the scan
+//
+// K7a: one launch is one cluster of SCAN_CLUSTER blocks; block b owns a
+// contiguous range of the shard's rows, its threads take them in turn.
+//  - The cache.  Between two active slots of one group and demand only
+//    the row K7b picked changes its usage, tg_count and place_cap (the
+//    other shards' picks change only the spread counts), and the
+//    reference adds the scoring terms in a fixed order (fit, + anti,
+//    - penalty, + affinity, + spread, then / n).  So each row keeps its
+//    partial total (fit + anti - penalty + affinity), its fit, and a flag
+//    word (feasible, fits, the scorer count before the spread term) in
+//    the shard's cache scratch (global memory, since a slot is one launch
+//    and the cache must outlive it), with the group and demand they were
+//    scored for.  Every row is rescored at the eval's first slot and
+//    whenever the slot's group or demand differs from that key;
+//    otherwise only the row in the shard's pick word, which K7b writes
+//    (the shards may share one gathered record buffer, so a record read
+//    back later may belong to another slot).  An inactive slot keeps the
+//    key and rescores the pending pick under it.
+//  - The spread term depends on a row only through its value index of
+//    each active spread, so each slot every block builds the group's
+//    boost tables (one entry a value, from the counts' replica and their
+//    min and max over placed values) in shared memory (in the cache's
+//    table region past TAB_SMEM floats), its threads sharing each
+//    spread's values, and every row adds its entries in spread order,
+//    then divides by its scorer count.  A spread over thousands of
+//    values costs each thread V1 / blockDim entries a slot, and a
+//    barrier a spread.
+//  - The top-5: 64-bit keys (the orderable score, -0.0 read as +0.0, then
+//    the row inverted, so the larger key is the higher score and then the
+//    lower row: lax.top_k's order; the low bit keeps a -0.0 score's sign
+//    for the record).  A warp merges its lanes' lists with redux.sync,
+//    one warp the block's warp lists; each block stores its list, counts
+//    and its first row's fit into block 0's shared memory after a
+//    cluster wait (every block has started), then one cluster barrier,
+//    and one warp of block 0 merges them and writes the record.
+//  - The eval's start: each block copies the carries of its rows; a delta
+//    row's entries are added in list order by the thread of its first
+//    entry; the counts' replica is copied over the cluster (this launch's
+//    tables read the eval's own counts).
 
-// a ranks before b: larger value, or equal value and lower row
+typedef unsigned long long u64;
+constexpr unsigned FULL = 0xffffffffu;
+
+// blocks of K7a's cluster: on the H100, 16 is faster than 4 and 1 at
+// n = 4,096 and 32,768 rows a shard, than 8 at 32,768 (PERF.md)
+constexpr int SCAN_CLUSTER = 16;
+static_assert(SCAN_CLUSTER <= 32, "one warp merges the blocks' lists");
+static_assert(NW == 32, "one warp reads the block's warp lists");
+static_assert(MAXK <= 64, "two ballots list the active spreads");
+// table floats (K x V1) a block keeps in shared memory; past it each
+// block's tables live in the cache's table region
+constexpr int TAB_SMEM = 16384;
+// the cache (ops/sharded.py scan_cache), i32 words: partial totals [n],
+// fits [n], flag words [n], the key (group, -1 none; demand as f32
+// bits), then, past TAB_SMEM, a table region of K x V1 floats a block
+constexpr int CACHE_META = 8;
+constexpr int KEY_G = 0, KEY_DEM = 1;
+constexpr unsigned F_FEAS = 1u, F_FITS = 2u;
+
+__host__ __device__ __forceinline__ bool tables_in_cache(int K, int V1) {
+  return (long long)K * V1 > TAB_SMEM;
+}
+
+__host__ __device__ __forceinline__ size_t scan_cache_words(int n, int K,
+                                                            int V1) {
+  size_t w = 3 * (size_t)n + CACHE_META;
+  if (tables_in_cache(K, V1)) w += (size_t)SCAN_CLUSTER * K * V1;
+  return w;
+}
+
+// rows [lo, hi) of the shard's n that one of `blocks` blocks owns
+__device__ __forceinline__ void block_rows(int n, int blocks, int rank,
+                                           int* lo, int* hi) {
+  const int rpb = (n + blocks - 1) / blocks;
+  *lo = min(rank * rpb, n);
+  *hi = min(*lo + rpb, n);
+}
+
+// score desc, then row asc; +0.0 and -0.0 rank as one score, the low bit
+// keeps the sign of a -0.0 for the record.  0 is "no row".
+__device__ __forceinline__ u64 make_key(float v, int row) {
+  const u64 neg0 = __float_as_uint(v) == 0x80000000u ? 1ull : 0ull;
+  return ((u64)orderable(v + 0.0f) << 32) |
+         ((u64)(0x7fffffffu - (unsigned)row) << 1) | neg0;
+}
+
+__device__ __forceinline__ int key_row(u64 k) {
+  return (int)(0x7fffffffu - (unsigned)((k >> 1) & 0x7fffffffu));
+}
+
+__device__ __forceinline__ float key_val(u64 k) {
+  if (k & 1ull) return -0.0f;
+  const unsigned o = (unsigned)(k >> 32);
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+struct Top {
+  u64 k[TOPK];   // descending
+};
+
+__device__ __forceinline__ void top_clear(Top& t) {
+#pragma unroll
+  for (int j = 0; j < TOPK; ++j) t.k[j] = 0ull;
+}
+
+__device__ __forceinline__ void top_push(Top& t, u64 x) {
+  if (x <= t.k[TOPK - 1]) return;
+#pragma unroll
+  for (int j = 0; j < TOPK; ++j) {
+    const u64 a = t.k[j];
+    t.k[j] = a > x ? a : x;
+    x = a > x ? x : a;
+  }
+}
+
+// The warp's top-5 of its lanes' lists (each sorted, keys distinct but
+// 0), in every lane; *first = the lane whose head was the first.
+__device__ __forceinline__ void warp_top(Top& t, Top& out, int* first) {
+#pragma unroll
+  for (int j = 0; j < TOPK; ++j) {
+    const unsigned h = (unsigned)(t.k[0] >> 32);
+    const unsigned hi = __reduce_max_sync(FULL, h);
+    const unsigned lo = __reduce_max_sync(FULL, h == hi ? (unsigned)t.k[0] : 0u);
+    const u64 w = ((u64)hi << 32) | lo;
+    out.k[j] = w;
+    const bool pop = t.k[0] == w;
+    if (j == 0) *first = __ffs(__ballot_sync(FULL, pop)) - 1;
+#pragma unroll
+    for (int i = 0; i < TOPK - 1; ++i) t.k[i] = pop ? t.k[i + 1] : t.k[i];
+    t.k[TOPK - 1] = pop ? 0ull : t.k[TOPK - 1];
+  }
+}
+
+// a ranks before b: larger value, or equal value and lower row (K7b)
 __device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-struct Top {
-  float v[TOPK];
-  int i[TOPK];
-};
-
-__device__ __forceinline__ void top_init(Top& t) {
-#pragma unroll
-  for (int k = 0; k < TOPK; ++k) { t.v[k] = -INFINITY; t.i[k] = BIGI; }
-}
-
-__device__ __forceinline__ void top_insert(Top& t, float v, int i) {
-  if (!before(v, i, t.v[TOPK - 1], t.i[TOPK - 1])) return;
-  int k = TOPK - 1;
-  while (k > 0 && before(v, i, t.v[k - 1], t.i[k - 1])) {
-    t.v[k] = t.v[k - 1];
-    t.i[k] = t.i[k - 1];
-    --k;
-  }
-  t.v[k] = v;
-  t.i[k] = i;
-}
-
-// one shard's scan operands (ops/sharded.py ScanShard)
+// one shard's scan operands (ops/sharded.py ScanArgs, packed once a shard)
 struct ScanArgs {
   const float* cap;           // f32[n, R]
   float* used;                // f32[n, R] carry
@@ -136,61 +256,234 @@ struct ScanArgs {
   const uint8_t* slot_active; // bool[S]
   int* tg_count;              // i32[G, n] carry
   int* place_cap;             // i32[G, n] carry
-  float* counts;              // f32[G, K, V1] carry
-  int G, n, K, V1, off;
+  float* counts;              // f32[G, K, V1] carry (this shard's replica)
+  int* cache;                 // i32[cache_words] K7a's row cache (above)
+  int* pick;                  // i32[1] the local row K7b changed, -1 none
+  int G, n, K, V1, off, cache_words;
 };
 
 struct ScanShared {
-  float tv[NT][TOPK];
-  int ti[NT][TOPK];
-  int a[NW], b[NW];
-  float minc[MAXK], maxc[MAXK], wfrac[MAXK];
-  uint8_t anyp[MAXK], active[MAXK], targeted[MAXK];
+  u64 wk[NW][TOPK];              // the warps' lists
+  int wc[NW][2];                 // the warps' (n_eval, n_exh)
+  int act[MAXK];                 // the group's active spreads, in order
+  unsigned mm[2][NW][3];         // a spread's warp (min, max, any placed)
+  u64 bk[SCAN_CLUSTER][TOPK];    // block 0's: each block's list,
+  float bfit[SCAN_CLUSTER];      // the fit of its first row,
+  int bc[SCAN_CLUSTER][2];       // and its (n_eval, n_exh)
 };
 
+// Local row i's partial score for group g and demand dem, in the
+// reference's order up to the spread term, into the cache; returns the
+// flag word.
+__device__ __forceinline__ unsigned score_row(const ScanArgs& a, int g,
+                                              int i, const float* dem,
+                                              int spread, float* part) {
+  const size_t gi = (size_t)g * a.n + i;
+  const bool feas = a.feas[gi] != 0 && a.place_cap[gi] != 0;
+  float cap[R], u[R];
+  bool fits = feas;
+#pragma unroll
+  for (int d = 0; d < R; ++d) {
+    cap[d] = a.cap[i * R + d];
+    u[d] = a.used[i * R + d] + dem[d];
+    fits = fits && (u[d] <= cap[d]);
+  }
+  const float fit = score_fit(cap, u, spread) * (1.0f / 18.0f);
+  float total = fit;
+  unsigned ns = 1;
+  const float coll = (float)a.tg_count[gi];
+  const float anti = -(coll + 1.0f) / fmaxf((float)a.desired[g], 1.0f);
+  const bool hc = coll > 0.0f;
+  total = total + (hc ? anti : 0.0f);
+  ns += hc ? 1u : 0u;
+  const bool pen = a.pen[gi] != 0;
+  total = total - (pen ? 1.0f : 0.0f);
+  ns += pen ? 1u : 0u;
+  const float aff = a.aff[gi];
+  const bool aff_on = a.has_aff[g] != 0 && (aff != 0.0f);
+  total = total + (aff_on ? aff : 0.0f);
+  ns += aff_on ? 1u : 0u;
+  const unsigned fl = (feas ? F_FEAS : 0u) | (fits ? F_FITS : 0u) | (ns << 2);
+  float* fitc = reinterpret_cast<float*>(a.cache) + a.n;
+  *part = total;
+  reinterpret_cast<float*>(a.cache)[i] = total;
+  fitc[i] = fit;
+  a.cache[2 * a.n + i] = (int)fl;
+  return fl;
+}
+
+// The block: spread gk's boost table (the reference's _spread_boost, one
+// entry a value index, V1 - 1 = the missing attribute) from the counts
+// `cnt` [G, K, V1]: the min / max over placed values (> 0, whose bits
+// order as the floats) over the block's threads, met in `part` (this
+// spread's half of a double buffer, so one barrier a spread), then the
+// entries.
+__device__ void build_table(const ScanArgs& a, const float* cnt, int gk,
+                            float* tb, unsigned (*part)[3]) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int V1 = a.V1, V = V1 - 1;
+  const float* cn = cnt + (size_t)gk * V1;
+  const float* ds = a.sdes + (size_t)gk * V1;
+  unsigned mnb = __float_as_uint(BIGF), mxb = 0u, anyp = 0u;
+  for (int v = tid; v < V; v += nt) {
+    const float x = cn[v];
+    if (x > 0.0f) {
+      mnb = min(mnb, __float_as_uint(x));
+      mxb = max(mxb, __float_as_uint(x));
+      anyp = 1u;
+    }
+  }
+  mnb = __reduce_min_sync(FULL, mnb);
+  mxb = __reduce_max_sync(FULL, mxb);
+  anyp = __reduce_or_sync(FULL, anyp);
+  if (lane == 0) {
+    part[warp][0] = mnb;
+    part[warp][1] = mxb;
+    part[warp][2] = anyp;
+  }
+  __syncthreads();
+  mnb = lane < nw ? part[lane][0] : __float_as_uint(BIGF);
+  mxb = lane < nw ? part[lane][1] : 0u;
+  anyp = lane < nw ? part[lane][2] : 0u;
+  mnb = __reduce_min_sync(FULL, mnb);
+  mxb = __reduce_max_sync(FULL, mxb);
+  anyp = __reduce_or_sync(FULL, anyp);
+  const float mn = __uint_as_float(mnb);
+  const float mx = anyp ? __uint_as_float(mxb) : -BIGF;
+  const float mn_ = fmaxf(mn, 1e-9f);
+  const float wf = a.wfrac[gk];
+  const bool tgt = a.targeted[gk] != 0;
+  for (int v = tid; v < V1; v += nt) {
+    const bool missing = v >= V;
+    const float cur = cn[v];
+    const float des = ds[v];
+    // targeted spread: ((desired - (used+1)) / desired) * weight_frac
+    float t = -1.0f;
+    if (!missing && des >= 0.0f)
+      t = ((des - (cur + 1.0f)) / fmaxf(des, 1e-9f)) * wf;
+    // even spread: delta vs min/max of placed values
+    float e;
+    if (cur != mn) e = (mn - cur) / mn_;
+    else e = (mn == mx) ? -1.0f : (mx - mn) / mn_;
+    if (missing) e = -1.0f;
+    if (!anyp) e = 0.0f;
+    tb[v] = tgt ? t : e;
+  }
+}
+
+// The eval's deltas on the block's rows [lo, hi): each distinct local row
+// goes to the thread of its first entry, which adds that row's entries
+// in list order (`_add_deltas_local`).  Rows outside this shard drop.
+__device__ void scan_deltas(const ScanArgs& a, const int* rows,
+                            const float* vals, int D, int lo, int hi) {
+  for (int k = threadIdx.x; k < D; k += blockDim.x) {
+    const int g = rows[k];
+    const int r = g - a.off;
+    if (r < lo || r >= hi) continue;
+    bool first = true;
+    for (int j = 0; j < k && first; ++j) first = rows[j] != g;
+    if (!first) continue;
+    float u[R];
+#pragma unroll
+    for (int d = 0; d < R; ++d) u[d] = a.used[r * R + d];
+    for (int j = k; j < D; ++j) {
+      if (rows[j] != g) continue;
+#pragma unroll
+      for (int d = 0; d < R; ++d) u[d] = u[d] + vals[j * R + d];
+    }
+#pragma unroll
+    for (int d = 0; d < R; ++d) a.used[r * R + d] = u[d];
+  }
+}
+
+// The launch's first half of a cluster barrier: every thread arrives
+// once it is running; `cluster_wait` (before the first store into
+// another block's shared memory) then knows every block has started.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+template <bool J>
 __global__ void __launch_bounds__(NT, 1)
 scan_local_kernel(ScanArgs a, const float* __restrict__ used_in,
                   const int* __restrict__ drows,
                   const float* __restrict__ dvals, int D, int s, int init,
-                  int* __restrict__ recs, int shard, int spread_alg) {
+                  int* __restrict__ recs, int shard, int spread) {
+  extern __shared__ float smem_tab[];
   __shared__ ScanShared sh;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int rank = (int)cl.block_rank();
   const int n = a.n, K = a.K, V1 = a.V1, V = V1 - 1;
-  const int kloc = min(TOPK, n);
-  int* rec = recs + (size_t)shard * SCAN_REC;
-  float* recf = reinterpret_cast<float*>(rec);
+  int lo, hi;
+  block_rows(n, SCAN_CLUSTER, rank, &lo, &hi);
+  const float* part = reinterpret_cast<const float*>(a.cache);
+  const float* fitc = part + n;
+  const int* flag = a.cache + 2 * n;
+  int* key = a.cache + 3 * n;
 
   if (init) {
-    // the eval's start: usage carry, its deltas in order, other carries
+    // the eval's start on the block's rows
     if (used_in)
-      for (int i = tid; i < n * R; i += NT) a.used[i] = used_in[i];
-    __syncthreads();
-    if (tid == 0 && drows) {
-      for (int k = 0; k < D; ++k) {
-        const int r = drows[k] - a.off;
-        if (r < 0 || r >= n) continue;
-        for (int d = 0; d < R; ++d)
-          a.used[r * R + d] = a.used[r * R + d] + dvals[k * R + d];
+      for (int i = lo + tid; i < hi; i += nt)
+#pragma unroll
+        for (int d = 0; d < R; ++d) a.used[i * R + d] = used_in[i * R + d];
+    if (drows) {
+      __syncthreads();
+      jitter<J>(1);
+      scan_deltas(a, drows, dvals, D, lo, hi);
+      __syncthreads();
+      jitter<J>(2);
+    }
+    for (int i = lo + tid; i < hi; i += nt)
+      for (int g = 0; g < a.G; ++g) {
+        const size_t gi = (size_t)g * n + i;
+        a.tg_count[gi] = a.tg0[gi];
+        a.place_cap[gi] = a.cap0[gi];
       }
-    }
-    for (int i = tid; i < a.G * n; i += NT) {
-      a.tg_count[i] = a.tg0[i];
-      a.place_cap[i] = a.cap0[i];
-    }
-    for (int i = tid; i < a.G * K * V1; i += NT) a.counts[i] = a.counts0[i];
-    __syncthreads();
+    const size_t gkv = (size_t)a.G * K * V1;
+    for (size_t x = (size_t)rank * nt + tid; x < gkv;
+         x += (size_t)SCAN_CLUSTER * nt)
+      a.counts[x] = a.counts0[x];
   }
+  // the cache's key and the pending pick (none at the eval's start)
+  int kg = -1;
+  float kd[R] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int pick = -1;
+  if (!init) {
+    kg = key[KEY_G];
+#pragma unroll
+    for (int d = 0; d < R; ++d) kd[d] = __int_as_float(key[KEY_DEM + d]);
+    pick = a.pick[0];
+  }
+  const bool mine = pick >= lo && pick < hi && (pick - lo) % nt == tid;
 
   if (!a.slot_active[s]) {
-    // every local row scores -inf: the lowest rows head the top list
-    for (int w = tid; w < SCAN_REC; w += NT) {
-      int v = 0;
-      if (w == REC_BEST) v = __float_as_int(-INFINITY);
-      else if (w == REC_ROW) v = a.off;
-      else if (w >= REC_TOPS && w < REC_TOPI) v = __float_as_int(-INFINITY);
-      else if (w >= REC_TOPI && w < REC_V)
-        v = (w - REC_TOPI < kloc) ? a.off + (w - REC_TOPI) : BIGI;
-      rec[w] = v;
+    // every local row scores -inf: the lowest rows head the top list.
+    // The cache keeps its key; the pending pick is rescored under it.
+    if (kg >= 0 && mine) {
+      float p;
+      score_row(a, kg, pick, kd, spread, &p);
+    }
+    if (rank == 0 && warp == 0) {
+      const int kloc = min(TOPK, n);
+      int* rec = recs + (size_t)shard * SCAN_REC;
+      for (int w = lane; w < SCAN_REC; w += 32) {
+        int v = 0;
+        if (w == REC_BEST) v = __float_as_int(-INFINITY);
+        else if (w == REC_ROW) v = a.off;
+        else if (w >= REC_TOPS && w < REC_TOPI) v = __float_as_int(-INFINITY);
+        else if (w >= REC_TOPI && w < REC_V)
+          v = (w - REC_TOPI < kloc) ? a.off + (w - REC_TOPI) : BIGI;
+        rec[w] = v;
+      }
+      if (init && lane == 0) key[KEY_G] = -1;
     }
     return;
   }
@@ -199,157 +492,149 @@ scan_local_kernel(ScanArgs a, const float* __restrict__ used_in,
   float dem[R];
 #pragma unroll
   for (int d = 0; d < R; ++d) dem[d] = a.demand[s * R + d];
+  bool all = g != kg;
+#pragma unroll
+  for (int d = 0; d < R; ++d)
+    all = all || __float_as_uint(dem[d]) != __float_as_uint(kd[d]);
+  cluster_arrive();
 
-  // -- per-spread statistics of group g: min/max over placed values
-  if (tid < K) {
-    const int gk = g * K + tid;
-    const float* c = a.counts + (size_t)gk * V1;
-    float mn = BIGF, mx = -BIGF;
-    bool anyp = false;
-    for (int v = 0; v < V; ++v) {
-      const float x = c[v];
-      const bool placed = x > 0.0f;
-      anyp = anyp || placed;
-      mn = fminf(mn, placed ? x : BIGF);
-      mx = fmaxf(mx, placed ? x : -BIGF);
+  // -- the boost tables: every warp lists the group's active spreads;
+  // the block builds their tables one after another
+  float* tab = tables_in_cache(K, V1)
+      ? reinterpret_cast<float*>(a.cache + 3 * (size_t)n + CACHE_META) +
+            (size_t)rank * K * V1
+      : smem_tab;
+  const float* cnt = init ? a.counts0 : a.counts;
+  unsigned am[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = h * 32 + lane;
+    am[h] = __ballot_sync(FULL, k < K && a.active[g * K + k] != 0);
+  }
+  const int nact = __popc(am[0]) + __popc(am[1]);
+  jitter<J>(3);
+  {
+    int q = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned b = am[h];
+      while (b) {
+        const int k = h * 32 + __ffs(b) - 1;
+        b &= b - 1u;
+        if (tid == 0) sh.act[q] = k;
+        build_table(a, cnt, g * K + k, tab + (size_t)q * V1, sh.mm[q & 1]);
+        ++q;
+      }
     }
-    sh.minc[tid] = mn;
-    sh.maxc[tid] = mx;
-    sh.anyp[tid] = anyp;
-    sh.active[tid] = a.active[gk];
-    sh.targeted[tid] = a.targeted[gk];
-    sh.wfrac[tid] = a.wfrac[gk];
   }
   __syncthreads();
-  bool any_active = false;
-  for (int k = 0; k < K; ++k) any_active = any_active || sh.active[k];
+  jitter<J>(4);
 
-  const bool has_aff = a.has_aff[g] != 0;
-  const float desired_div = fmaxf((float)a.desired[g], 1.0f);
-
+  // -- the row pass: each row's score from its cache and the tables
   Top top;
-  top_init(top);
-  int n_eval = 0, n_exh = 0;
-  for (int i = tid; i < n; i += NT) {
-    const size_t gi = (size_t)g * n + i;
-    const bool feas = a.feas[gi] != 0 && a.place_cap[gi] != 0;
-    float cap[R], u[R];
-    bool fits = feas;
-#pragma unroll
-    for (int d = 0; d < R; ++d) {
-      cap[d] = a.cap[i * R + d];
-      u[d] = a.used[i * R + d] + dem[d];
-      fits = fits && (u[d] <= cap[d]);
+  top_clear(top);
+  int ne = 0, nx = 0;
+  for (int i = lo + tid; i < hi; i += nt) {
+    float p;
+    unsigned fl;
+    if (all || i == pick) {
+      fl = score_row(a, g, i, dem, spread, &p);
+    } else {
+      p = part[i];
+      fl = (unsigned)flag[i];
     }
-    const float fit = score_fit(cap, u, spread_alg) * (1.0f / 18.0f);
-    float total = fit;
-    float nsc = 1.0f;
-
-    const float coll = (float)a.tg_count[gi];
-    const float anti = -(coll + 1.0f) / desired_div;
-    const bool hc = coll > 0.0f;
-    total = total + (hc ? anti : 0.0f);
-    nsc = nsc + (hc ? 1.0f : 0.0f);
-
-    const bool pen = a.pen[gi] != 0;
-    total = total - (pen ? 1.0f : 0.0f);
-    nsc = nsc + (pen ? 1.0f : 0.0f);
-
-    const float aff = a.aff[gi];
-    const bool aff_on = has_aff && (aff != 0.0f);
-    total = total + (aff_on ? aff : 0.0f);
-    nsc = nsc + (aff_on ? 1.0f : 0.0f);
-
-    float sboost = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const int gk = g * K + k;
-      const int v = a.vidx[(size_t)gk * n + i];
-      const bool missing = v >= V;
-      const int safe = min(v, V);
-      const float cur = a.counts[(size_t)gk * V1 + safe];
-      const float des = a.sdes[(size_t)gk * V1 + safe];
-      // targeted spread: ((desired - (used+1)) / desired) * weight_frac
-      float t = -1.0f;
-      if (!missing && des >= 0.0f)
-        t = ((des - (cur + 1.0f)) / fmaxf(des, 1e-9f)) * sh.wfrac[k];
-      // even spread: delta vs min/max of placed values
-      const float mn = sh.minc[k], mx = sh.maxc[k];
-      const float mn_ = fmaxf(mn, 1e-9f);
-      float e;
-      if (cur != mn) e = (mn - cur) / mn_;
-      else e = (mn == mx) ? -1.0f : (mx - mn) / mn_;
-      if (missing) e = -1.0f;
-      if (!sh.anyp[k]) e = 0.0f;
-      const float boost = sh.targeted[k] ? t : e;
-      sboost = sboost + (sh.active[k] ? boost : 0.0f);
+    float sb = 0.0f;
+    for (int q = 0; q < nact; ++q) {
+      const int v = a.vidx[((size_t)g * K + sh.act[q]) * n + i];
+      sb = sb + tab[(size_t)q * V1 + min(v, V)];
     }
-    const bool sb_on = any_active && (sboost != 0.0f);
-    total = total + (sb_on ? sboost : 0.0f);
-    nsc = nsc + (sb_on ? 1.0f : 0.0f);
-
-    const float masked = fits ? total / nsc : -INFINITY;
-    top_insert(top, masked, a.off + i);
-    n_eval += feas ? 1 : 0;
-    n_exh += (feas && !fits) ? 1 : 0;
+    const bool sb_on = sb != 0.0f;
+    const float total = p + (sb_on ? sb : 0.0f);
+    const float nsc = (float)((fl >> 2) + (sb_on ? 1u : 0u));
+    const float masked = (fl & F_FITS) ? total / nsc : -INFINITY;
+    top_push(top, make_key(masked, a.off + i));
+    ne += (fl & F_FEAS) ? 1 : 0;
+    nx += (fl & (F_FEAS | F_FITS)) == F_FEAS ? 1 : 0;
   }
 
-  // -- the shard's top-5 (its head is the local argmax) and counts
+  // -- the block's top-5 and counts into block 0's slot
+  Top wt;
+  int first;
+  warp_top(top, wt, &first);
+  ne = __reduce_add_sync(FULL, ne);
+  nx = __reduce_add_sync(FULL, nx);
+  jitter<J>(5);
+  if (lane == 0) {
 #pragma unroll
-  for (int k = 0; k < TOPK; ++k) { sh.tv[tid][k] = top.v[k]; sh.ti[tid][k] = top.i[k]; }
-  n_eval = warp_sum(n_eval);
-  n_exh = warp_sum(n_exh);
-  if (lane == 0) { sh.a[warp] = n_eval; sh.b[warp] = n_exh; }
+    for (int k = 0; k < TOPK; ++k) sh.wk[warp][k] = wt.k[k];
+    sh.wc[warp][0] = ne;
+    sh.wc[warp][1] = nx;
+  }
   __syncthreads();
-  for (int stride = NT / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      float av[TOPK], bv[TOPK], rv[TOPK];
-      int ai[TOPK], bi[TOPK], ri[TOPK];
+  jitter<J>(6);
+  cluster_wait();        // block 0 has started: its slots may be written
+  if (warp == 0) {
+    Top t, bt;
 #pragma unroll
-      for (int k = 0; k < TOPK; ++k) {
-        av[k] = sh.tv[tid][k]; ai[k] = sh.ti[tid][k];
-        bv[k] = sh.tv[tid + stride][k]; bi[k] = sh.ti[tid + stride][k];
-      }
-      int x = 0, y = 0;
+    for (int k = 0; k < TOPK; ++k) t.k[k] = lane < nw ? sh.wk[lane][k] : 0ull;
+    const int bne = __reduce_add_sync(FULL, lane < nw ? sh.wc[lane][0] : 0);
+    const int bnx = __reduce_add_sync(FULL, lane < nw ? sh.wc[lane][1] : 0);
+    warp_top(t, bt, &first);
+    jitter<J>(7);
+    if (lane == 0) {
+      ScanShared* s0 = cl.map_shared_rank(&sh, 0);
 #pragma unroll
-      for (int k = 0; k < TOPK; ++k) {
-        if (before(bv[y], bi[y], av[x], ai[x])) { rv[k] = bv[y]; ri[k] = bi[y]; ++y; }
-        else { rv[k] = av[x]; ri[k] = ai[x]; ++x; }
-      }
-#pragma unroll
-      for (int k = 0; k < TOPK; ++k) { sh.tv[tid][k] = rv[k]; sh.ti[tid][k] = ri[k]; }
+      for (int k = 0; k < TOPK; ++k) s0->bk[rank][k] = bt.k[k];
+      s0->bfit[rank] = bt.k[0] ? fitc[key_row(bt.k[0]) - a.off] : 0.0f;
+      s0->bc[rank][0] = bne;
+      s0->bc[rank][1] = bnx;
     }
-    __syncthreads();
   }
+  cl.sync();
+  jitter<J>(8);
+  if (rank != 0 || warp != 0) return;
 
-  if (tid == 0) {
-    int ne = 0, nx = 0;
-    for (int w = 0; w < NW; ++w) { ne += sh.a[w]; nx += sh.b[w]; }
-    const float best = sh.tv[0][0];
-    const int row = sh.ti[0][0];
-    for (int w = 0; w < SCAN_REC; ++w) rec[w] = 0;
-    recf[REC_BEST] = best;
+  // -- block 0's first warp: the cluster's top-5 and counts, the record
+  Top t, ct;
+#pragma unroll
+  for (int k = 0; k < TOPK; ++k)
+    t.k[k] = lane < SCAN_CLUSTER ? sh.bk[lane][k] : 0ull;
+  const float bf = lane < SCAN_CLUSTER ? sh.bfit[lane] : 0.0f;
+  ne = __reduce_add_sync(FULL, lane < SCAN_CLUSTER ? sh.bc[lane][0] : 0);
+  nx = __reduce_add_sync(FULL, lane < SCAN_CLUSTER ? sh.bc[lane][1] : 0);
+  warp_top(t, ct, &first);
+  const float hf = __shfl_sync(FULL, bf, first);
+  const float best = key_val(ct.k[0]);
+  const int row = key_row(ct.k[0]);
+  const bool any = best > -INFINITY;
+  const int kloc = min(TOPK, n);
+  u64 kq = 0ull;
+#pragma unroll
+  for (int j = 0; j < TOPK; ++j) kq = lane == j ? ct.k[j] : kq;
+  int* rec = recs + (size_t)shard * SCAN_REC;
+  if (lane == 0) {
+    rec[REC_BEST] = __float_as_int(best);
     rec[REC_ROW] = row;
+    rec[REC_FIT] = any ? __float_as_int(hf) : 0;
     rec[REC_NEVAL] = ne;
     rec[REC_NEXH] = nx;
-    for (int k = 0; k < TOPK; ++k) {
-      recf[REC_TOPS + k] = (k < kloc) ? sh.tv[0][k] : -INFINITY;
-      rec[REC_TOPI + k] = (k < kloc) ? sh.ti[0][k] : BIGI;
-    }
-    if (best > -INFINITY) {
-      const int li = row - a.off;
-      float cap[R], u[R];
-      for (int d = 0; d < R; ++d) {
-        cap[d] = a.cap[li * R + d];
-        u[d] = a.used[li * R + d] + dem[d];
-      }
-      recf[REC_FIT] = score_fit(cap, u, spread_alg) * (1.0f / 18.0f);
-      for (int k = 0; k < K; ++k)
-        rec[REC_V + k] = a.vidx[((size_t)g * K + k) * n + li];
+    if (all) {
+      key[KEY_G] = g;
+#pragma unroll
+      for (int d = 0; d < R; ++d) key[KEY_DEM + d] = __float_as_int(dem[d]);
     }
   }
+  if (lane < TOPK) {
+    rec[REC_TOPS + lane] = __float_as_int(lane < kloc ? key_val(kq) : -INFINITY);
+    rec[REC_TOPI + lane] = lane < kloc ? key_row(kq) : BIGI;
+  }
+  for (int k = lane; k < MAXK; k += 32)
+    rec[REC_V + k] = (any && k < K)
+        ? a.vidx[((size_t)g * K + k) * n + (row - a.off)] : 0;
 }
 
-// One warp; thread 0 merges the gathered records and applies the pick.
+// One warp; thread 0 merges the gathered records, applies the pick and
+// writes the shard's pick word.
 __global__ void scan_apply_kernel(ScanArgs a, int s,
                                   const int* __restrict__ recs, int nsh,
                                   float* __restrict__ out) {
@@ -369,6 +654,7 @@ __global__ void scan_apply_kernel(ScanArgs a, int s,
     }
   }
   const bool ok = sel < BIGI;
+  int changed = -1;     // the local row this launch changes, for K7a
   if (ok) {
     const int lr = sel - a.off;
     if (lr >= 0 && lr < n) {
@@ -377,6 +663,7 @@ __global__ void scan_apply_kernel(ScanArgs a, int s,
       const size_t gs = (size_t)g * n + lr;
       a.tg_count[gs] += 1;
       if (a.place_cap[gs] > 0) a.place_cap[gs] -= 1;
+      changed = lr;
     }
     for (int k = 0; k < K; ++k) {
       const int v = recs[win * SCAN_REC + REC_V + k];
@@ -384,6 +671,7 @@ __global__ void scan_apply_kernel(ScanArgs a, int s,
         a.counts[((size_t)g * K + k) * V1 + v] += 1.0f;
     }
   }
+  a.pick[0] = changed;
   if (out == nullptr) return;
   float* o = out + (size_t)s * OUTW;
   int ne = 0, nx = 0;
@@ -421,8 +709,9 @@ __global__ void scan_apply_kernel(ScanArgs a, int s,
 
 // ------------------------------------------------------------- the bulk
 
-// one shard of one lane (ops/sharded.py BulkShard); per-eval operands
-// are [E, ...] with eval e at e * (its row size), outputs at e * ostride
+// one shard of one lane (ops/sharded.py BulkShard, BulkArgs: packed once
+// a shard); per-eval operands are [E, ...] with eval e at e * (its row
+// size), outputs at e * ostride
 struct BulkArgs {
   const float* cap;          // f32[n, R]
   float* used;               // f32[n, R] chain carry
@@ -487,14 +776,6 @@ __device__ __forceinline__ void load_row(BulkRow& r, const BulkArgs& a,
   r.aff_on = v.has_aff && (r.aff != 0.0f);
 }
 
-// rows [lo, hi) of the shard's n that one of `blocks` blocks owns
-__device__ __forceinline__ void block_rows(int n, int blocks, int rank,
-                                           int* lo, int* hi) {
-  const int rpb = (n + blocks - 1) / blocks;
-  *lo = min(rank * rpb, n);
-  *hi = min(*lo + rpb, n);
-}
-
 // x + a * dem, per resource dim
 __device__ __forceinline__ float4 add_scaled(float4 x, float a,
                                              const float* dem) {
@@ -551,17 +832,6 @@ struct StatsShared {
   StatsPart warp[NW];
   StatsPart slot[STATS_CLUSTER];   // block 0's: one per block
 };
-
-// The launch's first half of a cluster barrier: every thread arrives
-// once it is running; `cluster_wait` (before the first store into
-// another block's shared memory) then knows every block has started.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
 
 // The cluster's merged part, in thread 0 of block 0 (*lead); every block
 // stores its part into block 0's slot before the one cluster barrier, so
@@ -748,35 +1018,120 @@ __device__ __forceinline__ WaveGlobals wave_globals(const float* stats, int nsh)
 }
 
 // ------------------------------------------------------- K7d bulk_run
+//
+// The rows are independent (no row reads another's run) and every cell m
+// of a row depends only on the row and m, so a launch is a grid of
+// blocks of RUN_ROWS rows.  A block compacts its wave rows (a ballot and
+// a prefix count, so idle lanes score no cell).  A first pass scores
+// each wave row's cells m = 1..W1 over W1 lanes (the least power of two
+// >= run_cap, at most RUN_W1: 32 / W1 rows a warp; most runs end there);
+// the rows that pass all W1 go on to a second pass, a warp a row, 32
+// cells at a time until one fails.  The run is the first failing m - 1
+// (`__ballot_sync`, `__ffs`), or run_cap where none fails:
+// `bulk_run_lengths`' leading run, m = 1 forced for a fitting row,
+// capped at the remaining count.
 
-__global__ void __launch_bounds__(NT, 1)
+constexpr int RUN_NT = 256;       // threads of a K7d block
+constexpr int RUN_ROWS = 64;      // rows a K7d block owns
+constexpr int RUN_W1 = 4;         // most lanes a row takes in the first pass
+static_assert(RUN_ROWS <= RUN_NT, "a thread a row tests the wave");
+
+// Whether cell m of row r fails the run: the row does not fit m more, or
+// (m > 1) its score does not beat `second`.
+__device__ __forceinline__ bool cell_fails(const BulkRow& r, const Eval& v,
+                                           int m, float second, int spread) {
+  bool f;
+  float sc;
+  grid_cell(r, v.dem, (float)m, v.desired_div, spread, &f, &sc);
+  return !(f && (sc > second || m == 1));
+}
+
+__global__ void __launch_bounds__(RUN_NT)
 bulk_run_kernel(BulkArgs a, int e, const float* __restrict__ stats, int nsh,
                 const float* __restrict__ cur_g, int* __restrict__ base_g,
                 int spread, int fill_grid) {
+  __shared__ int list[RUN_ROWS];
+  __shared__ int longs[RUN_ROWS];
+  __shared__ int wn[RUN_NT / 32];
+  __shared__ int nlong;
   if (a.state[ST_DONE]) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Eval v = eval_of(a, e);
   const WaveGlobals g = wave_globals(stats, nsh);
   const bool use_strict = g.gmax > g.s_star;
   const int run_cap = min(fill_grid, v.count - a.state[ST_PLACED]);
-  for (int i = threadIdx.x; i < a.n; i += NT) {
-    const float cur = cur_g[a.off + i];
+  const int lo = blockIdx.x * RUN_ROWS;
+  const int hi = min(lo + RUN_ROWS, a.n);
+
+  // the block's wave rows, in row order; every other row's run is 0
+  bool need = false;
+  if (lo + tid < hi && tid < RUN_ROWS) {
+    const float cur = cur_g[a.off + lo + tid];
     const bool fits = cur > -INFINITY;
-    const bool in_wave = g.any_fit &&
+    need = g.any_fit && run_cap > 0 &&
         (use_strict ? (cur > g.s_star) : (fits && cur == g.gmax));
-    int run = 0;
-    if (in_wave) {
-      const float second = (cur == g.gmax) ? g.gsecond : g.gmax;
-      BulkRow r;
+    if (!need) base_g[a.off + lo + tid] = 0;
+  }
+  const unsigned m = __ballot_sync(FULL, need);
+  if (lane == 0) wn[warp] = __popc(m);
+  if (tid == 0) nlong = 0;
+  __syncthreads();
+  int pre = 0, cnt = 0;
+#pragma unroll
+  for (int w = 0; w < RUN_NT / 32; ++w) {
+    pre += w < warp ? wn[w] : 0;
+    cnt += wn[w];
+  }
+  if (need) list[pre + __popc(m & ((1u << lane) - 1u))] = lo + tid;
+  __syncthreads();
+
+  // the first pass: cells 1..W1 of each row over W1 lanes
+  int W = 1;
+  while (W < run_cap && W < RUN_W1) W <<= 1;
+  const int sub = lane / W, cell = lane % W;
+  const unsigned gmask = ((1u << W) - 1u) << (sub * W);
+  const int per = 32 / W;
+  for (int b0 = warp * per; b0 < cnt; b0 += (RUN_NT / 32) * per) {
+    const int idx = b0 + sub;
+    const bool has = idx < cnt;
+    const int i = has ? list[idx] : 0;
+    BulkRow r;
+    float second = 0.0f;
+    if (has) {
       load_row(r, a, v, i);
-      for (int m = 1; m <= run_cap; ++m) {
-        bool f;
-        float s;
-        grid_cell(r, v.dem, (float)m, v.desired_div, spread, &f, &s);
-        if (!(f && (s > second || m == 1))) break;
-        run = m;
+      const float cur = cur_g[a.off + i];
+      second = (cur == g.gmax) ? g.gsecond : g.gmax;
+    }
+    const int mm = cell + 1;
+    const bool fail = has && mm <= run_cap && cell_fails(r, v, mm, second,
+                                                         spread);
+    const unsigned mine = __ballot_sync(FULL, fail) & gmask;
+    if (has && cell == 0) {
+      if (mine) base_g[a.off + i] = __ffs(mine) - sub * W - 1;
+      else if (W >= run_cap) base_g[a.off + i] = run_cap;
+      else longs[atomicAdd(&nlong, 1)] = i;
+    }
+  }
+  __syncthreads();
+
+  // the second pass: each remaining row a warp, 32 cells at a time
+  for (int j = warp; j < nlong; j += RUN_NT / 32) {
+    const int i = longs[j];
+    BulkRow r;
+    load_row(r, a, v, i);
+    const float cur = cur_g[a.off + i];
+    const float second = (cur == g.gmax) ? g.gsecond : g.gmax;
+    int first = run_cap + 1;          // the first failing m
+    for (int c0 = W; c0 < run_cap; c0 += 32) {
+      const int mm = c0 + lane + 1;
+      const bool fail = mm <= run_cap && cell_fails(r, v, mm, second, spread);
+      const unsigned bal = __ballot_sync(FULL, fail);
+      if (bal) {
+        first = c0 + __ffs(bal);
+        break;
       }
     }
-    base_g[a.off + i] = run;
+    if (lane == 0) base_g[a.off + i] = first - 1;
   }
 }
 
@@ -1319,59 +1674,53 @@ cudaError_t stats_launch(int threads, cudaStream_t stream, BulkArgs a, int e,
   return cudaGetLastError();
 }
 
-BulkArgs bulk_args(const float* cap, float* used, float* exact, float* delta,
-                   int* coll, const uint8_t* feas, const float* aff,
-                   const uint8_t* pen, const int* coll0,
-                   const uint8_t* has_aff, const int* desired,
-                   const float* demand, const int* count, const int* drows,
-                   const float* dvals, int* assign, float* scores,
-                   int* partial, int* state, int n, int N, int off, int D,
-                   int ostride) {
-  return BulkArgs{cap, used, exact, delta, coll, feas, aff, pen, coll0,
-                  has_aff, desired, demand, count, drows, dvals, assign,
-                  scores, partial, state, n, N, off, D, ostride};
+// One K7a cluster of SCAN_CLUSTER blocks, a thread a row of a block's
+// share (at most NT), its tables in dynamic shared memory unless they
+// live in the cache.
+template <bool J>
+cudaError_t scan_launch(const ScanArgs& a, const float* used_in,
+                        const int* drows, const float* dvals, int D, int s,
+                        int init, int* recs, int shard, int spread,
+                        cudaStream_t stream) {
+  const int rpb = (a.n + SCAN_CLUSTER - 1) / SCAN_CLUSTER;
+  const int threads = min(NT, max(32, (rpb + 31) / 32 * 32));
+  const size_t smem = tables_in_cache(a.K, a.V1)
+      ? 0 : (size_t)a.K * a.V1 * sizeof(float);
+  return cluster_launch(scan_local_kernel<J>, SCAN_CLUSTER, threads,
+                        TAB_SMEM * sizeof(float), smem, stream, a, used_in,
+                        drows, dvals, D, s, init, recs, shard, spread);
 }
 
 }  // namespace
 
-#define BULK_PARAMS                                                        \
-  const float *cap, float *used, float *exact, float *delta, int *coll,    \
-      const uint8_t *feas, const float *aff, const uint8_t *pen,           \
-      const int *coll0, const uint8_t *has_aff, const int *desired,        \
-      const float *demand, const int *count, const int *drows,             \
-      const float *dvals, int *assign, float *scores, int *partial,        \
-      int *state, int n, int N, int off, int D, int ostride
-#define BULK_ARGS                                                          \
-  bulk_args(cap, used, exact, delta, coll, feas, aff, pen, coll0, has_aff, \
-            desired, demand, count, drows, dvals, assign, scores, partial, \
-            state, n, N, off, D, ostride)
+// K7a: one slot on one shard, its operands packed once (`a`); used_in,
+// drows and dvals only at the eval's first slot (init).
+extern "C" int scan_local_launch(const void* args, const float* used_in,
+                                 const int* drows, const float* dvals, int D,
+                                 int s, int init, int* recs, int shard,
+                                 int spread_alg, void* stream) {
+  const ScanArgs* a = static_cast<const ScanArgs*>(args);
+  if (a->K < 1 || a->K > MAXK || a->n < 1 || a->V1 < 1 ||
+      (size_t)a->cache_words < scan_cache_words(a->n, a->K, a->V1))
+    return (int)cudaErrorInvalidValue;
+  return (int)(jitter_on
+      ? scan_launch<true>(*a, used_in, drows, dvals, D, s, init, recs, shard,
+                          spread_alg, (cudaStream_t)stream)
+      : scan_launch<false>(*a, used_in, drows, dvals, D, s, init, recs, shard,
+                           spread_alg, (cudaStream_t)stream));
+}
 
-extern "C" int scan_local_launch(
-    const float* cap, float* used, const uint8_t* feas, const float* aff,
-    const uint8_t* pen, const int* tg0, const int* cap0, const int* vidx,
-    const uint8_t* has_aff, const int* desired, const float* sdes,
-    const uint8_t* targeted, const float* wfrac, const float* counts0,
-    const uint8_t* active, const float* demand, const int* slot_tg,
-    const uint8_t* slot_active, int* tg_count, int* place_cap, float* counts,
-    const float* used_in, const int* drows, const float* dvals, int* recs,
-    int G, int n, int K, int V1, int D, int off, int s, int init, int shard,
-    int spread_alg, void* stream) {
-  if (K < 1 || K > MAXK || n < 1 || V1 < 1) return (int)cudaErrorInvalidValue;
-  const ScanArgs a{cap, used, feas, aff, pen, tg0, cap0, vidx, has_aff,
-                   desired, sdes, targeted, wfrac, counts0, active, demand,
-                   slot_tg, slot_active, tg_count, place_cap, counts,
-                   G, n, K, V1, off};
-  scan_local_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
-      a, used_in, drows, dvals, D, s, init, recs, shard, spread_alg);
-  return (int)cudaGetLastError();
+// i32 words of K7a's cache for n rows, K spreads over V1 - 1 values
+extern "C" int scan_cache_words_of(int n, int K, int V1) {
+  return (int)scan_cache_words(n, K, V1);
 }
 
 extern "C" int scan_apply_launch(float* used, int* tg_count, int* place_cap,
                                  float* counts, const uint8_t* active,
                                  const float* demand, const int* slot_tg,
-                                 const int* recs, float* out, int G, int n,
-                                 int K, int V1, int off, int s, int nsh,
-                                 void* stream) {
+                                 const int* recs, float* out, int* pick,
+                                 int G, int n, int K, int V1, int off, int s,
+                                 int nsh, void* stream) {
   if (K < 1 || K > MAXK || n < 1 || nsh < 1 || nsh * min(TOPK, n) < TOPK)
     return (int)cudaErrorInvalidValue;
   ScanArgs a{};
@@ -1382,6 +1731,7 @@ extern "C" int scan_apply_launch(float* used, int* tg_count, int* place_cap,
   a.active = active;
   a.demand = demand;
   a.slot_tg = slot_tg;
+  a.pick = pick;
   a.G = G;
   a.n = n;
   a.K = K;
@@ -1391,44 +1741,50 @@ extern "C" int scan_apply_launch(float* used, int* tg_count, int* place_cap,
   return (int)cudaGetLastError();
 }
 
-// The delays' seed for the K7c launches that follow on `stream` (0: the
-// kernel without the delay sites).  A check's setting: no other host
-// thread may launch K7c meanwhile.
+// The delays' seed for the K7a and K7c launches that follow on `stream`
+// (0: the kernels without the delay sites).  A check's setting: no other
+// host thread may launch them meanwhile.
 extern "C" int sharded_set_jitter(int seed, void* stream) {
   return (int)set_jitter(seed, (cudaStream_t)stream);
 }
 
 extern "C" int bulk_stats_cluster_size() { return STATS_CLUSTER; }
 
-extern "C" int bulk_stats_launch(BULK_PARAMS, int e, int begin, float* stats,
-                                 float* cur_g, int shard, int spread,
-                                 int max_waves, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const int rpb = (n + STATS_CLUSTER - 1) / STATS_CLUSTER;
+extern "C" int bulk_stats_launch(const void* args, int e, int begin,
+                                 float* stats, float* cur_g, int shard,
+                                 int spread, int max_waves, void* stream) {
+  const BulkArgs* a = static_cast<const BulkArgs*>(args);
+  if (a->n < 1) return (int)cudaErrorInvalidValue;
+  const int rpb = (a->n + STATS_CLUSTER - 1) / STATS_CLUSTER;
   const int threads = min(NT, max(32, (rpb + 31) / 32 * 32));
   return (int)(jitter_on
-      ? stats_launch<true>(threads, (cudaStream_t)stream, BULK_ARGS, e, begin,
+      ? stats_launch<true>(threads, (cudaStream_t)stream, *a, e, begin,
                            stats, cur_g, shard, spread, max_waves)
-      : stats_launch<false>(threads, (cudaStream_t)stream, BULK_ARGS, e,
-                            begin, stats, cur_g, shard, spread, max_waves));
+      : stats_launch<false>(threads, (cudaStream_t)stream, *a, e, begin,
+                            stats, cur_g, shard, spread, max_waves));
 }
 
-extern "C" int bulk_run_launch(BULK_PARAMS, int e, const float* stats,
+extern "C" int bulk_run_launch(const void* args, int e, const float* stats,
                                int nsh, const float* cur_g, int* base_g,
                                int spread, int fill_grid, void* stream) {
-  if (fill_grid < 1 || fill_grid > 255) return (int)cudaErrorInvalidValue;
-  bulk_run_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
-      BULK_ARGS, e, stats, nsh, cur_g, base_g, spread, fill_grid);
+  const BulkArgs* a = static_cast<const BulkArgs*>(args);
+  if (a->n < 1 || fill_grid < 1 || fill_grid > 255)
+    return (int)cudaErrorInvalidValue;
+  bulk_run_kernel<<<(a->n + RUN_ROWS - 1) / RUN_ROWS, RUN_NT, 0,
+                    (cudaStream_t)stream>>>(*a, e, stats, nsh, cur_g, base_g,
+                                            spread, fill_grid);
   return (int)cudaGetLastError();
 }
 
-extern "C" int bulk_order_launch(BULK_PARAMS, int e, const float* stats,
+extern "C" int bulk_order_launch(const void* args, int e, const float* stats,
                                  int nsh, const float* cur_g,
                                  const int* base_g, int spread, int max_waves,
                                  void* stream) {
-  if (n < 1 || N < n || N > (1 << 24)) return (int)cudaErrorInvalidValue;
+  const BulkArgs* a = static_cast<const BulkArgs*>(args);
+  if (a->n < 1 || a->N < a->n || a->N > (1 << 24))
+    return (int)cudaErrorInvalidValue;
   bulk_order_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
-      BULK_ARGS, e, stats, nsh, cur_g, base_g, spread, max_waves);
+      *a, e, stats, nsh, cur_g, base_g, spread, max_waves);
   return (int)cudaGetLastError();
 }
 

@@ -33,8 +33,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the operands of one bulk shard (csrc/sharded.cu BULK_PARAMS)
-_BULK = [_P] * 19 + [_I] * 5
 # C entry points of each kernel source and their argument types
 # (pointers and the stream as c_void_p, ints as c_int, floats as
 # c_float); every entry
@@ -71,13 +69,16 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
                               _I] + [_P] * 6,
     },
     "sharded": {
-        "scan_local_launch": [_P] * 25 + [_I] * 10 + [_P],
-        "scan_apply_launch": [_P] * 9 + [_I] * 7 + [_P],
-        "bulk_stats_launch": _BULK + [_I, _I, _P, _P, _I, _I, _I, _P],
+        # K7a and K7c-K7e take their shard's packed operands (a pointer
+        # to ops/sharded.py ScanArgs / BulkArgs) first
+        "scan_local_launch": [_P] * 4 + [_I] * 3 + [_P, _I, _I, _P],
+        "scan_cache_words_of": [_I, _I, _I],
+        "scan_apply_launch": [_P] * 10 + [_I] * 7 + [_P],
+        "bulk_stats_launch": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
         "bulk_stats_cluster_size": [],
         "sharded_set_jitter": [_I, _P],
-        "bulk_run_launch": _BULK + [_I, _P, _I, _P, _P, _I, _I, _P],
-        "bulk_order_launch": _BULK + [_I, _P, _I, _P, _P, _I, _I, _P],
+        "bulk_run_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _P],
+        "bulk_order_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _P],
         "bulk_counts_launch": [_P, _P, _I, _I, _P],
         "basis_merge_launch": [_P, _P, _P, _I, _I, _P],
     },

@@ -11,18 +11,24 @@ kernels write (parallel/sharded.py sequences them).
 - K7a `scan_local`: one scan slot on one shard: scores the local rows and
   writes the shard's record (local best and its global row, the fit
   score and spread value indices at that row, local n_eval/n_exh, the
-  local top-K) into its slot of the gathered record buffer.
+  local top-K) into its slot of the gathered record buffer.  The kernel
+  keeps each row's partial score in the shard's cache across slots and
+  rescores only the row in the shard's pick word between slots of one
+  group and demand (`scan_local_cached_model` is its model).
 - K7b `scan_apply`: from the gathered records, the global selection
   (pmax score, pmin row, stable merge of the top-K lists); the owning
-  shard updates used/tg_count/place_cap at the picked row, every shard
-  its replica of the spread counts; shard 0 writes the slot's packed row.
+  shard updates used/tg_count/place_cap at the picked row (and names it
+  in its pick word, -1 elsewhere), every shard its replica of the spread
+  counts; shard 0 writes the slot's packed row.
 - K7c `bulk_stats`: one bulk wave's statistics on one shard (any fit, the
   m = 2 column's best, the local top-2 of the wave-start scores, which go
   to the gathered score vector); with `begin` it first starts the eval
   (its deltas, coll0, the lane state).  One thread-block cluster a
   launch.
 - K7d `bulk_run`: every local row's fill run length (capped at the
-  remaining count) in the wave set the gathered statistics give.
+  remaining count) in the wave set the gathered statistics give; the
+  kernel scores a row's cells in parallel and takes the first failure
+  (`bulk_run_model`).
 - K7e `bulk_order`: the greedy order over the gathered [N] vectors
   (identical on every shard) and this shard's share of it; the lane
   state, and the eval's tail (final scores, local counts, exact carry,
@@ -35,11 +41,14 @@ kernels write (parallel/sharded.py sequences them).
 Each has a plain PyTorch version here, which the wrapper takes for CPU
 tensors; CUDA tensors launch csrc/sharded.cu.  Records are i32 words
 (floats stored as their bits).  `launches` counts kernel launches only.
+K7a's and K7c-K7e's operands are packed into a `ctypes.Structure` at a
+shard's first launch and passed by address after; a shard's tensors
+are therefore never replaced, only written in place.
 """
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 from types import SimpleNamespace
 from typing import Optional
 
@@ -52,7 +61,9 @@ from nomad_tpu_torch.ops.place import (
     PACKED_WIDTH,
     SCAN_MAX_SPREADS,
     TOP_K,
+    _boost_tables,
     _lax_top_k,
+    _partial_scores,
     _spread_boost,
     bulk_run_lengths,
     bulk_wave_grid,
@@ -72,6 +83,10 @@ ST_PLACED, ST_WAVES, ST_STUCK, ST_DONE = 0, 1, 2, 3
 STATE_W = 4
 # per-eval partial counts: placed, n_eval (local), n_exh (local), waves
 COUNTS_W = 4
+# K7a's cache (csrc/sharded.cu): partial totals, fits and flag words [n]
+# each, then the key: the group (-1: none) and the demand's f32 bits
+SCAN_CACHE_META = 8
+F_FEAS, F_FITS = 1, 2               # flag word bits; the scorer count << 2
 
 launches = {"scan_local": 0, "scan_apply": 0, "bulk_stats": 0,
             "bulk_run": 0, "bulk_order": 0, "bulk_counts": 0,
@@ -89,6 +104,14 @@ def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _packed(cls, values) -> tuple:
+    """A `cls` (ctypes.Structure) of `values` and its address, which the
+    entry points take: (the structure, kept alive by the caller; the
+    address as c_void_p)."""
+    st = cls(*values)
+    return st, ctypes.c_void_p(ctypes.addressof(st))
 
 
 def _kind(t: torch.Tensor, name: str) -> str:
@@ -124,7 +147,9 @@ class ScanShard:
     """One node shard of one scan eval: rows [off, off + n) of the
     node-axis fields, the replicated fields, and the carries it updates
     in place (the usage carry, and tg_count/place_cap/spread counts that
-    each eval restarts from its own fields)."""
+    each eval restarts from its own fields), with K7a's cache and the
+    pick word K7b writes for it.  `packed`: K7a's operands, packed at the
+    shard's first launch."""
     off: int
     capacity: torch.Tensor        # f32[n, R]
     used: torch.Tensor            # f32[n, R] usage carry
@@ -147,6 +172,10 @@ class ScanShard:
     tg_count: torch.Tensor        # i32[G, n] carry
     place_cap: torch.Tensor       # i32[G, n] carry
     counts: torch.Tensor          # f32[G, K, V1] carry (this shard's replica)
+    cache: torch.Tensor           # i32[...] K7a's row cache (scan_cache)
+    pick: torch.Tensor            # i32[1] the local row K7b changed, -1 none
+    packed: Optional[tuple] = field(default=None, init=False, repr=False,
+                                    compare=False)
 
     def check(self) -> "ScanShard":
         _check_same_device("ScanShard", self)
@@ -158,11 +187,56 @@ class ScanShard:
         if R != 4 or self.feasible.shape != (G, n) \
                 or self.vidx.shape != (G, K, n):
             raise ValueError("ScanShard: inconsistent shapes")
+        if self.cache.dtype != torch.int32 \
+                or self.cache.numel() < 3 * n + SCAN_CACHE_META \
+                or self.pick.dtype != torch.int32 or self.pick.numel() != 1:
+            raise ValueError("ScanShard: cache i32[>= 3n + "
+                             f"{SCAN_CACHE_META}] and pick i32[1]")
         for f in fields(self):
             t = getattr(self, f.name)
             if isinstance(t, torch.Tensor) and not t.is_contiguous():
                 raise ValueError(f"ScanShard.{f.name}: not contiguous")
         return self
+
+
+def scan_cache(n: int, K: int, V1: int, device) -> torch.Tensor:
+    """K7a's cache for a shard of n rows, K spreads over V1 - 1 values:
+    partial totals, fits (f32 bits) and flag words [n] each, the key
+    (SCAN_CACHE_META words), and on the card, where the boost tables pass
+    what a block keeps in shared memory, a table region
+    (`scan_cache_words_of`).  An eval's first slot sets its contents."""
+    device = torch.device(device)
+    words = 3 * n + SCAN_CACHE_META
+    if device.type == "cuda":
+        words = int(_build.load("sharded").scan_cache_words_of(n, K, V1))
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+class ScanArgs(ctypes.Structure):
+    """csrc/sharded.cu ScanArgs: one shard's K7a operands."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "cap", "used", "feas", "aff", "pen", "tg0", "cap0", "vidx",
+        "has_aff", "desired", "sdes", "targeted", "wfrac", "counts0",
+        "active", "demand", "slot_tg", "slot_active", "tg_count",
+        "place_cap", "counts", "cache", "pick")] + \
+        [(name, ctypes.c_int) for name in ("G", "n", "K", "V1", "off",
+                                           "cache_words")]
+
+
+def _scan_args(sh: ScanShard) -> ctypes.c_void_p:
+    """The address of the shard's packed K7a operands (packed once)."""
+    if sh.packed is None:
+        n = sh.capacity.shape[0]
+        G, K = sh.spread_wfrac.shape
+        ts = (sh.capacity, sh.used, sh.feasible, sh.affinity, sh.penalty,
+              sh.tg0, sh.cap0, sh.vidx, sh.has_affinity, sh.desired_count,
+              sh.spread_desired, sh.spread_targeted, sh.spread_wfrac,
+              sh.counts0, sh.spread_active, sh.demand, sh.slot_tg,
+              sh.slot_active, sh.tg_count, sh.place_cap, sh.counts,
+              sh.cache, sh.pick)
+        sh.packed = _packed(ScanArgs, [t.data_ptr() for t in ts] + [
+            G, n, K, sh.spread_desired.shape[2], sh.off, sh.cache.numel()])
+    return sh.packed[1]
 
 
 def _add_deltas_local(used: torch.Tensor, off: int, rows: torch.Tensor,
@@ -174,6 +248,48 @@ def _add_deltas_local(used: torch.Tensor, off: int, rows: torch.Tensor,
     for k in torch.nonzero((lr >= 0) & (lr < n)).flatten().tolist():
         r = int(lr[k])
         used[r] = used[r] + vals[k]
+
+
+def _scan_start(sh: ScanShard, used_in: Optional[torch.Tensor],
+                delta_rows: Optional[torch.Tensor],
+                delta_vals: Optional[torch.Tensor]) -> None:
+    """An eval's start on the shard (K7a's plain version and its cached
+    model): the usage carry from `used_in` (when given), the eval's
+    deltas added to it in order, the other carries from the eval's
+    fields."""
+    if used_in is not None:
+        sh.used.copy_(used_in)
+    if delta_rows is not None:
+        _add_deltas_local(sh.used, sh.off, delta_rows, delta_vals)
+    sh.tg_count.copy_(sh.tg0)
+    sh.place_cap.copy_(sh.cap0)
+    sh.counts.copy_(sh.counts0)
+
+
+def _scan_record(sh: ScanShard, g: int, masked: torch.Tensor,
+                 fit_score: torch.Tensor, n_eval, n_exh,
+                 top_s: torch.Tensor, top_i: torch.Tensor) -> torch.Tensor:
+    """A shard's scan record (K7a's plain version and its cached model)
+    from its local top list (top_i local rows)."""
+    n = masked.shape[0]
+    k = min(TOP_K, n)
+    best = top_s[0]
+    li = int(top_i[0])
+    rec = torch.zeros(SCAN_REC, dtype=torch.int32, device=masked.device)
+    recf = _f(rec)
+    recf[REC_BEST] = best
+    rec[REC_ROW] = sh.off + li
+    rec[REC_NEVAL] = n_eval
+    rec[REC_NEXH] = n_exh
+    recf[REC_TOPS:REC_TOPS + TOP_K] = float("-inf")
+    recf[REC_TOPS:REC_TOPS + k] = top_s
+    rec[REC_TOPI:REC_TOPI + TOP_K] = BIG
+    rec[REC_TOPI:REC_TOPI + k] = (top_i + sh.off).to(torch.int32)
+    if bool(best > float("-inf")):
+        recf[REC_FIT] = fit_score[li]
+        K = sh.vidx.shape[1]
+        rec[REC_V:REC_V + K] = sh.vidx[g, :, li]
+    return rec
 
 
 def scan_local_plain(sh: ScanShard, s: int, init: bool,
@@ -190,13 +306,7 @@ def scan_local_plain(sh: ScanShard, s: int, init: bool,
     f32 = torch.float32
     n = sh.capacity.shape[0]
     if init:
-        if used_in is not None:
-            sh.used.copy_(used_in)
-        if delta_rows is not None:
-            _add_deltas_local(sh.used, sh.off, delta_rows, delta_vals)
-        sh.tg_count.copy_(sh.tg0)
-        sh.place_cap.copy_(sh.cap0)
-        sh.counts.copy_(sh.counts0)
+        _scan_start(sh, used_in, delta_rows, delta_vals)
     g = int(sh.slot_tg[s])
     d = sh.demand[s]
     active = sh.slot_active[s]
@@ -230,25 +340,110 @@ def scan_local_plain(sh: ScanShard, s: int, init: bool,
     masked = torch.where(fits & active, final,
                          torch.full_like(final, float("-inf")))
 
-    k = min(TOP_K, n)
-    top_s, top_i = _lax_top_k(masked, k)
-    best = top_s[0]
-    li = int(top_i[0])
-    rec = torch.zeros(SCAN_REC, dtype=torch.int32, device=recs.device)
-    recf = _f(rec)
-    recf[REC_BEST] = best
-    rec[REC_ROW] = sh.off + li
-    rec[REC_NEVAL] = torch.sum(feas & active).to(torch.int32)
-    rec[REC_NEXH] = torch.sum(feas & ~fits & active).to(torch.int32)
-    recf[REC_TOPS:REC_TOPS + TOP_K] = float("-inf")
-    recf[REC_TOPS:REC_TOPS + k] = top_s
-    rec[REC_TOPI:REC_TOPI + TOP_K] = BIG
-    rec[REC_TOPI:REC_TOPI + k] = (top_i + sh.off).to(torch.int32)
-    if bool(best > float("-inf")):
-        recf[REC_FIT] = fit_score[li]
-        K = sh.vidx.shape[1]
-        rec[REC_V:REC_V + K] = sh.vidx[g, :, li]
-    recs[shard] = rec
+    top_s, top_i = _lax_top_k(masked, min(TOP_K, n))
+    recs[shard] = _scan_record(
+        sh, g, masked, fit_score, torch.sum(feas & active).to(torch.int32),
+        torch.sum(feas & ~fits & active).to(torch.int32), top_s, top_i)
+
+
+def _orderable(x: torch.Tensor) -> torch.Tensor:
+    """csrc/bulk_common.cuh orderable() as int64 (the f32 bits, sign
+    flipped for positives and inverted for negatives)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+
+
+def _key_top(masked: torch.Tensor, off: int, k: int):
+    """K7a's top-k by its 64-bit keys: the orderable score of v + 0.0
+    (+0.0 and -0.0 one score; NaN the card's positive NaN, above +inf),
+    then the lower row.  Returns (scores, local rows)."""
+    v = masked + 0.0
+    v = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), v)
+    rows = torch.arange(masked.shape[0], dtype=torch.int64) + off
+    key = _orderable(v) * (1 << 31) + (0x7FFFFFFF - rows)
+    top = torch.argsort(key, descending=True)[:k]
+    return masked[top], top
+
+
+def _rescore(sh: ScanShard, g: int, dem: torch.Tensor,
+             spread_algorithm: bool, row: Optional[int]) -> None:
+    """K7a's cache entries of every row (row None) or one row under group
+    g and demand dem: the stack up to the spread term in the reference's
+    order, from the current carries (computed over every row, as the
+    plain version computes it, and kept where asked)."""
+    n = sh.capacity.shape[0]
+    part, fit, feas, fits, n_sc = _partial_scores(
+        sh, g, dem, sh.used, sh.tg_count, sh.place_cap, spread_algorithm)
+    flag = feas.to(torch.int32) * F_FEAS + fits.to(torch.int32) * F_FITS \
+        + n_sc.to(torch.int32) * 4
+    sel = slice(None) if row is None else slice(row, row + 1)
+    sh.cache[0:n].view(torch.float32)[sel] = part[sel]
+    sh.cache[n:2 * n].view(torch.float32)[sel] = fit[sel]
+    sh.cache[2 * n:3 * n][sel] = flag[sel]
+
+
+def scan_local_cached_model(sh: ScanShard, s: int, init: bool,
+                            used_in: Optional[torch.Tensor],
+                            delta_rows: Optional[torch.Tensor],
+                            delta_vals: Optional[torch.Tensor],
+                            recs: torch.Tensor, shard: int,
+                            spread_algorithm: bool) -> None:
+    """Model of K7a's cached step (csrc/sharded.cu), on CPU tensors, for
+    the tests, which hold its records and carries bit-equal to
+    `scan_local_plain`'s slot by slot.  The cache holds each row's
+    partial total (fit + anti - penalty + affinity), fit and flag word
+    (feasible, fits, scorer count) for its key (group, demand); every row
+    is rescored at the eval's first slot and when the slot's key differs,
+    otherwise only the row in the pick word (K7b's); an inactive slot
+    keeps the key and rescores the pending pick under it.  The spread
+    term comes from per-value boost tables added in spread order; the
+    top-5 from the kernel's keys."""
+    f32, i32 = torch.float32, torch.int32
+    n = sh.capacity.shape[0]
+    V = sh.spread_desired.shape[2] - 1
+    key = sh.cache[3 * n:3 * n + SCAN_CACHE_META]
+    if init:
+        _scan_start(sh, used_in, delta_rows, delta_vals)
+        kg, kd, pick = -1, torch.zeros(4, dtype=f32), -1
+    else:
+        kg, kd, pick = int(key[0]), key[1:5].view(f32).clone(), int(sh.pick[0])
+    if not bool(sh.slot_active[s]):
+        if kg >= 0 and 0 <= pick < n:
+            _rescore(sh, kg, kd, spread_algorithm, pick)
+        if init:
+            key[0] = -1
+        k = min(TOP_K, n)
+        recs[shard] = _scan_record(
+            sh, 0, torch.full((n,), float("-inf")), None, 0, 0,
+            torch.full((k,), float("-inf")), torch.arange(k))
+        return
+    g = int(sh.slot_tg[s])
+    d = sh.demand[s]
+    rescore_all = kg != g or not torch.equal(d.view(i32), kd.view(i32))
+    if rescore_all:
+        _rescore(sh, g, d, spread_algorithm, None)
+    elif 0 <= pick < n:
+        _rescore(sh, g, d, spread_algorithm, pick)
+    part = sh.cache[0:n].view(f32)
+    fit = sh.cache[n:2 * n].view(f32)
+    flag = sh.cache[2 * n:3 * n]
+    sb = torch.zeros(n, dtype=f32)
+    for k, tab in _boost_tables(sh, g, sh.counts[g]):
+        sb = sb + tab[torch.clamp(sh.vidx[g, k].long(), max=V)]
+    sb_on = sb != 0.0
+    total = part + torch.where(sb_on, sb, torch.zeros_like(sb))
+    n_sc = ((flag >> 2) + sb_on.to(i32)).to(f32)
+    fits = (flag & F_FITS) != 0
+    feas = (flag & F_FEAS) != 0
+    masked = torch.where(fits, total / n_sc,
+                         torch.full_like(total, float("-inf")))
+    top_s, top_i = _key_top(masked, sh.off, min(TOP_K, n))
+    recs[shard] = _scan_record(sh, g, masked, fit,
+                               torch.sum(feas).to(i32),
+                               torch.sum(feas & ~fits).to(i32), top_s, top_i)
+    if rescore_all:
+        key[0] = g
+        key[1:5] = d.view(i32)
 
 
 def scan_local(sh: ScanShard, s: int, init: bool,
@@ -258,25 +453,17 @@ def scan_local(sh: ScanShard, s: int, init: bool,
                recs: torch.Tensor, shard: int,
                spread_algorithm: bool) -> None:
     """K7a wrapper (see scan_local_plain).  CUDA shards launch
-    csrc/sharded.cu; CPU shards take the plain version."""
+    csrc/sharded.cu with the shard's packed operands; CPU shards take the
+    plain version."""
     if _kind(sh.used, "scan_local") == "cpu":
         return scan_local_plain(sh, s, init, used_in, delta_rows, delta_vals,
                                 recs, shard, spread_algorithm)
-    n = sh.capacity.shape[0]
-    G, K = sh.spread_wfrac.shape
-    V1 = sh.spread_desired.shape[2]
-    D = 0 if delta_rows is None else delta_rows.shape[0]
     lib = _build.load("sharded")
     rc = lib.scan_local_launch(
-        _ptr(sh.capacity), _ptr(sh.used), _ptr(sh.feasible), _ptr(sh.affinity),
-        _ptr(sh.penalty), _ptr(sh.tg0), _ptr(sh.cap0), _ptr(sh.vidx),
-        _ptr(sh.has_affinity), _ptr(sh.desired_count), _ptr(sh.spread_desired),
-        _ptr(sh.spread_targeted), _ptr(sh.spread_wfrac), _ptr(sh.counts0),
-        _ptr(sh.spread_active), _ptr(sh.demand), _ptr(sh.slot_tg),
-        _ptr(sh.slot_active), _ptr(sh.tg_count), _ptr(sh.place_cap),
-        _ptr(sh.counts), _ptr(used_in), _ptr(delta_rows), _ptr(delta_vals),
-        _ptr(recs), G, n, K, V1, D, sh.off, int(s), int(bool(init)),
-        int(shard), int(bool(spread_algorithm)), _stream(sh.used.device))
+        _scan_args(sh), _ptr(used_in), _ptr(delta_rows), _ptr(delta_vals),
+        0 if delta_rows is None else delta_rows.shape[0], int(s),
+        int(bool(init)), _ptr(recs), int(shard), int(bool(spread_algorithm)),
+        _stream(sh.used.device))
     _launched("scan_local", rc)
 
 
@@ -285,10 +472,11 @@ def scan_apply_plain(sh: ScanShard, s: int, recs: torch.Tensor,
     """Plain version of K7b: the global selection from the gathered
     records (pmax score, pmin global row among the shards holding it),
     the carry updates of `_place_step_sharded` (lines 229-244) on this
-    shard, and, where `out` (f32[S, PACKED_WIDTH]) is given, the slot's
-    packed row: the psums of the counts and the fit score, and the
-    stable merge of the shards' top-K lists (`argsort(-top_s)[:TOP_K]`
-    over them in shard order)."""
+    shard, the pick word (the local row updated here, -1 where the pick
+    is another shard's or there is none), and, where `out` (f32[S,
+    PACKED_WIDTH]) is given, the slot's packed row: the psums of the
+    counts and the fit score, and the stable merge of the shards' top-K
+    lists (`argsort(-top_s)[:TOP_K]` over them in shard order)."""
     n = sh.capacity.shape[0]
     n_shard = recs.shape[0]
     k = min(TOP_K, n)
@@ -302,6 +490,7 @@ def scan_apply_plain(sh: ScanShard, s: int, recs: torch.Tensor,
                        torch.full_like(recs[:, REC_ROW], BIG))
     sel = int(torch.min(cand))
     ok = sel < BIG
+    changed = -1
     if ok:
         w = int(torch.nonzero(cand == sel).flatten()[0])
         lr = sel - sh.off
@@ -310,6 +499,7 @@ def scan_apply_plain(sh: ScanShard, s: int, recs: torch.Tensor,
             sh.tg_count[g, lr] += 1
             if int(sh.place_cap[g, lr]) > 0:
                 sh.place_cap[g, lr] -= 1
+            changed = lr
         V1 = sh.counts.shape[2]
         K = sh.vidx.shape[1]
         v = recs[w, REC_V:REC_V + K].to(torch.int64)
@@ -317,6 +507,7 @@ def scan_apply_plain(sh: ScanShard, s: int, recs: torch.Tensor,
         for kk in range(K):
             if upd[kk]:
                 sh.counts[g, kk, int(v[kk])] += 1.0
+    sh.pick[0] = changed
     if out is None:
         return
     row = torch.zeros(PACKED_WIDTH, dtype=torch.float32, device=out.device)
@@ -346,8 +537,8 @@ def scan_apply(sh: ScanShard, s: int, recs: torch.Tensor,
     rc = lib.scan_apply_launch(
         _ptr(sh.used), _ptr(sh.tg_count), _ptr(sh.place_cap), _ptr(sh.counts),
         _ptr(sh.spread_active), _ptr(sh.demand), _ptr(sh.slot_tg),
-        _ptr(recs), _ptr(out), G, n, K, V1, sh.off, int(s), recs.shape[0],
-        _stream(sh.used.device))
+        _ptr(recs), _ptr(out), _ptr(sh.pick), G, n, K, V1, sh.off, int(s),
+        recs.shape[0], _stream(sh.used.device))
     _launched("scan_apply", rc)
 
 
@@ -382,6 +573,8 @@ class BulkShard:
     scores: torch.Tensor          # f32[E, n] output view
     partial: torch.Tensor         # i32[E, COUNTS_W]
     state: torch.Tensor           # i32[STATE_W]
+    packed: Optional[tuple] = field(default=None, init=False, repr=False,
+                                    compare=False)   # K7c-K7e's operands
 
     def check(self) -> "BulkShard":
         _check_same_device("BulkShard", self)
@@ -515,6 +708,39 @@ def bulk_run_plain(sh: BulkShard, e: int, stats: torch.Tensor,
                                             torch.zeros_like(run)).to(torch.int32)
 
 
+def bulk_run_model(sh: BulkShard, e: int, stats: torch.Tensor,
+                   cur_g: torch.Tensor, base_g: torch.Tensor, spread: bool,
+                   fill_grid: int) -> None:
+    """Model of K7d's rule (csrc/sharded.cu), for the tests, which hold it
+    bit-equal to `bulk_run_plain`: a wave row's cells m = 1..run_cap
+    (run_cap = min(fill_grid, remaining)) all at once, a cell failing
+    where the row does not fit with m more or its score does not beat
+    `second` (m = 1 exempt from the second test); the run is the first
+    failing m - 1, or run_cap where none fails."""
+    if int(sh.state[ST_DONE]):
+        return
+    any_fit, s_star, gmax, gsecond = _wave_globals(stats)
+    n = sh.capacity.shape[0]
+    cur = cur_g[sh.off:sh.off + n]
+    run_cap = max(min(fill_grid, int(sh.count[e]) - int(sh.state[ST_PLACED])),
+                  0)
+    if bool(gmax > s_star):
+        wave = cur > s_star
+    else:
+        wave = (cur > float("-inf")) & (cur == gmax)
+    wave = wave & any_fit & (run_cap > 0)
+    second = torch.where(cur == gmax, gsecond, gmax)
+    ms, fits_m, score_m = _grid(sh, e, fill_grid, spread)
+    ok = fits_m[:, :run_cap] & ((score_m[:, :run_cap] > second[:, None])
+                                | (ms[:run_cap] == 1.0))
+    fail = ~ok
+    first = torch.where(torch.any(fail, dim=1),
+                        torch.argmax(fail.to(torch.int32), dim=1) + 1,
+                        torch.full((n,), run_cap + 1))
+    base_g[sh.off:sh.off + n] = torch.where(
+        wave, first - 1, torch.zeros_like(first)).to(torch.int32)
+
+
 def bulk_order_plain(sh: BulkShard, e: int, stats: torch.Tensor,
                      cur_g: torch.Tensor, base_g: torch.Tensor, spread: bool,
                      max_waves: int) -> None:
@@ -552,15 +778,28 @@ def bulk_order_plain(sh: BulkShard, e: int, stats: torch.Tensor,
         _bulk_tail_plain(sh, e, spread)
 
 
-def _bulk_args(sh: BulkShard):
-    n = sh.capacity.shape[0]
-    return (_ptr(sh.capacity), _ptr(sh.used), _ptr(sh.exact), _ptr(sh.delta),
-            _ptr(sh.coll), _ptr(sh.feasible), _ptr(sh.affinity),
-            _ptr(sh.penalty), _ptr(sh.coll0), _ptr(sh.has_affinity),
-            _ptr(sh.desired), _ptr(sh.demand), _ptr(sh.count),
-            _ptr(sh.delta_rows), _ptr(sh.delta_vals), _ptr(sh.assign),
-            _ptr(sh.scores), _ptr(sh.partial), _ptr(sh.state), n,
-            sh.n_rows, sh.off, sh.D, sh.assign.stride(0))
+class BulkArgs(ctypes.Structure):
+    """csrc/sharded.cu BulkArgs: one bulk shard's K7c-K7e operands."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "cap", "used", "exact", "delta", "coll", "feas", "aff", "pen",
+        "coll0", "has_aff", "desired", "demand", "count", "drows", "dvals",
+        "assign", "scores", "partial", "state")] + \
+        [(name, ctypes.c_int) for name in ("n", "N", "off", "D", "ostride")]
+
+
+def _bulk_args(sh: BulkShard) -> ctypes.c_void_p:
+    """The address of the shard's packed K7c-K7e operands (packed once)."""
+    if sh.packed is None:
+        ts = (sh.capacity, sh.used, sh.exact, sh.delta, sh.coll,
+              sh.feasible, sh.affinity, sh.penalty, sh.coll0,
+              sh.has_affinity, sh.desired, sh.demand, sh.count,
+              sh.delta_rows, sh.delta_vals, sh.assign, sh.scores,
+              sh.partial, sh.state)
+        sh.packed = _packed(BulkArgs, [
+            None if t is None else t.data_ptr() for t in ts] + [
+            sh.capacity.shape[0], sh.n_rows, sh.off, sh.D,
+            sh.assign.stride(0)])
+    return sh.packed[1]
 
 
 def bulk_stats(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
@@ -571,7 +810,7 @@ def bulk_stats(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
         return bulk_stats_plain(sh, e, begin, stats, cur_g, shard, spread,
                                 max_waves)
     lib = _build.load("sharded")
-    rc = lib.bulk_stats_launch(*_bulk_args(sh), int(e), int(bool(begin)),
+    rc = lib.bulk_stats_launch(_bulk_args(sh), int(e), int(bool(begin)),
                                _ptr(stats), _ptr(cur_g), int(shard),
                                int(bool(spread)), int(max_waves),
                                _stream(sh.used.device))
@@ -589,7 +828,7 @@ def bulk_run(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
     if _kind(sh.used, "bulk_run") == "cpu":
         return bulk_run_plain(sh, e, stats, cur_g, base_g, spread, fill_grid)
     lib = _build.load("sharded")
-    rc = lib.bulk_run_launch(*_bulk_args(sh), int(e), _ptr(stats),
+    rc = lib.bulk_run_launch(_bulk_args(sh), int(e), _ptr(stats),
                              stats.shape[0], _ptr(cur_g), _ptr(base_g),
                              int(bool(spread)), int(fill_grid),
                              _stream(sh.used.device))
@@ -606,7 +845,7 @@ def bulk_order(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
         raise ValueError("bulk_order: the kernel reads the gathered vectors "
                          "16 bytes at a time")
     lib = _build.load("sharded")
-    rc = lib.bulk_order_launch(*_bulk_args(sh), int(e), _ptr(stats),
+    rc = lib.bulk_order_launch(_bulk_args(sh), int(e), _ptr(stats),
                                stats.shape[0], _ptr(cur_g), _ptr(base_g),
                                int(bool(spread)), int(max_waves),
                                _stream(sh.used.device))

@@ -541,7 +541,7 @@ class _Gathered:
 
 
 def _scan_shard(off, cap, used, fl: dict, carries) -> _k7.ScanShard:
-    tg, pc, cn = carries
+    tg, pc, cn, cache, pick = carries
     return _k7.ScanShard(
         off=off, capacity=cap, used=used, feasible=fl["feasible"],
         affinity=fl["affinity"], penalty=fl["penalty"], tg0=fl["tg_count"],
@@ -552,12 +552,20 @@ def _scan_shard(off, cap, used, fl: dict, carries) -> _k7.ScanShard:
         spread_wfrac=fl["spread_wfrac"], counts0=fl["spread_counts"],
         spread_active=fl["spread_active"], demand=fl["demand"],
         slot_tg=fl["slot_tg"], slot_active=fl["slot_active"],
-        tg_count=tg, place_cap=pc, counts=cn).check()
+        tg_count=tg, place_cap=pc, counts=cn, cache=cache, pick=pick).check()
 
 
 def _scan_carries(fl: dict, used_like: torch.Tensor):
+    """One shard's scan carries for evals shaped as `fl`: (tg_count,
+    place_cap, spread counts, K7a's cache, the pick word), then the usage
+    carry."""
+    _, K, V1 = fl["spread_counts"].shape
+    dev = used_like.device
     return (torch.empty_like(fl["tg_count"]), torch.empty_like(fl["place_cap"]),
-            torch.empty_like(fl["spread_counts"]), torch.empty_like(used_like))
+            torch.empty_like(fl["spread_counts"]),
+            _k7.scan_cache(used_like.shape[0], K, V1, dev),
+            torch.empty(1, dtype=torch.int32, device=dev),
+            torch.empty_like(used_like))
 
 
 def _scan_eval_staged(shards: List[_k7.ScanShard], recs: _Gathered,
@@ -598,13 +606,13 @@ def place_batch_sharded_staged(mesh: Mesh, capacity, used0, fields: dict,
                       device=devs[0])
     carries = [_scan_carries({k: v[i][0] for k, v in flds.items()}, u0[i])
                for i in range(NS)]
-    used = [c[3] for c in carries]
+    used = [c[5] for c in carries]
     recs = _Gathered(devs, (NS, _k7.SCAN_REC), torch.int32,
                      [(i, i + 1) for i in range(NS)])
     for e in range(E):
         shards = [_scan_shard(offs[i], cap[i], used[i],
                               {k: v[i][e] for k, v in flds.items()},
-                              carries[i][:3]) for i in range(NS)]
+                              carries[i][:5]) for i in range(NS)]
         _scan_eval_staged(shards, recs, out[e], u0 if e == 0 else None,
                           [d[e] for d in drows], [d[e] for d in dvals],
                           spread_algorithm)
@@ -637,9 +645,9 @@ def place_eval_batch_sharded_staged(mesh: Mesh, stacked: PlaceInputs,
         shards = []
         for i in range(NS):
             fl = {k: v[i] for k, v in flds.items()}
-            tg, pc, cn, used = _scan_carries(fl, fl["used"])
+            *carries, used = _scan_carries(fl, fl["used"])
             shards.append(_scan_shard(offs[i], fl["capacity"], used, fl,
-                                      (tg, pc, cn)))
+                                      carries))
         recs = _Gathered(devs, (NS, _k7.SCAN_REC), torch.int32,
                          [(i, i + 1) for i in range(NS)])
         dst = packed[b] if devs[0] == out_dev else torch.empty(

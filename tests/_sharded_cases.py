@@ -1,6 +1,8 @@
-"""K7e's selection cases as `place_bulk_batch_sharded` operands: the
-inputs of tests/test_torch_sharded_select.py and of chip_smoke.py's
-sharded phase, built with numpy from one seed."""
+"""The sharded path's edge cases, built with numpy from one seed, for
+tests/test_torch_sharded_select.py, tests/test_torch_sharded_scan_cache.py
+and chip_smoke.py's sharded phase: K7e's selection cases as
+`place_bulk_batch_sharded` operands, K7a's cache cases as
+`place_batch_sharded` operands, K7d's run cases as one wave's shards."""
 import numpy as np
 
 SELECT_EVALS = 3                    # evals a lane in every case
@@ -154,3 +156,317 @@ def bulk_select_cases(n_rows: int, node_shards: int, lanes: int,
                                      ev(0, deltas=ds)] for w in range(W)]),
                   False))
     return cases
+
+
+# ------------------------------------------------- K7a's scan cache cases
+
+SCAN_EVALS = 2                      # evals of every scan case's chain
+SCAN_SLOTS = 12                     # slots an eval
+SCAN_DELTAS = 8                     # delta slots an eval
+_SCAN_G, _SCAN_K, _SCAN_V = 3, 2, 6
+_SCAN_DEMAND = (300.0, 512.0, 0.0, 0.0)
+
+
+def _scan_world(rng, N: int, uniform: bool = False):
+    """Capacity and usage of N rows (integer sizes); `uniform`: every row
+    the same and empty."""
+    cap = np.zeros((N, 4), np.float32)
+    cap[:] = (4000.0, 8192.0, 100000.0, 1000.0)
+    used = np.zeros((N, 4), np.float32)
+    if not uniform:
+        cap[:, 0] = rng.choice([2000, 4000, 8000], N)
+        cap[:, 1] = rng.choice([4096, 8192, 16384], N)
+        used[:, 0] = rng.integers(0, 8, N) * 100
+        used[:, 1] = rng.integers(0, 8, N) * 256
+    return cap, used
+
+
+def _scan_eval(rng, N: int, v: int = _SCAN_V) -> dict:
+    """One eval's fields (numpy; every scoring feature on, an even and a
+    targeted spread over v values): every slot active, of group 0, at
+    _SCAN_DEMAND."""
+    G, K, S = _SCAN_G, _SCAN_K, SCAN_SLOTS
+    desired = np.full((G, K, v + 1), -1.0, np.float32)
+    desired[:, 1, :v] = rng.integers(0, 6, (G, v))
+    targeted = np.zeros((G, K), bool)
+    targeted[:, 1] = True
+    counts = np.zeros((G, K, v + 1), np.float32)
+    counts[..., :v] = rng.integers(0, 3, (G, K, v))
+    return dict(
+        feasible=rng.random((G, N)) < 0.9,
+        affinity=rng.choice(np.array([-1.0, -0.5, 0.0, 0.0, 0.5, 1.0],
+                                     np.float32), (G, N)),
+        has_affinity=np.array([True, False, True]),
+        desired_count=rng.integers(1, 20, G).astype(np.int32),
+        penalty=rng.random((G, N)) < 0.05,
+        tg_count=(rng.random((G, N)) < 0.1).astype(np.int32),
+        spread_vidx=rng.integers(0, v + 1, (G, K, N)).astype(np.int32),
+        spread_desired=desired, spread_targeted=targeted,
+        spread_wfrac=rng.choice(np.array([0.25, 0.5, 1.0], np.float32),
+                                (G, K)),
+        spread_counts=counts, spread_active=np.ones((G, K), bool),
+        place_cap=np.where(rng.random((G, N)) < 0.2,
+                           rng.integers(0, 3, (G, N)), -1).astype(np.int32),
+        demand=np.tile(np.asarray(_SCAN_DEMAND, np.float32), (S, 1)),
+        slot_tg=np.zeros(S, np.int32), slot_active=np.ones(S, bool))
+
+
+def _scan_chain(N: int, evals, deltas=None):
+    """place_batch_sharded's stacked fields and delta operands: eval e's
+    deltas deltas[e] = [(row, f32[4])] (pad rows N)."""
+    E = len(evals)
+    fields = {k: np.stack([ev[k] for ev in evals]) for k in evals[0]}
+    drows = np.full((E, SCAN_DELTAS), N, np.int32)
+    dvals = np.zeros((E, SCAN_DELTAS, 4), np.float32)
+    for e, ds in enumerate(deltas or []):
+        for d, (r, val) in enumerate(ds):
+            drows[e, d] = r
+            dvals[e, d] = val
+    return fields, drows, dvals
+
+
+def scan_cache_cases(n_rows: int, node_shards: int, seed: int = 0) -> list:
+    """The cases of K7a's cached step as `place_batch_sharded` operands on
+    `node_shards` node shards: [(label, capacity f32[N, 4], used f32[N,
+    4], fields {name: [E, ...] numpy}, delta_rows i32[E, D], delta_vals
+    f32[E, D, 4], spread_algorithm)], SCAN_EVALS evals of SCAN_SLOTS
+    slots, SCAN_DELTAS delta slots an eval.  n_rows a multiple of
+    node_shards, at least 16 rows a shard.  The cases: the group changing
+    between slots; the demand changing within a group (also only in the
+    sign of a zero); inactive slots between active ones (and at an eval's
+    first slot); a pick on each shard and on the rows either side of a
+    shard boundary; every row infeasible; rows that tie across shards;
+    -0.0 usage; NaN and +-inf usage under deltas; a spread over more than
+    64 values; spreads whose boost tables pass K7a's shared memory."""
+    rng = np.random.default_rng(seed)
+    N, NS = n_rows, node_shards
+    n = N // NS
+    assert n * NS == N and n >= 16
+    cases = []
+
+    def add(label, evals, world=None, deltas=None, spread=False):
+        cap, used = world if world is not None else _scan_world(rng, N)
+        cases.append((label, cap, used) + _scan_chain(N, evals, deltas)
+                     + (spread,))
+
+    def deltas(k):
+        rows = rng.choice(N, k, replace=False)
+        return [(int(r), np.array([rng.integers(-2, 3) * 100,
+                                   rng.integers(-2, 3) * 256, 0, 0],
+                                  np.float32)) for r in rows]
+
+    # the group changes between slots: each group its own demand
+    evals = []
+    for _ in range(SCAN_EVALS):
+        ev = _scan_eval(rng, N)
+        ev["slot_tg"][:] = [0, 0, 1, 1, 0, 2, 2, 2, 1, 0, 0, 1]
+        ev["demand"][:, :2] = [(100.0 * (g + 2), 256.0 * (g + 1))
+                               for g in ev["slot_tg"]]
+        evals.append(ev)
+    add("group changes between slots", evals, deltas=[[], deltas(4)])
+
+    # the demand changes within group 0: a, a, b, b, a, c, c, a, ... where
+    # c is a but for the sign of a zero
+    evals = []
+    dem = {"a": (300.0, 512.0, 0.0, 0.0), "b": (200.0, 1024.0, 0.0, 0.0),
+           "c": (300.0, 512.0, -0.0, 0.0)}
+    for pattern in ("aabbaccabaaa", "cabbbacaabcc"):
+        ev = _scan_eval(rng, N)
+        ev["demand"][:] = [dem[x] for x in pattern]
+        evals.append(ev)
+    add("demand changes within a group", evals, spread=True)
+
+    # inactive slots between active ones; the second eval starts with one
+    evals = []
+    for pattern in ("110100110110", "011011101101"):
+        ev = _scan_eval(rng, N)
+        ev["slot_active"][:] = [x == "1" for x in pattern]
+        evals.append(ev)
+    add("inactive slots between active ones", evals, deltas=[deltas(3), []])
+
+    # one row on each shard and the two rows either side of the boundary
+    # of shards 0 and 1 win once each (affinity, a budget of one), in
+    # row order, on a uniform world; then the rest
+    world = _scan_world(rng, N, uniform=True)
+    wins = sorted({n - 1, n} | {i * n + 5 for i in range(NS)})
+    evals = []
+    for _ in range(SCAN_EVALS):
+        ev = _scan_eval(rng, N)
+        ev["feasible"][:] = True
+        ev["affinity"][:] = 0.0
+        ev["affinity"][0, wins] = 1.0
+        ev["has_affinity"][:] = True
+        ev["penalty"][:] = False
+        ev["tg_count"][:] = 0
+        ev["place_cap"][:] = -1
+        ev["place_cap"][0, wins] = 1
+        ev["spread_active"][0] = False
+        evals.append(ev)
+    add("a pick on each shard and on a shard boundary row", evals, world)
+
+    # group 1 has no feasible row; the second eval asks only for it
+    evals = []
+    for tgs in ([1, 1, 0, 1, 0, 0, 1, 2, 1, 0, 1, 1], [1] * SCAN_SLOTS):
+        ev = _scan_eval(rng, N)
+        ev["feasible"][1] = False
+        ev["slot_tg"][:] = tgs
+        evals.append(ev)
+    add("every row infeasible", evals)
+
+    # a uniform world, no affinity, penalty or co-placement, one even
+    # spread whose values repeat every 6 rows: the rows tie across shards
+    evals = []
+    for _ in range(SCAN_EVALS):
+        ev = _scan_eval(rng, N)
+        ev["feasible"][:] = True
+        ev["affinity"][:] = 0.0
+        ev["penalty"][:] = False
+        ev["tg_count"][:] = 0
+        ev["place_cap"][:] = -1
+        ev["spread_active"][:, 1] = False
+        ev["spread_vidx"][:, 0] = np.arange(N) % _SCAN_V
+        ev["spread_counts"][:] = 0.0
+        evals.append(ev)
+    add("rows that tie across shards", evals,
+        _scan_world(rng, N, uniform=True))
+
+    # -0.0 usage: every row's disk and network, a third of the cpu; deltas
+    # of -0.0 onto such rows
+    cap, used = _scan_world(rng, N)
+    used[:, 2:] = -0.0
+    used[::3, 0] = -0.0
+    neg = [(3 * k, np.array([-0.0, 0.0, -0.0, -0.0], np.float32))
+           for k in (1, 5, 9)]
+    add("-0.0 usage", [_scan_eval(rng, N) for _ in range(SCAN_EVALS)],
+        (cap, used), deltas=[neg, neg[:1]])
+
+    # usage at +inf and -inf, deltas that take a +inf row to NaN, keep
+    # others infinite, or are NaN themselves
+    cap, used = _scan_world(rng, N)
+    used[[1, n + 1], 0] = np.inf
+    used[[2, N - 2], 1] = -np.inf
+    inf_d = [(1, np.array([-np.inf, 0, 0, 0], np.float32)),
+             (n + 1, np.array([100, 0, 0, 0], np.float32)),
+             (N - 2, np.array([0, 512, 0, 0], np.float32)),
+             (4, np.array([np.nan, 0, 0, 0], np.float32)),
+             (n + 3, np.array([np.inf, 0, 0, 0], np.float32))]
+    add("NaN and +-inf usage under deltas",
+        [_scan_eval(rng, N) for _ in range(SCAN_EVALS)], (cap, used),
+        deltas=[inf_d, inf_d[2:]])
+
+    # a spread over 80 values (V1 = 81): its table past 64 entries
+    add("a spread over more than 64 values",
+        [_scan_eval(rng, N, v=80) for _ in range(SCAN_EVALS)], spread=True)
+
+    # two spreads over 8,200 values: K x V1 past the 16,384 table floats a
+    # block of K7a keeps in shared memory (its tables in the cache)
+    add("tables past shared memory",
+        [_scan_eval(rng, N, v=8200) for _ in range(SCAN_EVALS)])
+    return cases
+
+
+# ---------------------------------------------------- K7d's run cases
+
+def bulk_run_cases(n_rows: int, seed: int = 0) -> list:
+    """The cases of K7d's first-failure rule, one eval's first wave over
+    n_rows rows (at least 32): [(label, capacity f32[N, 4], used f32[N,
+    4], eval {feasible, affinity, penalty, coll0: [N]; has_affinity,
+    desired, count; demand f32[4]}, fill_grid, spread_algorithm, placed,
+    done)], `placed` the lane state's count before the wave, `done` its
+    flag.  The cases: a run cap of 1; fill grids of 16 and 64; m = 1
+    forced where the score does not beat `second`; rows that fit one
+    instance and not two; no row fitting; the tie set; the strict set; a
+    done lane; NaN and +-inf usage."""
+    rng = np.random.default_rng(seed)
+    N = n_rows
+    dem = np.asarray(_SELECT_DEMAND, np.float32)
+    cap = np.tile(np.asarray(_SELECT_CAP, np.float32), (N, 1))
+    uniform = np.zeros((N, 4), np.float32)
+    mixed = (rng.integers(0, 6, (N, 4)) * dem).astype(np.float32)
+    mixed[:, :2] += rng.integers(0, 4, (N, 2)) * 100.0
+
+    def ev(count, **kw):
+        e = dict(feasible=rng.random(N) < 0.9,
+                 affinity=rng.choice(np.array([-0.5, 0.0, 0.0, 0.5],
+                                              np.float32), N),
+                 penalty=rng.random(N) < 0.05,
+                 coll0=(rng.random(N) < 0.1).astype(np.int32),
+                 has_affinity=True, desired=max(count, 1), demand=dem,
+                 count=count)
+        e.update(kw)
+        return e
+
+    one_more = mixed.copy()
+    tight = rng.choice(N, N // 4, replace=False)
+    one_more[tight, :2] = cap[tight, :2] - 1.5 * dem[:2]
+    odd = mixed.copy()
+    odd[1, 0] = np.inf
+    odd[5, 1] = -np.inf
+    odd[9, 0] = np.nan
+    odd[N // 2 + 2, 0] = -np.inf
+    plain = dict(affinity=np.zeros(N, np.float32), penalty=np.zeros(N, bool),
+                 coll0=np.zeros(N, np.int32), feasible=np.ones(N, bool))
+    # one co-placement already, so the anti-affinity term counts from
+    # m = 1 and no row's first score beats the best second one: the tie
+    # set; with room for 40 or 50 instances a row its binpack scores rise
+    # with m and its runs end at the rows' room, past 32
+    big = cap.copy()
+    big[:, 0] = rng.choice([40, 50], N) * dem[0]
+    big[:, 1] = 1e6
+    roomy = dict(plain, coll0=np.ones(N, np.int32))
+    return [
+        ("run cap 1", cap, mixed, ev(1), 16, False, 0, False),
+        ("fill grid 16", cap, mixed, ev(100), 16, False, 0, False),
+        ("fill grid 64", big, uniform, ev(300, **roomy), 64, False, 40,
+         False),
+        ("m = 1 forced where the score does not beat second", cap, uniform,
+         ev(50, **plain), 16, True, 0, False),
+        ("rows that fit one instance and not two", cap, one_more, ev(20),
+         16, False, 0, False),
+        ("no row fitting", cap, mixed, ev(20, feasible=np.zeros(N, bool)),
+         16, False, 0, False),
+        ("the tie set", cap, uniform, ev(30, **roomy), 16, False, 0, False),
+        ("the strict set", cap, mixed, ev(30), 16, True, 0, False),
+        ("a done lane", cap, mixed, ev(20), 16, False, 0, True),
+        ("NaN and +-inf usage", cap, odd, ev(20), 16, False, 0, False),
+    ]
+
+
+def bulk_run_shards(case, node_shards: int, dev="cpu"):
+    """A K7d case's wave on `node_shards` shards: ([BulkShard], stats
+    f32[NS, 4], cur_g f32[N]) after each shard's K7c begin (the plain
+    version; the lane state's placed count and done flag then set as the
+    case says), the operands of K7d on each shard."""
+    import torch
+    from nomad_tpu_torch.ops import sharded as k7
+    _, cap, used, ev, _, spread, placed, done = case
+    N, NS = cap.shape[0], node_shards
+    n = N // NS
+    t = lambda x, dt=None: torch.as_tensor(np.array(x), dtype=dt,  # noqa
+                                           device=dev)
+    stats = torch.zeros((NS, k7.STATS_W), dtype=torch.float32, device=dev)
+    cur_g = torch.zeros(N, dtype=torch.float32, device=dev)
+    shards = []
+    for i in range(NS):
+        sl = slice(i * n, (i + 1) * n)
+        z = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
+            s, dtype=dt, device=dev)
+        sh = k7.BulkShard(
+            off=i * n, n_rows=N, capacity=t(cap[sl]), used=t(used[sl]),
+            exact=t(used[sl]), delta=z(n, 4), coll=z(n, dt=torch.int32),
+            feasible=t(ev["feasible"][None, sl]),
+            affinity=t(ev["affinity"][None, sl]),
+            penalty=t(ev["penalty"][None, sl]),
+            coll0=t(ev["coll0"][None, sl], torch.int32),
+            has_affinity=t([ev["has_affinity"]]),
+            desired=t([ev["desired"]], torch.int32),
+            demand=t(ev["demand"][None]),
+            count=t([ev["count"]], torch.int32), delta_rows=None,
+            delta_vals=None, assign=z(1, n, dt=torch.int32),
+            scores=z(1, n), partial=z(1, k7.COUNTS_W, dt=torch.int32),
+            state=z(k7.STATE_W, dt=torch.int32)).check()
+        k7.bulk_stats_plain(sh, 0, True, stats, cur_g, i, spread, 1000)
+        sh.state[k7.ST_PLACED] = placed
+        sh.state[k7.ST_DONE] = int(done)
+        shards.append(sh)
+    return shards, stats, cur_g
