@@ -95,12 +95,19 @@ Phases, all run in this order:
            checks clean, the device basis equal to its host snapshot.
   sharded  the sharded serving path (K7a-K7g, csrc/sharded.cu, and K5',
            the world scatters with a row offset) on meshes of the card
-           repeated (cuda:0 eight times, (8, 1) and (4, 2)): the first
-           64 launches of each K7 kernel in scan chains and a batch of
+           repeated (cuda:0 eight times, (8, 1) and (4, 2)): every
+           launch of each K7 kernel in scan chains and a batch of
            independent evals (N = 16,384) and in laned bulk chains
            (N = 16,384 and 131,072) checked bit for bit against its plain
            version, each function bit-equal to its plain form and equal
-           to the unsharded K2/K3/K4 in rows, counts and waves; K7e's
+           to the unsharded K2/K3/K4 in rows, counts and waves; K7a's
+           cache cases with every K7a/K7b call checked, also under the
+           delays of K7a's cluster exchange (K7b's inputs follow it);
+           K7b's merge cases (tests/_sharded_cases.py scan_apply_cases:
+           hand-set records on 1, 2, 4 and 8 shards, ties, +0.0/-0.0,
+           -inf tails, NaN, K = 1 and 64) and K7g at 32,768 rows a shard
+           with W = 1, 2 and 4 lanes (out a fresh tensor and the donated
+           basis), each bit-equal to its plain version; K7e's
            selection cases (tests/_sharded_cases.py, at N =
            16,384, and count-512 evals at 131,072), every K7c-K7g call
            checked, each case again under six seeds of the delays of
@@ -3567,10 +3574,11 @@ def check_scan_cache_cases():
     on every shard and either side of a shard boundary, no feasible row,
     ties across shards, -0.0 and NaN/+-inf usage under deltas, a spread
     over 80 values, spreads whose boost tables pass K7a's shared memory)
-    at N = 64 and 16,384 on (4, 2) and (2, 4): every
-    K7a/K7b call bit-equal to its plain version (K7Check), and the
-    function again under SCAN_JITTER_SEEDS of K7a's cluster delays,
-    bit-equal to its first run."""
+    at N = 64 and 16,384 on (4, 2) and (2, 4): every K7a/K7b call
+    bit-equal to its plain version (K7Check), and again under
+    SCAN_JITTER_SEEDS of K7a's cluster delays (K7b reads the records
+    K7a's cluster exchange writes), the function bit-equal to its first
+    run."""
     import torch
     from nomad_tpu_torch.parallel import sharded as ps
     sc = _cases()
@@ -3581,21 +3589,105 @@ def check_scan_cache_cases():
             for label, cap, used, f, drows, dvals, spread in \
                     sc.scan_cache_cases(n_rows, shape[0]):
                 def run():
-                    packed, used_sh = ps.place_batch_sharded(
-                        mesh, cap, used, f, drows, dvals, spread)
+                    chk = K7Check(shape)
+                    with chk:
+                        packed, used_sh = ps.place_batch_sharded(
+                            mesh, cap, used, f, drows, dvals, spread)
+                    for k in seen:
+                        seen[k] += chk.seen[k]
                     return packed, torch.cat(used_sh)
-                chk = K7Check(shape)
-                with chk:
-                    want = [x.cpu().numpy() for x in run()]
-                for k in seen:
-                    seen[k] += chk.seen[k]
+                want = [x.cpu().numpy() for x in run()]
                 jittered(f"scan cache case {label} on {shape}, N={n_rows}",
                          run, want, kernel="sharded",
                          seeds=SCAN_JITTER_SEEDS)
     log(f"sharded: K7a's cache cases ({len(sc.scan_cache_cases(64, 4))} "
-        f"cases at N = 64 and {N_ROWS} on (4, 2) and (2, 4)): {seen} calls "
-        f"bit-equal to their plain versions; the function bit-equal again "
-        f"under {len(SCAN_JITTER_SEEDS)} seeds of K7a's cluster delays")
+        f"cases at N = 64 and {N_ROWS} on (4, 2) and (2, 4)), also under "
+        f"{len(SCAN_JITTER_SEEDS)} seeds of K7a's cluster delays: {seen} "
+        f"calls bit-equal to their plain versions; the function bit-equal "
+        f"under the delays to its first run")
+
+
+def check_apply_cases():
+    """K7b's merge cases (tests/_sharded_cases.py scan_apply_cases:
+    hand-set records on 1, 2, 4 and 8 shards with equal bests, rows out
+    of shard order, +0.0 and -0.0 bests and top entries, shards of fewer
+    than 5 rows, -inf tails, no feasible row, K = 1 and 64, inactive
+    spreads and the V1 - 1 sentinel, picks on every shard and either side
+    of a boundary, a NaN best, NaN top entries): each call on each shard
+    bit-equal to scan_apply_plain from the same state (carries, pick
+    word, packed row)."""
+    import torch
+    from nomad_tpu_torch.ops import sharded as k7
+    sc = _cases()
+    calls = 0
+    before = k7.launches["scan_apply"]
+    for NS in (1, 2, 4, 8):
+        for case in sc.scan_apply_cases(NS):
+            shards, recs, out = sc.scan_apply_shards(case, "cuda")
+            for t, r in enumerate(recs):
+                s = t % sc.APPLY_SLOTS
+                for i, sh in enumerate(shards):
+                    o = out if i == 0 else None
+                    state = [sh.used, sh.tg_count, sh.place_cap, sh.counts,
+                             sh.pick, r] + ([o] if o is not None else [])
+                    prior = [x.clone() for x in state]
+                    k7.scan_apply(sh, s, r, o)
+                    got = [x.clone() for x in state]
+                    for x, b in zip(state, prior):
+                        x.copy_(b)
+                    k7.scan_apply_plain(sh, s, r, o)
+                    for k, (x, g) in enumerate(zip(state, got)):
+                        _bitwise(f"K7b case {case['label']} on {NS} shards, "
+                                 f"call {t}, shard {i}, tensor {k}",
+                                 g.cpu().numpy(), x.cpu().numpy())
+                    calls += 1
+    torch.cuda.synchronize()
+    if k7.launches["scan_apply"] - before != calls:
+        raise AssertionError("K7b cases: launches and calls differ")
+    n_cases = sum(len(sc.scan_apply_cases(NS)) for NS in (1, 2, 4, 8))
+    log(f"sharded: K7b's merge cases ({calls} calls over {n_cases} cases "
+        f"on 1, 2, 4 and 8 shards) bit-equal to scan_apply_plain")
+
+
+def check_basis_merge_large(n=32768, lanes=(1, 2, 4)):
+    """K7g on one shard of n rows with W lanes (non-integer deltas on a
+    third of the cells, -0.0 usage): bit-equal to basis_merge_plain with
+    `out` a fresh tensor and `out` u0 itself (the donated basis); its
+    time a launch on CUDA events, alone (profiler) and the wrapper's
+    host time, each over a step of one launch as the kernels line's K7
+    times.  Returns {W: (ms, plain ms, device ms, host us, bound ms)}."""
+    import torch
+    from nomad_tpu_torch.ops import sharded as k7
+    rng = np.random.default_rng(47)
+    res = {}
+    for W in lanes:
+        u_np = (rng.random((n, 4)) * 1000).astype(np.float32)
+        u_np[rng.random((n, 4)) < 0.2] = -0.0
+        ex = (u_np[None] + (rng.random((W, n, 4)) < 0.3)
+              * rng.random((W, n, 4)) * 70.7).astype(np.float32)
+        u0 = torch.from_numpy(u_np).cuda()
+        exacts = torch.from_numpy(ex).cuda()
+        want = torch.empty_like(u0)
+        k7.basis_merge_plain(u0, exacts, want)
+        out = torch.empty_like(u0)
+        k7.basis_merge(u0, exacts, out)
+        _bitwise(f"K7g n={n} W={W}", out.cpu().numpy(), want.cpu().numpy())
+        donated = u0.clone()
+        k7.basis_merge(donated, exacts, donated)
+        _bitwise(f"K7g n={n} W={W} donated", donated.cpu().numpy(),
+                 want.cpu().numpy())
+        calls = [((u0, exacts, out), [out], [out.clone()])]
+        ms = step_ms(calls, k7.basis_merge)
+        plain_ms = step_ms(calls, k7.basis_merge_plain)
+        dev_ms = step_device_ms(calls, k7.basis_merge, "basis_merge_kernel")
+        h_us = step_host_us(calls, k7.basis_merge)
+        bound, by = _bound(*_k7_work("basis_merge", (u0, exacts, out)))
+        res[W] = (ms, plain_ms, dev_ms, h_us, bound)
+        log(f"sharded: K7g n={n} rows a shard, W={W}: bit-equal to its plain "
+            f"version (out fresh and donated); {ms:.4f} ms (CUDA events), "
+            f"kernel alone {dev_ms:.4f} (profiler), host {h_us:.2f} us, plain "
+            f"{plain_ms:.4f}, bound {bound:.6f} ({by})")
+    return res
 
 
 def check_run_cases():
@@ -3816,6 +3908,15 @@ def phase_sharded():
                          tp.fill_grid_for(512))
         if shape == (4, 2):
             kept = chk
+        else:
+            # K7b at (8, 1): 40 candidates in the merge
+            ms, plain_ms = chk.timed("scan_apply")
+            log(f"sharded: shard_scan_apply N={N_ROWS} on {shape} ("
+                f"{len(chk.kept['scan_apply'])} launches): kernel {ms:.4f} "
+                f"ms a launch (CUDA events), kernel alone "
+                f"{chk.device('scan_apply'):.4f} (profiler), the wrapper's "
+                f"host time {chk.host('scan_apply'):.2f} us, plain "
+                f"{plain_ms:.4f}")
         entries.update(check_local_scatters(shape))
     # K7a at N = 131,072 and over a spread of 1,000 values; its cache
     # cases under its cluster's delays; K7d's run cases
@@ -3826,6 +3927,8 @@ def phase_sharded():
                      "values, with deltas", (49, 50), 64, True, True,
                      values=1000)
     check_scan_cache_cases()
+    check_apply_cases()
+    check_basis_merge_large()
     check_run_cases()
     # K7e's selection cases, K7c's cluster under its delays
     check_shard_select((4, 2))

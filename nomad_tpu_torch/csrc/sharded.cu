@@ -26,6 +26,7 @@
 //                    shard's rows and its spread-count replica; shard 0
 //                    writes the slot's packed row; the shard's pick word
 //                    gets the local row it changed (-1: none), for K7a.
+//                    One warp, every lane at work (its section below).
 //   K7c bulk_stats   one bulk wave's statistics on the shard (top-2 of
 //                    cur, max m = 2 score, any fit) and cur into the
 //                    gathered [N] score vector; with `begin`, the eval's
@@ -45,7 +46,8 @@
 //                    sorted; this shard's share of it, the lane state
 //                    and the stop test; the eval's tail when it ends.
 //   K7f bulk_counts  psum of the shards' n_eval/n_exh partials.
-//   K7g basis_merge  used_tot = u0 + psum_wave(exact - u0).
+//   K7g basis_merge  used_tot = u0 + psum_wave(exact - u0), a thread a
+//                    row (16-byte loads).
 // Every bulk launch for an eval whose lane state says `done` returns at
 // once, so the host may read the flag after the wave instead of before
 // each launch.
@@ -62,9 +64,10 @@
 // threads.  K7a caches each row's partial score across launches (its
 // section below).
 //
-// Operands: K7a takes one shard's ScanArgs and K7c-K7e its BulkArgs by
-// address, packed once a shard by the wrapper (ops/sharded.py), so a
-// launch builds only its few per-call arguments on the host.
+// Operands: K7a and K7b take one shard's ScanArgs and K7c-K7e its
+// BulkArgs by address, packed once a shard by the wrapper
+// (ops/sharded.py), so a launch builds only its few per-call arguments
+// on the host.
 //
 // Numerics: compiled without fast math and with -fmad=false; powf; the
 // reference's operation order, so scores are the plain versions' bit
@@ -227,11 +230,6 @@ __device__ __forceinline__ void warp_top(Top& t, Top& out, int* first) {
     for (int i = 0; i < TOPK - 1; ++i) t.k[i] = pop ? t.k[i + 1] : t.k[i];
     t.k[TOPK - 1] = pop ? 0ull : t.k[TOPK - 1];
   }
-}
-
-// a ranks before b: larger value, or equal value and lower row (K7b)
-__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
 }
 
 // one shard's scan operands (ops/sharded.py ScanArgs, packed once a shard)
@@ -633,77 +631,139 @@ scan_local_kernel(ScanArgs a, const float* __restrict__ used_in,
         ? a.vidx[((size_t)g * K + k) * n + (row - a.off)] : 0;
 }
 
-// One warp; thread 0 merges the gathered records, applies the pick and
-// writes the shard's pick word.
-__global__ void scan_apply_kernel(ScanArgs a, int s,
-                                  const int* __restrict__ recs, int nsh,
-                                  float* __restrict__ out) {
-  if (threadIdx.x != 0) return;
-  const float* recf = reinterpret_cast<const float*>(recs);
+// K7b: one warp, every lane at work.  The records are read once, each
+// word by one lane, straight into registers (two rounds of loads: the
+// shards' heads and top lists, then the winner's spread value indices
+// and the carry cells it updates; the spread counts' cells a third):
+//  - lane j holds shard j's best; the pmax is a redux.sync over the
+//    orderable score of the bests that are not NaN (the reference's
+//    all-reduce keeps a value only where it beats the running maximum,
+//    so a NaN never wins), its bits, so the sign of a zero, those of
+//    the first shard at the maximum (of equal values the first stays);
+//    the pmin over the rows of the shards at the maximum is a
+//    redux.sync, its first shard the winner.
+//  - the carries: R lanes the usage cells, K lanes the spread counts (one
+//    cell a spread), one lane tg_count, place_cap and the pick word.
+//  - the stable merge of the top lists: a candidate is position p of the
+//    lists concatenated in shard order (p = j * kloc + q), held by lane
+//    p % 32; its key is (the orderable score with -0.0 read as +0.0, NaN
+//    lowest; then p ascending), as argsort(-tops, stable=True) ranks;
+//    five rounds of the warp's maximum below the previous winner.  The
+//    record's own bits go out, so a -0.0 stays -0.0.
+constexpr int APPLY_MAX_SHARDS = 32;                // one lane a shard
+constexpr int APPLY_CAND = APPLY_MAX_SHARDS * TOPK / 32;  // a lane's
+
+// the merge's key of a top entry: NaN below every score
+__device__ __forceinline__ unsigned merge_ord(float v) {
+  return v != v ? 0u : orderable(v + 0.0f);
+}
+
+__global__ void __launch_bounds__(32, 1)
+scan_apply_kernel(ScanArgs a, int s, const int* __restrict__ recs, int nsh,
+                  float* __restrict__ out) {
+  const int lane = threadIdx.x;
   const int n = a.n, K = a.K, V1 = a.V1;
   const int kloc = min(TOPK, n);
-  const int g = a.slot_tg[s];
-  // pmax of the best scores, pmin of the rows that hold it
-  float gb = -INFINITY;
-  for (int j = 0; j < nsh; ++j) gb = fmaxf(gb, recf[j * SCAN_REC + REC_BEST]);
-  int sel = BIGI, win = -1;
-  if (gb > -INFINITY) {
-    for (int j = 0; j < nsh; ++j) {
-      const int row = recs[j * SCAN_REC + REC_ROW];
-      if (recf[j * SCAN_REC + REC_BEST] == gb && row < sel) { sel = row; win = j; }
-    }
+  const int ncand = nsh * kloc;
+  // round 1: the shards' heads, the candidates, the slot's group
+  const bool mine = lane < nsh;
+  const int* rj = recs + (size_t)lane * SCAN_REC;
+  const float best = mine ? __int_as_float(rj[REC_BEST]) : 0.0f;
+  const int row = mine ? rj[REC_ROW] : BIGI;
+  const int fitb = mine ? rj[REC_FIT] : 0;
+  const int ne_j = mine ? rj[REC_NEVAL] : 0;
+  const int nx_j = mine ? rj[REC_NEXH] : 0;
+  const bool emit = out != nullptr;
+  unsigned cv[APPLY_CAND];     // the candidates' score bits and rows
+  int ci[APPLY_CAND];
+#pragma unroll
+  for (int c = 0; c < APPLY_CAND; ++c) {
+    const int p = lane + 32 * c;
+    const bool has = emit && p < ncand;
+    const int* rp = recs + (size_t)(p / kloc) * SCAN_REC + p % kloc;
+    cv[c] = has ? (unsigned)rp[REC_TOPS] : 0u;
+    ci[c] = has ? rp[REC_TOPI] : 0;
   }
+  const int g = a.slot_tg[s];
+  // the pmax over the bests that are not NaN (0: no such lane; no float
+  // orders as 0) and the pmin of the rows that hold it
+  const bool real = mine && best == best;
+  const unsigned ob = real ? orderable(best + 0.0f) : 0u;
+  const unsigned mx = __reduce_max_sync(FULL, ob);
+  const unsigned at = __ballot_sync(FULL, real && ob == mx);
+  const float gb = __shfl_sync(FULL, best, at ? __ffs(at) - 1 : 0);
+  const bool any = mx > orderable(-INFINITY);
+  const int sel = any ? __reduce_min_sync(FULL, ((at >> lane) & 1u) ? row
+                                                                    : BIGI)
+                      : BIGI;
   const bool ok = sel < BIGI;
-  int changed = -1;     // the local row this launch changes, for K7a
+  const int win = __ffs(__ballot_sync(FULL, ((at >> lane) & 1u) &&
+                                                row == sel)) - 1;
+  const int fit_w = __shfl_sync(FULL, fitb, win < 0 ? 0 : win);
+  // round 2: the carries
+  const int lr = sel - a.off;
+  const bool here = ok && lr >= 0 && lr < n;
+  if (here && lane < R)
+    a.used[lr * R + lane] = a.used[lr * R + lane] + a.demand[s * R + lane];
   if (ok) {
-    const int lr = sel - a.off;
-    if (lr >= 0 && lr < n) {
-      for (int d = 0; d < R; ++d)
-        a.used[lr * R + d] = a.used[lr * R + d] + a.demand[s * R + d];
-      const size_t gs = (size_t)g * n + lr;
-      a.tg_count[gs] += 1;
-      if (a.place_cap[gs] > 0) a.place_cap[gs] -= 1;
-      changed = lr;
-    }
-    for (int k = 0; k < K; ++k) {
-      const int v = recs[win * SCAN_REC + REC_V + k];
+    const int* rw = recs + (size_t)win * SCAN_REC + REC_V;
+    for (int k = lane; k < K; k += 32) {
+      const int v = rw[k];
       if (a.active[g * K + k] && v < V1 - 1)
         a.counts[((size_t)g * K + k) * V1 + v] += 1.0f;
     }
   }
-  a.pick[0] = changed;
-  if (out == nullptr) return;
-  float* o = out + (size_t)s * OUTW;
-  int ne = 0, nx = 0;
-  for (int j = 0; j < nsh; ++j) {
-    ne += recs[j * SCAN_REC + REC_NEVAL];
-    nx += recs[j * SCAN_REC + REC_NEXH];
-  }
-  o[0] = ok ? (float)sel : -1.0f;
-  o[1] = ok ? gb : 0.0f;
-  o[2] = ok ? recf[win * SCAN_REC + REC_FIT] + 0.0f : 0.0f;
-  o[3] = (float)ne;
-  o[4] = (float)nx;
-  // stable merge of the shards' lists: each pick is the first entry, in
-  // (score desc, position asc) order, after the previous pick
-  float ps = INFINITY;
-  int pp = -1;
-  for (int k = 0; k < TOPK; ++k) {
-    float bs = -INFINITY;
-    int bp = -1;
-    for (int j = 0; j < nsh; ++j) {
-      for (int q = 0; q < kloc; ++q) {
-        const int p = j * kloc + q;
-        const float v = recf[j * SCAN_REC + REC_TOPS + q];
-        const bool after = v < ps || (v == ps && p > pp);
-        if (after && (bp < 0 || before(v, p, bs, bp))) { bs = v; bp = p; }
-      }
+  if (lane == R) {
+    if (here) {
+      const size_t gs = (size_t)g * n + lr;
+      a.tg_count[gs] += 1;
+      const int pc = a.place_cap[gs];
+      if (pc > 0) a.place_cap[gs] = pc - 1;
     }
-    ps = bs;
-    pp = bp;
-    const int j = bp / kloc, q = bp % kloc;
-    o[5 + k] = (float)recs[j * SCAN_REC + REC_TOPI + q];
-    o[5 + TOPK + k] = bs;
+    a.pick[0] = here ? lr : -1;
+  }
+  if (!emit) return;
+  // the packed row: heads, then the merge
+  const int ne = __reduce_add_sync(FULL, ne_j);
+  const int nx = __reduce_add_sync(FULL, nx_j);
+  float* o = out + (size_t)s * OUTW;
+  if (lane == 0) {
+    o[0] = ok ? (float)sel : -1.0f;
+    o[1] = ok ? gb : 0.0f;
+    o[2] = ok ? __int_as_float(fit_w) + 0.0f : 0.0f;
+    o[3] = (float)ne;
+    o[4] = (float)nx;
+  }
+  u64 prev = ~0ull;
+#pragma unroll
+  for (int k = 0; k < TOPK; ++k) {
+    u64 m = 0ull;
+#pragma unroll
+    for (int c = 0; c < APPLY_CAND; ++c) {
+      const unsigned p = lane + 32 * c;
+      const u64 key = p < (unsigned)ncand
+          ? ((u64)merge_ord(__uint_as_float(cv[c])) << 32) | (~p)
+          : 0ull;
+      m = (key < prev && key > m) ? key : m;
+    }
+    const unsigned hi = __reduce_max_sync(FULL, (unsigned)(m >> 32));
+    const unsigned lo =
+        __reduce_max_sync(FULL, (unsigned)(m >> 32) == hi ? (unsigned)m : 0u);
+    prev = ((u64)hi << 32) | lo;
+    const unsigned p = ~lo;        // the winner: lane p % 32, slot p / 32
+    unsigned v = 0u;
+    int r = 0;
+#pragma unroll
+    for (int c = 0; c < APPLY_CAND; ++c) {
+      v = (int)(p >> 5) == c ? cv[c] : v;
+      r = (int)(p >> 5) == c ? ci[c] : r;
+    }
+    v = __shfl_sync(FULL, v, p & 31u);
+    r = __shfl_sync(FULL, r, p & 31u);
+    if (lane == k) {
+      o[5 + k] = (float)r;
+      o[5 + TOPK + k] = __uint_as_float(v);
+    }
   }
 }
 
@@ -1646,14 +1706,46 @@ __global__ void bulk_counts_kernel(const int* __restrict__ partials,
   o[3] = p0[3];
 }
 
-__global__ void basis_merge_kernel(const float* u0, const float* exacts,
-                                   float* out, int W, int len) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= len) return;
-  const float u = u0[i];
-  float acc = exacts[i] - u;
-  for (int w = 1; w < W; ++w) acc = acc + (exacts[(size_t)w * len + i] - u);
-  out[i] = u + acc;
+// K7g: a thread a row; the row's R = 4 floats come as one 16-byte load
+// from u0 and from each lane's exact carry, every lane's load issued
+// before the adds, which keep the reference's order: acc = (e0 - u) +
+// (e1 - u) + ..., then u + acc.  WL lanes compiled in (1, 2, 4: the
+// meshes' wave axes), or WL = 0: any W, BASIS_LANES loads in flight at a
+// time.  `out` may be u0 itself (each thread reads its row before it
+// writes it).
+constexpr int BASIS_NT = 128;      // threads a block, by measurement (PERF.md)
+constexpr int BASIS_LANES = 8;
+static_assert(R == 4, "a row is one float4");
+
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+template <int WL>
+__global__ void __launch_bounds__(BASIS_NT)
+basis_merge_kernel(const float4* u0, const float4* __restrict__ exacts,
+                   float4* out, int W, int n) {
+  const int i = blockIdx.x * BASIS_NT + threadIdx.x;
+  if (i >= n) return;
+  const float4 u = u0[i];
+  constexpr int L = WL > 0 ? WL : BASIS_LANES;
+  const int lanes = WL > 0 ? WL : W;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int w0 = 0; w0 < lanes; w0 += L) {
+    float4 e[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k)
+      if (w0 + k < lanes) e[k] = exacts[(size_t)(w0 + k) * n + i];
+#pragma unroll
+    for (int k = 0; k < L; ++k)
+      if (w0 + k < lanes) acc = w0 + k == 0 ? sub4(e[k], u)
+                                            : add4(acc, sub4(e[k], u));
+  }
+  out[i] = add4(u, acc);
 }
 
 // One K7c cluster (its size compiled into the kernel, so an ordinary
@@ -1715,29 +1807,16 @@ extern "C" int scan_cache_words_of(int n, int K, int V1) {
   return (int)scan_cache_words(n, K, V1);
 }
 
-extern "C" int scan_apply_launch(float* used, int* tg_count, int* place_cap,
-                                 float* counts, const uint8_t* active,
-                                 const float* demand, const int* slot_tg,
-                                 const int* recs, float* out, int* pick,
-                                 int G, int n, int K, int V1, int off, int s,
-                                 int nsh, void* stream) {
-  if (K < 1 || K > MAXK || n < 1 || nsh < 1 || nsh * min(TOPK, n) < TOPK)
+// K7b: one slot's selection and carry updates on one shard, its operands
+// packed once (`a`, K7a's); `out` (shard 0's) may be null.
+extern "C" int scan_apply_launch(const void* args, int s, const int* recs,
+                                 int nsh, float* out, void* stream) {
+  const ScanArgs* a = static_cast<const ScanArgs*>(args);
+  if (a->K < 1 || a->K > MAXK || a->n < 1 || nsh < 1 ||
+      nsh > APPLY_MAX_SHARDS || nsh * min(TOPK, a->n) < TOPK)
     return (int)cudaErrorInvalidValue;
-  ScanArgs a{};
-  a.used = used;
-  a.tg_count = tg_count;
-  a.place_cap = place_cap;
-  a.counts = counts;
-  a.active = active;
-  a.demand = demand;
-  a.slot_tg = slot_tg;
-  a.pick = pick;
-  a.G = G;
-  a.n = n;
-  a.K = K;
-  a.V1 = V1;
-  a.off = off;
-  scan_apply_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(a, s, recs, nsh, out);
+  scan_apply_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(*a, s, recs, nsh,
+                                                        out);
   return (int)cudaGetLastError();
 }
 
@@ -1796,10 +1875,25 @@ extern "C" int bulk_counts_launch(const int* partials, int* out, int nsh,
   return (int)cudaGetLastError();
 }
 
+// K7g on one shard of n rows: u0, out f32[n, 4], exacts f32[W, n, 4],
+// each 16-byte aligned (the wrapper checks)
 extern "C" int basis_merge_launch(const float* u0, const float* exacts,
-                                  float* out, int W, int len, void* stream) {
-  if (len <= 0) return 0;
-  basis_merge_kernel<<<(len + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      u0, exacts, out, W, len);
+                                  float* out, int W, int n, void* stream) {
+  if (n <= 0) return 0;
+  if (W < 1) return (int)cudaErrorInvalidValue;
+  const float4* u = reinterpret_cast<const float4*>(u0);
+  const float4* e = reinterpret_cast<const float4*>(exacts);
+  float4* o = reinterpret_cast<float4*>(out);
+  const int blocks = (n + BASIS_NT - 1) / BASIS_NT;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (W) {
+    case 1: basis_merge_kernel<1><<<blocks, BASIS_NT, 0, st>>>(u, e, o, W, n);
+            break;
+    case 2: basis_merge_kernel<2><<<blocks, BASIS_NT, 0, st>>>(u, e, o, W, n);
+            break;
+    case 4: basis_merge_kernel<4><<<blocks, BASIS_NT, 0, st>>>(u, e, o, W, n);
+            break;
+    default: basis_merge_kernel<0><<<blocks, BASIS_NT, 0, st>>>(u, e, o, W, n);
+  }
   return (int)cudaGetLastError();
 }

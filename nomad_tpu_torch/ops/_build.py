@@ -69,11 +69,11 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
                               _I] + [_P] * 6,
     },
     "sharded": {
-        # K7a and K7c-K7e take their shard's packed operands (a pointer
-        # to ops/sharded.py ScanArgs / BulkArgs) first
+        # K7a, K7b and K7c-K7e take their shard's packed operands (a
+        # pointer to ops/sharded.py ScanArgs / BulkArgs) first
         "scan_local_launch": [_P] * 4 + [_I] * 3 + [_P, _I, _I, _P],
         "scan_cache_words_of": [_I, _I, _I],
-        "scan_apply_launch": [_P] * 10 + [_I] * 7 + [_P],
+        "scan_apply_launch": [_P, _I, _P, _I, _P, _P],
         "bulk_stats_launch": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
         "bulk_stats_cluster_size": [],
         "sharded_set_jitter": [_I, _P],

@@ -19,7 +19,8 @@ kernels write (parallel/sharded.py sequences them).
   (pmax score, pmin row, stable merge of the top-K lists); the owning
   shard updates used/tg_count/place_cap at the picked row (and names it
   in its pick word, -1 elsewhere), every shard its replica of the spread
-  counts; shard 0 writes the slot's packed row.
+  counts; shard 0 writes the slot's packed row.  The kernel is one warp
+  with a lane a shard and the merge over lanes (`scan_apply_model`).
 - K7c `bulk_stats`: one bulk wave's statistics on one shard (any fit, the
   m = 2 column's best, the local top-2 of the wave-start scores, which go
   to the gathered score vector); with `begin` it first starts the eval
@@ -41,9 +42,10 @@ kernels write (parallel/sharded.py sequences them).
 Each has a plain PyTorch version here, which the wrapper takes for CPU
 tensors; CUDA tensors launch csrc/sharded.cu.  Records are i32 words
 (floats stored as their bits).  `launches` counts kernel launches only.
-K7a's and K7c-K7e's operands are packed into a `ctypes.Structure` at a
-shard's first launch and passed by address after; a shard's tensors
-are therefore never replaced, only written in place.
+K7a's (which K7b shares) and K7c-K7e's operands are packed into a
+`ctypes.Structure` at a shard's first launch and passed by address
+after; a shard's tensors are therefore never replaced, only written in
+place.
 """
 from __future__ import annotations
 
@@ -98,12 +100,16 @@ def _f(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.float32)
 
 
-def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's address for a c_void_p argument (None: NULL)."""
+    return None if t is None else t.data_ptr()
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+def _stream(t: torch.Tensor) -> int:
+    """The handle of the current stream on t's card, as
+    torch.cuda.current_stream(dev).cuda_stream gives it, without building
+    a Stream object (6 us of host time a launch on the H100, PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _packed(cls, values) -> tuple:
@@ -115,9 +121,26 @@ def _packed(cls, values) -> tuple:
 
 
 def _kind(t: torch.Tensor, name: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return t.device.type
+    if t.is_cuda:
+        return "cuda"
+    if t.is_cpu:
+        return "cpu"
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def shard_max(xs) -> torch.Tensor:
+    """The reference's pmax over the shards' values `xs` (0-d tensors on
+    one device, in shard order), as XLA's all-reduce takes it: a value
+    kept only where it beats the running maximum, so a NaN never wins
+    (all NaN: -inf) and of equal values (+0.0 and -0.0) the first
+    shard's stays."""
+    acc = xs[0]
+    if acc.is_floating_point():
+        acc = torch.where(torch.isnan(acc), torch.full_like(acc, -torch.inf),
+                          acc)
+    for x in xs[1:]:
+        acc = torch.where(x > acc, x, acc)
+    return acc
 
 
 def _launched(name: str, rc: int) -> None:
@@ -187,6 +210,12 @@ class ScanShard:
         if R != 4 or self.feasible.shape != (G, n) \
                 or self.vidx.shape != (G, K, n):
             raise ValueError("ScanShard: inconsistent shapes")
+        f32, i32 = torch.float32, torch.int32
+        if not (self.capacity.dtype == self.used.dtype == self.counts.dtype
+                == self.demand.dtype == f32) or not (
+                    self.tg_count.dtype == self.place_cap.dtype == i32):
+            raise ValueError("ScanShard: f32 capacity, usage, demand and "
+                             "spread counts; i32 tg_count and place_cap")
         if self.cache.dtype != torch.int32 \
                 or self.cache.numel() < 3 * n + SCAN_CACHE_META \
                 or self.pick.dtype != torch.int32 or self.pick.numel() != 1:
@@ -463,14 +492,15 @@ def scan_local(sh: ScanShard, s: int, init: bool,
         _scan_args(sh), _ptr(used_in), _ptr(delta_rows), _ptr(delta_vals),
         0 if delta_rows is None else delta_rows.shape[0], int(s),
         int(bool(init)), _ptr(recs), int(shard), int(bool(spread_algorithm)),
-        _stream(sh.used.device))
+        _stream(sh.used))
     _launched("scan_local", rc)
 
 
 def scan_apply_plain(sh: ScanShard, s: int, recs: torch.Tensor,
                      out: Optional[torch.Tensor]) -> None:
     """Plain version of K7b: the global selection from the gathered
-    records (pmax score, pmin global row among the shards holding it),
+    records (pmax score as the reference takes it, `shard_max`; pmin
+    global row among the shards holding it),
     the carry updates of `_place_step_sharded` (lines 229-244) on this
     shard, the pick word (the local row updated here, -1 where the pick
     is another shard's or there is none), and, where `out` (f32[S,
@@ -484,7 +514,7 @@ def scan_apply_plain(sh: ScanShard, s: int, recs: torch.Tensor,
     d = sh.demand[s]
     recf = _f(recs)
     bests = recf[:, REC_BEST]
-    gb = torch.max(bests)
+    gb = shard_max(list(bests))
     ok_any = bool(gb > float("-inf"))
     cand = torch.where((bests == gb) & ok_any, recs[:, REC_ROW],
                        torch.full_like(recs[:, REC_ROW], BIG))
@@ -524,21 +554,95 @@ def scan_apply_plain(sh: ScanShard, s: int, recs: torch.Tensor,
     out[s] = row
 
 
+def _apply_pick(recs: torch.Tensor):
+    """K7b's global selection from the gathered records, as the kernel's
+    warp takes it: (ok, the selected global row, the winning shard, the
+    best score's bits as f32).  The maximum of the orderable bests (-0.0
+    read as +0.0) over the shards whose best is not NaN (none: no pick),
+    its bits those of the first shard holding it (the reference's pmax),
+    and the lowest row among the shards holding it, the first such shard
+    the winner."""
+    bests = _f(recs[:, REC_BEST])
+    ob = _orderable(bests + 0.0).tolist()
+    real = [j for j in range(len(ob)) if not bool(torch.isnan(bests[j]))]
+    if not real:
+        return False, BIG, -1, bests[0]
+    mx = max(ob[j] for j in real)
+    at = [j for j in real if ob[j] == mx]
+    gb = bests[at[0]]
+    if mx <= int(_orderable(torch.tensor([float("-inf")]))[0]):
+        return False, BIG, -1, gb
+    rows = recs[:, REC_ROW].tolist()
+    sel = min(rows[j] for j in at)
+    win = next(j for j in at if rows[j] == sel)
+    return sel < BIG, sel, win, gb
+
+
+def scan_apply_model(sh: ScanShard, s: int, recs: torch.Tensor,
+                     out: Optional[torch.Tensor]) -> None:
+    """Model of K7b's warp (csrc/sharded.cu), on CPU tensors, for the
+    tests, which hold it bit-equal to `scan_apply_plain`: the selection
+    of `_apply_pick`; the carry updates split as the lanes take them (R
+    usage cells, one spread count a spread, tg_count, place_cap and the
+    pick word); the top-K merge as five rounds of the maximum of 64-bit
+    keys (the orderable score, -0.0 read as +0.0 and NaN below every
+    score; then the position in the lists concatenated in shard order,
+    lower first) below the previous winner, the entries' own bits
+    written."""
+    n = sh.capacity.shape[0]
+    K = sh.vidx.shape[1]
+    V1 = sh.counts.shape[2]
+    g = int(sh.slot_tg[s])
+    ok, sel, win, gb = _apply_pick(recs)
+    lr = sel - sh.off
+    here = ok and 0 <= lr < n
+    if here:
+        for d in range(sh.used.shape[1]):
+            sh.used[lr, d] = sh.used[lr, d] + sh.demand[s, d]
+    if ok:
+        for k in range(K):
+            v = int(recs[win, REC_V + k])
+            if bool(sh.spread_active[g, k]) and v < V1 - 1:
+                sh.counts[g, k, v] += 1.0
+    if here:
+        sh.tg_count[g, lr] += 1
+        if int(sh.place_cap[g, lr]) > 0:
+            sh.place_cap[g, lr] -= 1
+    sh.pick[0] = lr if here else -1
+    if out is None:
+        return
+    recf = _f(recs)
+    kloc = min(TOP_K, n)
+    tops = recf[:, REC_TOPS:REC_TOPS + kloc].reshape(-1)
+    topi = recs[:, REC_TOPI:REC_TOPI + kloc].reshape(-1)
+    folded = _orderable(tops + 0.0)
+    keys = [(0 if bool(torch.isnan(tops[p])) else int(folded[p])) << 32
+            | (0xFFFFFFFF - p) for p in range(tops.shape[0])]
+    row = out[s]
+    row[0] = float(sel) if ok else -1.0
+    row[1] = gb if ok else 0.0
+    row[2] = recf[win, REC_FIT] + 0.0 if ok else 0.0
+    row[3] = float(int(torch.sum(recs[:, REC_NEVAL])))
+    row[4] = float(int(torch.sum(recs[:, REC_NEXH])))
+    prev = 1 << 64
+    for k in range(TOP_K):
+        prev = max(key for key in keys if key < prev)
+        p = 0xFFFFFFFF - (prev & 0xFFFFFFFF)
+        row[5 + k] = float(int(topi[p]))
+        row[5 + TOP_K + k] = tops[p]
+
+
 def scan_apply(sh: ScanShard, s: int, recs: torch.Tensor,
                out: Optional[torch.Tensor]) -> None:
     """K7b wrapper (see scan_apply_plain).  CUDA shards launch
-    csrc/sharded.cu; CPU shards take the plain version."""
+    csrc/sharded.cu with the shard's packed operands (K7a's); CPU shards
+    take the plain version."""
     if _kind(sh.used, "scan_apply") == "cpu":
         return scan_apply_plain(sh, s, recs, out)
-    n = sh.capacity.shape[0]
-    G, K = sh.spread_wfrac.shape
-    V1 = sh.spread_desired.shape[2]
     lib = _build.load("sharded")
-    rc = lib.scan_apply_launch(
-        _ptr(sh.used), _ptr(sh.tg_count), _ptr(sh.place_cap), _ptr(sh.counts),
-        _ptr(sh.spread_active), _ptr(sh.demand), _ptr(sh.slot_tg),
-        _ptr(recs), _ptr(out), _ptr(sh.pick), G, n, K, V1, sh.off, int(s),
-        recs.shape[0], _stream(sh.used.device))
+    rc = lib.scan_apply_launch(_scan_args(sh), int(s), _ptr(recs),
+                               recs.shape[0], _ptr(out),
+                               _stream(sh.used))
     _launched("scan_apply", rc)
 
 
@@ -813,7 +917,7 @@ def bulk_stats(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
     rc = lib.bulk_stats_launch(_bulk_args(sh), int(e), int(bool(begin)),
                                _ptr(stats), _ptr(cur_g), int(shard),
                                int(bool(spread)), int(max_waves),
-                               _stream(sh.used.device))
+                               _stream(sh.used))
     _launched("bulk_stats", rc)
 
 
@@ -831,7 +935,7 @@ def bulk_run(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
     rc = lib.bulk_run_launch(_bulk_args(sh), int(e), _ptr(stats),
                              stats.shape[0], _ptr(cur_g), _ptr(base_g),
                              int(bool(spread)), int(fill_grid),
-                             _stream(sh.used.device))
+                             _stream(sh.used))
     _launched("bulk_run", rc)
 
 
@@ -848,7 +952,7 @@ def bulk_order(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
     rc = lib.bulk_order_launch(_bulk_args(sh), int(e), _ptr(stats),
                                stats.shape[0], _ptr(cur_g), _ptr(base_g),
                                int(bool(spread)), int(max_waves),
-                               _stream(sh.used.device))
+                               _stream(sh.used))
     _launched("bulk_order", rc)
 
 
@@ -872,7 +976,7 @@ def bulk_counts(partials: torch.Tensor, out: torch.Tensor) -> None:
     lib = _build.load("sharded")
     n_shard, E, _ = partials.shape
     rc = lib.bulk_counts_launch(_ptr(partials), _ptr(out), n_shard, E,
-                                _stream(out.device))
+                                _stream(out))
     _launched("bulk_counts", rc)
 
 
@@ -889,17 +993,23 @@ def basis_merge_plain(u0: torch.Tensor, exacts: torch.Tensor,
 
 def basis_merge(u0: torch.Tensor, exacts: torch.Tensor,
                 out: torch.Tensor) -> None:
-    """K7g wrapper (see basis_merge_plain)."""
+    """K7g wrapper (see basis_merge_plain).  The kernel reads a row's 4
+    floats as one 16-byte load, so it refuses unaligned operands."""
     if _kind(out, "basis_merge") == "cpu":
         return basis_merge_plain(u0, exacts, out)
     n, R = u0.shape
-    if exacts.shape[1:] != (n, R) or out.shape != (n, R) or \
-            len({u0.device, exacts.device, out.device}) != 1 or \
-            not (u0.is_contiguous() and exacts.is_contiguous()
-                 and out.is_contiguous()):
-        raise ValueError("basis_merge: f32[n, R], f32[W, n, R], f32[n, R] "
-                         "contiguous on one device")
+    f32 = torch.float32
+    if R != 4 or exacts.shape[1:] != (n, R) or out.shape != (n, R) or \
+            not (u0.dtype == exacts.dtype == out.dtype == f32) or \
+            not (u0.get_device() == exacts.get_device() == out.get_device())\
+            or not (u0.is_contiguous() and exacts.is_contiguous()
+                    and out.is_contiguous()):
+        raise ValueError("basis_merge: f32[n, 4], f32[W, n, 4], f32[n, 4] "
+                         "contiguous on one card")
+    if (u0.data_ptr() | exacts.data_ptr() | out.data_ptr()) % 16:
+        raise ValueError("basis_merge: the kernel reads rows 16 bytes at a "
+                         "time; an operand is not 16-byte aligned")
     lib = _build.load("sharded")
     rc = lib.basis_merge_launch(_ptr(u0), _ptr(exacts), _ptr(out),
-                                exacts.shape[0], n * R, _stream(out.device))
+                                exacts.shape[0], n, _stream(out))
     _launched("basis_merge", rc)

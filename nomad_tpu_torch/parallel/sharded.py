@@ -265,7 +265,7 @@ def _all_gather(xs: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def _pmax(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.max(torch.stack([x.to(xs[0].device) for x in xs]))
+    return _k7.shard_max([x.to(xs[0].device) for x in xs])
 
 
 def _pmin(xs: Sequence[torch.Tensor]) -> torch.Tensor:

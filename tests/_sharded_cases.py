@@ -470,3 +470,195 @@ def bulk_run_shards(case, node_shards: int, dev="cpu"):
         sh.state[k7.ST_DONE] = int(done)
         shards.append(sh)
     return shards, stats, cur_g
+
+
+# ------------------------------------------------------ K7b's merge cases
+
+APPLY_GROUPS = 2                    # groups of every K7b case
+APPLY_SLOTS = 4                     # slots; slot s of the case's t-th call
+_APPLY_SLOT_TG = (0, 1, 1, 0)       # is t % APPLY_SLOTS
+
+
+def _apply_records(rng, NS, n, K, V1, bests, rows=None, pool=None,
+                   tops=None):
+    """One slot's gathered K7b records i32[NS, SCAN_REC] in K7a's layout:
+    shard j's best bests[j] at global row rows[j] (default a row of its
+    own), its top list led by that entry and followed by entries of
+    `pool` no higher (or the first min(5, n) scores of tops[j]), the
+    list's other rows distinct rows of the shard, entries past the list
+    -inf with row 2**31 - 1; a random fit score, n_eval, n_exh and K
+    spread value indices in [0, V1) (V1 - 1: the missing attribute)."""
+    from nomad_tpu_torch.ops import sharded as k7
+    kloc = min(k7.TOP_K, n)
+    pool = np.asarray(pool if pool is not None else (0.5, 0.25, -1.0,
+                                                     -np.inf), np.float32)
+    recs = np.zeros((NS, k7.SCAN_REC), np.int32)
+    recf = recs.view(np.float32)
+    for j in range(NS):
+        local = rng.permutation(n)
+        b = np.float32(bests[j])
+        row = int(rows[j]) if rows is not None else j * n + int(local[0])
+        if tops is not None:
+            ts = np.asarray(tops[j][:kloc], np.float32)
+        else:
+            low = pool if np.isnan(b) else pool[~(pool > b)]
+            ts = np.concatenate([[b], -np.sort(-rng.choice(
+                low if low.size else np.float32([-np.inf]), kloc - 1))])
+        recf[j, k7.REC_BEST] = b
+        recs[j, k7.REC_ROW] = row
+        recf[j, k7.REC_FIT] = np.float32(rng.random() * 18)
+        recs[j, k7.REC_NEVAL] = rng.integers(0, n + 1)
+        recs[j, k7.REC_NEXH] = rng.integers(0, n + 1)
+        recf[j, k7.REC_TOPS:k7.REC_TOPS + k7.TOP_K] = -np.inf
+        recf[j, k7.REC_TOPS:k7.REC_TOPS + kloc] = ts
+        recs[j, k7.REC_TOPI:k7.REC_TOPI + k7.TOP_K] = 2 ** 31 - 1
+        recs[j, k7.REC_TOPI] = row
+        recs[j, k7.REC_TOPI + 1:k7.REC_TOPI + kloc] = j * n + local[1:kloc]
+        recs[j, k7.REC_V:k7.REC_V + K] = rng.integers(0, V1, K)
+    return recs
+
+
+def scan_apply_cases(node_shards: int, seed: int = 0) -> list:
+    """K7b's cases on `node_shards` shards (1 to 8): [dict(label, n, K,
+    V1, used f32[N, 4], tg_count i32[G, N], place_cap i32[G, N], counts
+    f32[G, K, V1], active bool[G, K], demand f32[S, 4], slot_tg i32[S],
+    records [i32[NS, SCAN_REC]] one a call)], a call t on slot t % S.
+    The carries: non-integer usage with -0.0 cells, co-placement counts,
+    place caps of -1 to 2, spread counts.  The cases: equal bests on
+    several shards (also with the rows out of shard order, so the lowest
+    row is a later shard's); +0.0 and -0.0 bests and top entries (every
+    shard's best a zero; and beside lower bests); shards of fewer than 5
+    rows; fewer than 5 fitting rows (-inf tails); every row infeasible;
+    K = 1 and K = 64; inactive spreads and the V1 - 1 sentinel; a pick on
+    each shard and on the rows either side of a shard boundary; a NaN
+    best; NaN top entries (below every score in the merge)."""
+    rng = np.random.default_rng(seed + 1000 * node_shards)
+    NS, G, S = node_shards, APPLY_GROUPS, APPLY_SLOTS
+    cases = []
+
+    def add(label, n, K, V1, calls, active=None):
+        N = NS * n
+        used = (rng.integers(0, 8, (N, 4)) * 100
+                + rng.random((N, 4)) * 10).astype(np.float32)
+        used[rng.random((N, 4)) < 0.2] = -0.0
+        demand = np.tile(np.float32([33.3, 70.7, 0.1, 0.0]), (S, 1))
+        demand[1, 2] = -0.0
+        if active is None:
+            active = rng.random((G, K)) < 0.7
+        counts = rng.integers(0, 4, (G, K, V1)).astype(np.float32)
+        cases.append(dict(
+            label=label, n=n, K=K, V1=V1, used=used,
+            tg_count=rng.integers(0, 3, (G, N)).astype(np.int32),
+            place_cap=rng.choice(np.int32([-1, 0, 1, 2]), (G, N)),
+            counts=(counts + (rng.random(counts.shape) < 0.1)
+                    * np.float32(0.5)).astype(np.float32),
+            active=np.asarray(active, bool), demand=demand,
+            slot_tg=np.int32(_APPLY_SLOT_TG),
+            records=[c(n, K, V1) for c in calls]))
+
+    def recs(bests, **kw):
+        return lambda n, K, V1: _apply_records(rng, NS, n, K, V1, bests,
+                                               **kw)
+
+    def some(values):
+        return rng.choice(np.float32(values), NS)
+
+    ties = (0.75, 0.5, 0.25, -np.inf)
+    calls = []
+    for _ in range(S):
+        b = some((0.75, 0.5, -np.inf))
+        b[rng.choice(NS, min(2, NS), replace=False)] = 0.75
+        calls.append(recs(b, pool=ties))
+    add("equal bests on several shards", 8, 3, 6, calls)
+    add("equal bests, rows out of shard order", 8, 3, 6,
+        [recs(np.full(NS, 0.75, np.float32),
+              rows=[(NS - 1 - j) * 8 + 3 + t for j in range(NS)],
+              pool=ties) for t in range(S)])
+    zeros = (0.0, -0.0, -0.5, -np.inf)
+    add("+0.0 and -0.0 bests and top entries", 8, 3, 6,
+        [recs(some((0.0, -0.0)), pool=zeros) for _ in range(S)])
+    calls = [recs(some((0.0, -0.0, -0.5, -np.inf)), pool=zeros)
+             for _ in range(2 * S)]
+    if NS > 2:
+        # +0.0 on shard 1, -0.0 on shard 2, lower bests elsewhere
+        b = np.full(NS, -1.0, np.float32)
+        b[1], b[2] = 0.0, -0.0
+        calls.append(recs(b, pool=zeros))
+    add("+0.0 and -0.0 bests beside lower ones", 8, 3, 6, calls)
+    few = {1: 5, 2: 3, 4: 2, 8: 1}[NS]
+    add(f"shards of few rows (n = {few})", few, 3, 6,
+        [recs(some((0.5, 0.25, -np.inf)), pool=(0.25, -np.inf))
+         for _ in range(S)])
+    calls = []
+    for _ in range(S):
+        fit = rng.integers(0, 4, NS)
+        tops = [[0.5] * k + [-np.inf] * (5 - k) for k in fit]
+        calls.append(recs(np.float32([t[0] for t in tops]), tops=tops))
+    add("fewer than 5 fitting rows", 8, 3, 6, calls)
+    add("every row infeasible", 8, 3, 6,
+        [recs(np.full(NS, -np.inf, np.float32)) for _ in range(S)])
+    add("K = 1", 8, 1, 4, [recs(some((0.5, 0.25))) for _ in range(S)])
+    add("K = 64", 8, 64, 5, [recs(some((0.5, 0.25))) for _ in range(S)])
+    add("inactive spreads and the V1 - 1 sentinel", 8, 4, 6,
+        [recs(some((0.5, 0.25))) for _ in range(2 * S)],
+        active=[[True, False, True, False], [False, True, True, True]])
+    n = 8
+    wins = [j * n + 5 for j in range(NS)] + [0, NS * n - 1] + (
+        [n - 1, n] if NS > 1 else [])
+    calls = []
+    for w in wins:
+        b = np.full(NS, 0.5, np.float32)
+        rows = [j * n + (1 if w != j * n + 1 else 2) for j in range(NS)]
+        b[w // n], rows[w // n] = 0.9, w
+        calls.append(recs(b, rows=rows))
+    add("a pick on each shard and either side of a shard boundary", n, 3,
+        6, calls)
+    calls = []
+    for t in range(S):
+        b = some((0.5, 0.25))
+        b[t % NS] = np.nan
+        calls.append(recs(b))
+    add("a NaN best", 8, 3, 6, calls)
+    calls = []
+    for _ in range(S):
+        b = some((0.5, 0.25, -np.inf))
+        calls.append(recs(b, tops=[[b[j]] * (1 - j % 2) + [np.nan] * 5
+                                   for j in range(NS)]))
+    add("NaN top entries", 8, 3, 6, calls)
+    return cases
+
+
+def scan_apply_shards(case: dict, dev="cpu"):
+    """A K7b case's NS ScanShards (the carries from the case, the other
+    fields placeholders K7b does not read), its records as tensors and
+    the packed rows' output f32[S, 5 + 2 * TOP_K]."""
+    import torch
+    from nomad_tpu_torch.ops import sharded as k7
+    n, K, V1 = case["n"], case["K"], case["V1"]
+    N = case["used"].shape[0]
+    NS, G, S = N // n, APPLY_GROUPS, APPLY_SLOTS
+    t = lambda x, dt=None: torch.as_tensor(np.array(x), dtype=dt,  # noqa
+                                           device=dev)
+    z = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
+        s, dtype=dt, device=dev)
+    shards = []
+    for i in range(NS):
+        sl = slice(i * n, (i + 1) * n)
+        shards.append(k7.ScanShard(
+            off=i * n, capacity=z(n, 4), used=t(case["used"][sl]),
+            feasible=z(G, n, dt=torch.bool), affinity=z(G, n),
+            penalty=z(G, n, dt=torch.bool), tg0=z(G, n, dt=torch.int32),
+            cap0=z(G, n, dt=torch.int32), vidx=z(G, K, n, dt=torch.int32),
+            has_affinity=z(G, dt=torch.bool),
+            desired_count=z(G, dt=torch.int32), spread_desired=z(G, K, V1),
+            spread_targeted=z(G, K, dt=torch.bool), spread_wfrac=z(G, K),
+            counts0=z(G, K, V1), spread_active=t(case["active"]),
+            demand=t(case["demand"]), slot_tg=t(case["slot_tg"]),
+            slot_active=torch.ones(S, dtype=torch.bool, device=dev),
+            tg_count=t(case["tg_count"][:, sl]),
+            place_cap=t(case["place_cap"][:, sl]),
+            counts=t(case["counts"]), cache=k7.scan_cache(n, K, V1, dev),
+            pick=z(1, dt=torch.int32)).check())
+    recs = [t(r) for r in case["records"]]
+    out = torch.full((S, 5 + 2 * k7.TOP_K), -7.0, device=dev)
+    return shards, recs, out
