@@ -42,7 +42,15 @@ Phases, all run in this order:
            alone, from the profiler), and the stage probe's units
            K8a-K8f at the bench's shape (N = 10,000, M = 16, R = 4),
            each against its plain version, K8f also against the
-           K8a->K8e kernel chain.
+           K8a->K8e kernel chain; then bit for bit at 20,000 and
+           131,072 rows and M = 64 and on the probe's edge rows (a best
+           row scoring -inf, NaN scores, no row fitting, ties, two
+           rows, a count above every run), K8d/K8f (one cluster each)
+           also under three seeds of the delays at their cluster
+           exchanges, and, where a parent tree is unpacked under
+           smoke_archive/parent, K8d/K8f timed in turns against the
+           parent's (parent, new, new, parent), its library built and
+           bound by its own ops/_build.py.
   slice    the engine-off path (NOMAD_TPU_ENGINE=0): the scheduler's
            eval-to-commit path through the entry points a user calls
            (Harness(device="cuda") -> GenericScheduler -> DenseStack ->
@@ -138,6 +146,7 @@ non-zero; without a CUDA card it exits non-zero before printing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -390,7 +399,8 @@ def phase_build():
         f"K2/K3 one of "
         f"{_build.load('place_scan').place_scan_cluster_size()}, "
         f"x 1024 threads; K7c one of "
-        f"{_build.load('sharded').bulk_stats_cluster_size()} blocks")
+        f"{_build.load('sharded').bulk_stats_cluster_size()} blocks, K8d/K8f "
+        f"one of {_build.load('stage_probe').stage_probe_cluster_size()}")
 
 
 def preempt_ptxas(text):
@@ -1714,9 +1724,11 @@ def check_stage_probe():
         k_ms = time_cuda(kern)
         p_ms = time_cuda(plain)
         bound, by = _bound(nbytes[name], ops[name])
+        alone = kernel_device_ms(kern, STAGE_KERNELS[name])
         log(f"kernels: {name} N={n} M={M}: integers equal, floats "
             f"{'bit-equal' if bits else f'max |err| {err:.3g}'}; kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+            f"{k_ms:.4f} ms (alone {alone:.4f} ms), plain {p_ms:.4f} ms, "
+            f"bound {bound:.6f} ms ({by})")
         jax_fn, replaces = STAGE_UNITS[name]
         entries[name] = dict(
             name=name, route="cuda",
@@ -1738,7 +1750,271 @@ def check_stage_probe():
     log(f"kernels: stage_fused_wave: used2, coll2 and placed "
         f"({int(fused[2])} of {x['count']}) equal to the K8a->K8e kernel "
         f"chain")
+    check_stage_cases()
+    stage_turns()
     return entries
+
+
+# the kernel's name in the profiler, per K8 wrapper
+STAGE_KERNELS = {"stage_feasibility": "feasibility_kernel",
+                 "stage_fit": "fit_kernel", "stage_score": "score_kernel",
+                 "stage_argmax": "argmax_kernel",
+                 "stage_scatter": "scatter_kernel",
+                 "stage_fused_wave": "fused_wave_kernel"}
+# K8's shapes past the bench's (N = 10,000, M = 16): a 20,000-node
+# cluster, past the 16,384 rows one block sorted in shared memory, and
+# 131,072 rows (8 a thread), each at the probe's two fill grids
+STAGE_SHAPES = ((10000, 16), (20000, 16), (131072, 16), (10000, 64),
+                (20000, 64), (131072, 64))
+STAGE_JITTER_SEEDS = range(1, 4)
+
+
+def _stage_chain(x, kernels):
+    """K8a->K8e and K8f on the probe inputs x: the kernels (`kernels`) or
+    the plain versions, each unit fed the outputs of its own chain."""
+    from nomad_tpu_torch.ops import stage_probe as sp
+    f = (lambda k: getattr(sp, k)) if kernels else \
+        (lambda k: getattr(sp, k + "_plain"))
+    util_m, fits_m = f("feasibility")(x["capacity"], x["used"], x["demand"],
+                                      x["feasible"], x["ms"])
+    fit_m = f("fit")(x["capacity"], util_m)
+    score_m = f("score")(fit_m, x["coll"], x["ms"], x["desired_f"],
+                         x["penalty"], x["affinity"], x["has_affinity"])
+    run, order = f("argmax")(fits_m, score_m, x["ms"])
+    used2, coll2, placed = f("scatter")(run, order, x["count"], x["used"],
+                                        x["demand"], x["coll"])
+    fused = f("fused_wave")(*_fused_args(x))
+    return dict(util_m=util_m, fits_m=fits_m, fit_m=fit_m, score_m=score_m,
+                run=run, order=order, used2=used2, coll2=coll2,
+                placed=placed.reshape(1), fused_used2=fused[0],
+                fused_coll2=fused[1], fused_placed=fused[2].reshape(1))
+
+
+def _fused_args(x):
+    return (x["capacity"], x["used"], x["demand"], x["feasible"],
+            x["affinity"], x["has_affinity"], x["desired_f"], x["penalty"],
+            x["coll"], x["count"], x["fill_grid"])
+
+
+def _same(name, got, want):
+    """Integers and bools equal; floats bit for bit, NaN against NaN."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape} {got.dtype} vs "
+                             f"{want.shape} {want.dtype}")
+    if want.dtype == np.float32:
+        nan = np.isnan(want)
+        if not np.array_equal(np.isnan(got), nan):
+            raise AssertionError(f"{name}: NaN where the plain version has "
+                                 f"none, or none where it has")
+        got, want = np.where(nan, 0, got), np.where(nan, 0, want)
+        got, want = got.view(np.uint32), want.view(np.uint32)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{name}: {int((got != want).sum())} differ")
+
+
+def check_stage_cases():
+    """K8a-K8f against their plain versions on every shape of
+    STAGE_SHAPES and on the edge rows of probe_edge_inputs at N = 10,000
+    (a best row scoring -inf, NaN scores at m = 1 and past it, no row
+    fitting, every row tied, two rows, a count above every run), M = 16
+    and 64: every output bit-equal (NaN against NaN), K8f's equal to the
+    K8a->K8e kernel chain's, and K8d and K8f again under each of
+    STAGE_JITTER_SEEDS of the delays at their cluster exchanges."""
+    import torch
+    from nomad_tpu_torch.ops import stage_probe as sp
+    from nomad_tpu_torch.parallel import stage_probe as psp
+    cases = [(f"N={n} M={M}", psp.probe_inputs(n, fill_grid=M,
+                                                device="cuda"))
+             for n, M in STAGE_SHAPES]
+    stc = _cases("_stage_cases")
+    cases += [(f"{kind}, M={M}",
+               stc.probe_edge_inputs(kind, N_NODES, M, device="cuda"))
+              for M in (16, 64) for kind in stc.EDGE_KINDS]
+    for label, x in cases:
+        got = _stage_chain(x, kernels=True)
+        want = _stage_chain(x, kernels=False)
+        torch.cuda.synchronize()
+        got = {k: v.cpu().numpy() for k, v in got.items()}
+        want = {k: v.cpu().numpy() for k, v in want.items()}
+        for k in want:
+            _same(f"stage probe {label}: {k}", got[k], want[k])
+        for k in ("used2", "coll2", "placed"):
+            _same(f"stage probe {label}: K8f {k} vs the K8a->K8e chain",
+                  got["fused_" + k], got[k])
+        # under the delays, each kernel against its own output above
+        fits_m, score_m = (torch.from_numpy(got[k]).cuda()
+                           for k in ("fits_m", "score_m"))
+        jittered(f"stage probe {label}: K8d",
+                 lambda: sp.argmax(fits_m, score_m, x["ms"]),
+                 (got["run"], got["order"]), kernel="stage_probe",
+                 seeds=STAGE_JITTER_SEEDS)
+        jittered(f"stage probe {label}: K8f",
+                 lambda: sp.fused_wave(*_fused_args(x)),
+                 (got["fused_used2"], got["fused_coll2"],
+                  got["fused_placed"].reshape(())), kernel="stage_probe",
+                 seeds=STAGE_JITTER_SEEDS)
+        nw = int((want["order"] != np.arange(want["order"].size)).sum())
+        log(f"kernels: stage probe {label}: K8a-K8f bit-equal to their "
+            f"plain versions, K8f to the K8a->K8e chain, K8d/K8f also under "
+            f"{len(STAGE_JITTER_SEEDS)} seeds of the delays; placed "
+            f"{int(want['placed'][0])} of {x['count']}, {nw} rows out of "
+            f"row order")
+
+
+# where a tree of the parent commit may be unpacked (`git archive`) to
+# time its K8d/K8f beside this tree's in the same run
+PARENT_TREE = "smoke_archive/parent"
+
+
+def _parent_build():
+    """The parent tree's ops/_build.py (PARENT_TREE) as a module of its
+    own: its load() builds the parent's kernel sources with the parent's
+    flags inside the parent tree and binds each C entry point with the
+    parent's own argument types.  None where there is no parent tree."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        PARENT_TREE, "nomad_tpu_torch", "ops", "_build.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location("parent_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sort_argtypes():
+    """K8d's and K8f's C entry points where they sorted in one block:
+    K8d with a u64 key scratch, K8f with an i32[3, N] scratch and the
+    key scratch (both NULL up to 16,384 rows), before the stream."""
+    import ctypes
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return {"argmax_launch": [P, P, P, I, I, P, P, P, P],
+            "fused_wave_launch": [P, P, P, P, P, I, F, P, P, I, I, I]
+            + [P] * 6}
+
+
+@contextlib.contextmanager
+def _stage_probe_from(lib):
+    """This tree's stage-probe wrappers launching on `lib` while the
+    block runs (they look up `_build.load` at every launch)."""
+    from nomad_tpu_torch.ops import _build
+    load = _build.load
+    _build.load = lambda name: lib if name == "stage_probe" else load(name)
+    try:
+        yield
+    finally:
+        _build.load = load
+
+
+def _sorting_parent(lib, x, fits_m, score_m):
+    """Calls of a parent's K8d and K8f that take the one-block sort's
+    scratch (_sort_argtypes), on the probe's inputs `x`."""
+    import ctypes
+    import torch
+    n, M = x["capacity"].shape[0], x["fill_grid"]
+    vp = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa
+    stream = lambda: ctypes.c_void_p(  # noqa: E731
+        torch.cuda.current_stream().cuda_stream)
+    p = 2
+    while p < n:
+        p *= 2
+    keys = torch.empty(p, dtype=torch.int64, device="cuda") \
+        if n > 16384 else None
+    run = torch.empty(n, dtype=torch.int32, device="cuda")
+    order = torch.empty_like(run)
+    used2 = torch.empty_like(x["used"])
+    coll2 = torch.empty_like(run)
+    placed = torch.empty((), dtype=torch.int32, device="cuda")
+    scratch = torch.empty((3, n), dtype=torch.int32, device="cuda")
+
+    def argmax():
+        if lib.argmax_launch(vp(fits_m), vp(score_m), vp(x["ms"]), n, M,
+                             vp(run), vp(order), vp(keys), stream()):
+            raise RuntimeError("parent argmax launch failed")
+        return run, order
+
+    def fused():
+        if lib.fused_wave_launch(
+                vp(x["capacity"]), vp(x["used"]), vp(x["demand"]),
+                vp(x["feasible"]), vp(x["affinity"]), 1,
+                float(x["desired_f"]), vp(x["penalty"]), vp(x["coll"]),
+                int(x["count"]), M, n, vp(used2), vp(coll2), vp(placed),
+                vp(scratch), vp(keys), stream()):
+            raise RuntimeError("parent fused_wave launch failed")
+        return used2, coll2, placed
+
+    return argmax, fused
+
+
+def stage_turns():
+    """K8d and K8f against the parent tree's in turns (parent, new, new,
+    parent), each on the probe's inputs at STAGE_SHAPES: the CUDA-event
+    time of the wrapper call and the kernel alone (profiler), ms.  The
+    parent's library is built and bound by the parent's own ops/_build.py.
+    Where its entry points take this tree's arguments, this tree's
+    wrappers launch on it; where they take the one-block sort's scratch
+    (_sort_argtypes), the calls pass that scratch.  The parent's outputs
+    must equal the new ones.  Logs that it skipped where PARENT_TREE
+    holds no tree, or where the parent's entry points take other
+    arguments."""
+    import torch
+    from nomad_tpu_torch.ops import _build
+    from nomad_tpu_torch.ops import stage_probe as sp
+    from nomad_tpu_torch.parallel import stage_probe as psp
+    pb = _parent_build()
+    if pb is None:
+        log(f"kernels: stage probe turns against the parent skipped (no "
+            f"tree under {PARENT_TREE})")
+        return
+    entries = ("argmax_launch", "fused_wave_launch")
+    theirs = pb._ARGTYPES["stage_probe"]
+    if all(theirs.get(e) == _build._ARGTYPES["stage_probe"][e]
+           for e in entries):
+        sorting = False
+    elif all(theirs.get(e) == _sort_argtypes()[e] for e in entries):
+        sorting = True
+    else:
+        log("kernels: stage probe turns against the parent skipped (its "
+            "argmax_launch and fused_wave_launch take other arguments)")
+        return
+    lib = pb.load("stage_probe")
+    for n, M in STAGE_SHAPES:
+        x = psp.probe_inputs(n, fill_grid=M, device="cuda")
+        util_m, fits_m = sp.feasibility(x["capacity"], x["used"],
+                                        x["demand"], x["feasible"], x["ms"])
+        score_m = sp.score(sp.fit(x["capacity"], util_m), x["coll"],
+                           x["ms"], x["desired_f"], x["penalty"],
+                           x["affinity"], x["has_affinity"])
+        units = {
+            "stage_argmax": lambda: sp.argmax(fits_m, score_m, x["ms"]),
+            "stage_fused_wave": lambda: sp.fused_wave(*_fused_args(x)),
+        }
+        if sorting:
+            old = dict(zip(units, _sorting_parent(lib, x, fits_m, score_m)))
+            on_parent = contextlib.nullcontext
+        else:
+            old = units
+            on_parent = lambda: _stage_probe_from(lib)  # noqa: E731
+        for name, cur in units.items():
+            with on_parent():
+                want = [t.cpu().numpy() for t in old[name]()]
+            for k, (a, b) in enumerate(zip(want, cur())):
+                _same(f"turns {name} N={n} M={M} output {k} (parent vs new)",
+                      a, b.cpu().numpy())
+            kname = STAGE_KERNELS[name]
+            ev, alone = {}, {}
+            for turn in ("parent", "new", "new", "parent"):
+                fn = old[name] if turn == "parent" else cur
+                with on_parent() if turn == "parent" \
+                        else contextlib.nullcontext():
+                    ev.setdefault(turn, []).append(time_cuda(fn))
+                    alone.setdefault(turn, []).append(
+                        kernel_device_ms(fn, kname))
+            fmt = lambda v: "/".join(f"{t:.4f}" for t in v)  # noqa: E731
+            log(f"kernels: turns {name} N={n} M={M}: events parent "
+                f"{fmt(ev['parent'])} new {fmt(ev['new'])} ms; alone parent "
+                f"{fmt(alone['parent'])} new {fmt(alone['new'])} ms")
 
 
 # --------------------------------------------------------------- the slice
@@ -3559,13 +3835,16 @@ def _shard_outputs(out):
         [torch.cat(list(out[6])).cpu().numpy()]
 
 
-def _cases():
-    """tests/_sharded_cases.py (numpy builders of the sharded path's edge
-    cases, shared with the CPU tests)."""
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "tests"))
-    import _sharded_cases
-    return _sharded_cases
+def _cases(name: str = "_sharded_cases"):
+    """A numpy case builder of tests/, shared with the CPU tests:
+    tests/_sharded_cases.py (the sharded path's edge cases) or
+    tests/_stage_cases.py (the stage probe's edge rows)."""
+    import importlib
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module(name)
 
 
 def check_scan_cache_cases():
@@ -3725,7 +4004,9 @@ def check_shard_select(shape=(4, 2)):
     with more tied rows than `remaining`, strict waves at one score and
     split across a shard boundary, a `remaining` of at least the wave,
     scores of exactly 0.0, lane pads with deltas, repeated delta rows, a
-    usage row at +inf under deltas) at N = 16,384 on a mesh of the card
+    usage row at +inf under deltas, fitting rows that score NaN at m = 1,
+    at m = 2 only and between finite scores on other shards) at N =
+    16,384 on a mesh of the card
     repeated: every K7c-K7g call checked bit for bit against its plain
     version (K7Check, every call), the function bit-equal to its plain
     form, and again under each of JITTER_SEEDS of K7c's cluster delays;
@@ -3785,7 +4066,7 @@ def check_signed_zero_order(n_rows=N_ROWS, n_shards=4, dev="cuda"):
     cur = torch.from_numpy(rng.choice(np.array(
         [0.5, 0.0, -0.0, -0.25, 0.0, -0.0], np.float32), n_rows)).to(dev)
     base = torch.from_numpy(rng.integers(0, 3, n_rows).astype(np.int32)).to(dev)
-    stats = torch.tensor([[0.5, 0.5, 0.0, 1.0]], device=dev)
+    stats = torch.tensor([[0.5, 0.5, 0.0, 1.0, 0.5]], device=dev)
     z = lambda *s, t=torch.float32: torch.zeros(s, dtype=t, device=dev)  # noqa
     for remaining in (1, 17, 700, 5000):
         for i in range(n_shards):

@@ -1,9 +1,9 @@
-// bulk_common.cuh — what the persistent one-block kernels share: the
-// fit score of ops/fit.py, the bulk wave's grid cell, and block-wide
-// reductions, scan and the bitonic key sort over NT = 1024 threads.
-// Included by place_bulk.cu (K1, K4), stage_probe.cu (K8) and sharded.cu
-// (K7); each source builds into its own library, so everything here has
-// internal linkage.
+// bulk_common.cuh — what the kernels share: the fit score of ops/fit.py,
+// the bulk wave's grid cell, orderable float keys and top-2s, and
+// block-wide reductions, scan and the bitonic key sort over NT = 1024
+// threads.  Included by place_bulk.cu (K1, K4), place_scan.cu (K2, K3),
+// sharded.cu (K7) and stage_probe.cu (K8); each source builds into its
+// own library, so everything here has internal linkage.
 //
 // Numerics: compiled without fast math and with -fmad=false; powf (not
 // __powf), so each score is the plain PyTorch versions' bit for bit.
@@ -20,9 +20,6 @@ constexpr int NW = NT / 32;       // warps in the block
 constexpr int RES_CPU = 0;
 constexpr int RES_MEM = 1;
 constexpr unsigned long long NO_KEY = ~0ull;
-// rows whose 8-byte sort keys fit in dynamic shared memory (128 KB, under
-// the 227 KB a block may hold); larger sorts use a global scratch
-constexpr int SMEM_SORT_ROWS = 16384;
 
 __device__ __forceinline__ float free_frac(float cap, float use) {
   float frac = 1.0f - use / cap;
@@ -31,12 +28,15 @@ __device__ __forceinline__ float free_frac(float cap, float use) {
 }
 
 // ops/fit.py score_fit: BestFit v3 (binpack) or worst fit (spread), in [0, 18]
+// (a NaN stays NaN, as torch.clamp and jnp.clip keep it: fmaxf would
+// make it 0)
 __device__ __forceinline__ float score_fit(const float* cap, const float* u,
                                            int spread) {
   float total = powf(10.0f, free_frac(cap[RES_CPU], u[RES_CPU])) +
                 powf(10.0f, free_frac(cap[RES_MEM], u[RES_MEM]));
   float raw = spread ? (total - 2.0f) : (20.0f - total);
-  return fminf(fmaxf(raw, 0.0f), 18.0f);
+  raw = raw < 0.0f ? 0.0f : raw;
+  return raw > 18.0f ? 18.0f : raw;
 }
 
 constexpr int NRES = 4;           // resource dims (cpu, mem, disk, net)
@@ -82,10 +82,16 @@ __device__ __forceinline__ void grid_cell(const BulkRow& r, const float* dem,
   *score = total / n;
 }
 
-// float -> unsigned int whose unsigned order is the float order
+// float -> unsigned int whose unsigned order is the float order (XLA's
+// total order: -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN)
 __device__ __forceinline__ unsigned int orderable(float f) {
   unsigned int u = __float_as_uint(f);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// the float of an orderable key, bits and all
+__device__ __forceinline__ float from_orderable(unsigned int k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
 }
 
 // The row a packed (value-encoded) delta row lands on, as the
@@ -122,6 +128,25 @@ __device__ __forceinline__ void top2_push(float& a, float& b, float v) {
   if (v >= a) { b = a; a = v; } else if (v > b) { b = v; }
 }
 
+// The same over orderable keys: lax.top_k's total order, where a NaN
+// ranks by its sign (ops/place.py _lax_top_k).  Start from (0, 0), below
+// every key but the lowest -NaN's, which equals it.
+__device__ __forceinline__ void key_top2_push(unsigned& a, unsigned& b,
+                                              unsigned k) {
+  if (k >= a) { b = a; a = k; } else if (k > b) { b = k; }
+}
+
+__device__ __forceinline__ void warp_key_top2(unsigned& a, unsigned& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned oa = __shfl_xor_sync(0xffffffffu, a, o);
+    const unsigned ob = __shfl_xor_sync(0xffffffffu, b, o);
+    const unsigned na = max(a, oa);
+    b = max(min(a, oa), max(b, ob));
+    a = na;
+  }
+}
+
 __device__ __forceinline__ void warp_top2(float& a, float& b) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -133,16 +158,6 @@ __device__ __forceinline__ void warp_top2(float& a, float& b) {
 
 // Block-wide reductions; every thread returns the result.  The trailing
 // barrier lets the scratch be reused by the next call.
-__device__ float block_max(float v, float* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  float r = warp_max(sh[lane]);
-  __syncthreads();
-  return r;
-}
-
 __device__ int block_sum(int v, int* sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = warp_sum(v);
@@ -151,17 +166,6 @@ __device__ int block_sum(int v, int* sh) {
   int r = warp_sum(sh[lane]);
   __syncthreads();
   return r;
-}
-
-__device__ void block_top2(float& a, float& b, float* sha, float* shb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  warp_top2(a, b);
-  if (lane == 0) { sha[warp] = a; shb[warp] = b; }
-  __syncthreads();
-  a = sha[lane];
-  b = shb[lane];
-  warp_top2(a, b);
-  __syncthreads();
 }
 
 // Exclusive prefix sum over the block's threads; *total gets the sum.
@@ -211,17 +215,6 @@ __host__ __device__ __forceinline__ int sort_len(int n) {
   int p = 2;
   while (p < n) p <<= 1;
   return p;
-}
-
-// Dynamic shared memory for the key sort: the most any launch asks for,
-// set on the kernel before each launch (the same value every time, so
-// concurrent launches from several host threads never see a smaller
-// limit).
-template <class K>
-cudaError_t allow_smem_sort(K kernel) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(SMEM_SORT_ROWS * sizeof(unsigned long long)));
 }
 
 }  // namespace

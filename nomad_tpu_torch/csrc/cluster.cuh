@@ -1,8 +1,9 @@
 // cluster.cuh — what the thread-block-cluster kernels share: the launch
-// of one cluster through cudaLaunchKernelEx, and the random delays that
-// stand in for a race checker.  Included by place_bulk.cu (K1, K4) and
-// place_scan.cu (K2, K3); each source builds into its own library, so
-// the delays' seed and switch are each library's own.
+// of one cluster through cudaLaunchKernelEx, the cluster barrier in two
+// halves, and the random delays that stand in for a race checker.
+// Included by place_bulk.cu (K1, K4), place_scan.cu (K2, K3), sharded.cu
+// (K7a, K7c) and stage_probe.cu (K8d, K8f); each source builds into its
+// own library, so the delays' seed and switch are each library's own.
 //
 // The delays: compute-sanitizer's racecheck and synccheck do not run on
 // every machine with the card, so a library's set_jitter(seed) entry
@@ -57,6 +58,20 @@ inline cudaError_t set_jitter(int seed, cudaStream_t stream) {
                                             cudaMemcpyHostToDevice, stream);
   if (err != cudaSuccess) return err;
   return cudaStreamSynchronize(stream);
+}
+
+// Barrier.cluster in two halves: every thread of the cluster arrives
+// once (release) and waits (acquire), with work of its own in between.
+// An arrive at a kernel's start and a wait before the first store into
+// another block's shared memory say that every block has started; an
+// arrive after a block's last read of another's shared memory and a wait
+// before it exits say that no block exits while another reads it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // One cluster of `blocks` blocks x `threads` threads.  The kernel's

@@ -402,17 +402,6 @@ __device__ void build_tables(const Scan<Src>& c, Shared& sh, int g) {
   }
 }
 
-// Barrier.cluster in two halves: a block arrives once its exchange slot
-// is written (release) and waits before reading the others' (acquire),
-// with work of its own in between.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
 // One eval's slot scan.  `used` (f32[N, R]) is the usage carry, updated
 // in place; out: f32[S, OUTW].  `p` is the next exchange slot.
 template <class Src, bool J>

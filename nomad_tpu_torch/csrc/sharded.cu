@@ -28,14 +28,15 @@
 //                    gets the local row it changed (-1: none), for K7a.
 //                    One warp, every lane at work (its section below).
 //   K7c bulk_stats   one bulk wave's statistics on the shard (top-2 of
-//                    cur, max m = 2 score, any fit) and cur into the
+//                    cur in lax.top_k's order, the shard's part of s*,
+//                    any fit, max cur that is not NaN) and cur into the
 //                    gathered [N] score vector; with `begin`, the eval's
 //                    start (deltas into the carry, coll0, lane state),
 //                    and the eval's tail where it ends at its start.
 //                    One thread-block cluster a launch (below).
 //   K7d bulk_run     the fill run of every local row in the wave set
-//                    (strict if the gathered top score beats s*, else
-//                    the ties), into the gathered [N] run vector.  A
+//                    (strict if a row's score beats s*, else the
+//                    ties), into the gathered [N] run vector.  A
 //                    grid of blocks of RUN_ROWS rows; a row's cells
 //                    over lanes (below).
 //   K7e bulk_order   the greedy order over the gathered vectors (the
@@ -94,7 +95,7 @@ constexpr int REC_BEST = 0, REC_ROW = 1, REC_FIT = 2, REC_NEVAL = 3,
               REC_NEXH = 4, REC_TOPS = 5, REC_TOPI = REC_TOPS + TOPK,
               REC_V = REC_TOPI + TOPK, SCAN_REC = REC_V + MAXK;
 // bulk statistics, lane state and partial counts (ops/sharded.py)
-constexpr int STATS_W = 4;
+constexpr int STATS_W = 5;
 constexpr int ST_PLACED = 0, ST_WAVES = 1, ST_STUCK = 2, ST_DONE = 3;
 constexpr int COUNTS_W = 4;
 
@@ -393,17 +394,6 @@ __device__ void scan_deltas(const ScanArgs& a, const int* rows,
 #pragma unroll
     for (int d = 0; d < R; ++d) a.used[r * R + d] = u[d];
   }
-}
-
-// The launch's first half of a cluster barrier: every thread arrives
-// once it is running; `cluster_wait` (before the first store into
-// another block's shared memory) then knows every block has started.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 template <bool J>
@@ -868,21 +858,26 @@ __device__ __forceinline__ bool store_changed(float4* p, float4 old,
 // block at n = 4,096 and 32,768 rows a shard (PERF.md)
 constexpr int STATS_CLUSTER = 16;
 
-// A thread's, warp's or block's share of a K7c launch: the top-2 of cur,
-// the best m = 2 score, any fit; the tail's n_eval and n_exh.
+// A thread's, warp's or block's share of a K7c launch: the top-2 of cur
+// (orderable keys: lax.top_k's order, NaN by its sign), the best m = 2
+// score that is not NaN and whether one is NaN, the best cur that is not
+// NaN, any fit; the tail's n_eval and n_exh.
 struct StatsPart {
-  float a, b, smax;
-  int fit, ne, nx;
+  unsigned a, b;
+  float smax, cmax;
+  int snan, fit, ne, nx;
 };
 
 __device__ __forceinline__ StatsPart stats_none() {
-  return StatsPart{-INFINITY, -INFINITY, -INFINITY, 0, 0, 0};
+  return StatsPart{0u, 0u, -INFINITY, -INFINITY, 0, 0, 0, 0};
 }
 
 // every lane returns the warp's merged part (all 32 lanes call it)
 __device__ __forceinline__ void warp_part(StatsPart& p) {
-  warp_top2(p.a, p.b);
+  warp_key_top2(p.a, p.b);
   p.smax = warp_max(p.smax);
+  p.cmax = warp_max(p.cmax);
+  p.snan = __any_sync(0xffffffffu, p.snan != 0) ? 1 : 0;
   p.fit = __any_sync(0xffffffffu, p.fit != 0) ? 1 : 0;
   p.ne = warp_sum(p.ne);
   p.nx = warp_sum(p.nx);
@@ -1037,8 +1032,12 @@ bulk_stats_kernel(BulkArgs a, int e, int begin, float* __restrict__ stats,
     grid_cell(r, v.dem, 2.0f, v.desired_div, spread, &f2, &s2);
     const float cur = f1 ? s1 : -INFINITY;
     cur_g[a.off + i] = cur;
-    top2_push(p.a, p.b, cur);
-    if (f2) p.smax = fmaxf(p.smax, s2);
+    key_top2_push(p.a, p.b, orderable(cur));
+    p.cmax = fmaxf(p.cmax, cur);             // fmaxf passes over a NaN
+    if (f2) {
+      if (isnan(s2)) p.snan = 1;
+      else p.smax = fmaxf(p.smax, s2);
+    }
     p.fit |= f1 ? 1 : 0;
   }
   bool lead;
@@ -1051,29 +1050,41 @@ bulk_stats_kernel(BulkArgs a, int e, int begin, float* __restrict__ stats,
     o[2] = t.nx;
     o[3] = 0;
   } else {
+    // the shard's part of s*: the reference's jnp.max is NaN where an
+    // m = 2 score is, and its pmax passes over a NaN (bulk_stats_plain);
+    // both maxima fold -0.0 into +0.0
     float* o = stats + (size_t)shard * STATS_W;
-    o[0] = t.a;
-    o[1] = t.b;
-    o[2] = t.smax;
+    o[0] = from_orderable(t.a);
+    o[1] = from_orderable(t.b);
+    o[2] = t.snan ? -INFINITY : t.smax + 0.0f;
     o[3] = t.fit ? 1.0f : 0.0f;
+    o[4] = t.cmax + 0.0f;
   }
 }
 
-// (any_fit, s*, gmax, gsecond) from the gathered statistics
+// (any_fit, s*, use_strict, gmax, gsecond) from the gathered statistics:
+// the strict set is used where some row beats s* (the best cur that is
+// not NaN does), the top-2 in lax.top_k's order
 struct WaveGlobals {
-  bool any_fit;
+  bool any_fit, use_strict;
   float s_star, gmax, gsecond;
 };
 
 __device__ __forceinline__ WaveGlobals wave_globals(const float* stats, int nsh) {
-  WaveGlobals g{false, -INFINITY, -INFINITY, -INFINITY};
+  WaveGlobals g{false, false, -INFINITY, -INFINITY, -INFINITY};
+  unsigned ka = 0u, kb = 0u;
+  float cmax = -INFINITY;
   for (int j = 0; j < nsh; ++j) {
     const float* s = stats + (size_t)j * STATS_W;
-    top2_push(g.gmax, g.gsecond, s[0]);
-    top2_push(g.gmax, g.gsecond, s[1]);
+    key_top2_push(ka, kb, orderable(s[0]));
+    key_top2_push(ka, kb, orderable(s[1]));
     g.s_star = fmaxf(g.s_star, s[2]);
+    cmax = fmaxf(cmax, s[4]);
     g.any_fit = g.any_fit || s[3] > 0.0f;
   }
+  g.gmax = from_orderable(ka);
+  g.gsecond = from_orderable(kb);
+  g.use_strict = cmax > g.s_star;
   return g;
 }
 
@@ -1118,7 +1129,6 @@ bulk_run_kernel(BulkArgs a, int e, const float* __restrict__ stats, int nsh,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Eval v = eval_of(a, e);
   const WaveGlobals g = wave_globals(stats, nsh);
-  const bool use_strict = g.gmax > g.s_star;
   const int run_cap = min(fill_grid, v.count - a.state[ST_PLACED]);
   const int lo = blockIdx.x * RUN_ROWS;
   const int hi = min(lo + RUN_ROWS, a.n);
@@ -1129,7 +1139,7 @@ bulk_run_kernel(BulkArgs a, int e, const float* __restrict__ stats, int nsh,
     const float cur = cur_g[a.off + lo + tid];
     const bool fits = cur > -INFINITY;
     need = g.any_fit && run_cap > 0 &&
-        (use_strict ? (cur > g.s_star) : (fits && cur == g.gmax));
+        (g.use_strict ? (cur > g.s_star) : (fits && cur == g.gmax));
     if (!need) base_g[a.off + lo + tid] = 0;
   }
   const unsigned m = __ballot_sync(FULL, need);

@@ -5,7 +5,8 @@
 // `scatter` :109) and `probe_fused`'s `fused_wave` (:196, the wave grid
 // of ops/place.py `bulk_wave_grid` + `bulk_run_lengths` + order +
 // scatter in one program).  The plain PyTorch versions are
-// nomad_tpu_torch/ops/stage_probe.py `*_plain`.
+// nomad_tpu_torch/ops/stage_probe.py `*_plain`; `argmax_model` and
+// `fused_wave_model` there are K8d's and K8f's algorithm in PyTorch.
 //
 // These reproduce the probe, not production's wave: the probe has no
 // strict set, and its scatter does not mask the run lengths by the wave
@@ -15,29 +16,62 @@
 // What bounds them on this card, at the bench's shape (N = 10,000, M =
 // 16, R = 4): K8a-K8c are one thread per (row, m) cell, elementwise with
 // an R-wide reduction, and bound by bytes (K8a writes the f32[N, M, R]
-// grid, 2.6 MB; K8b reads it back).  K8d-K8f are one persistent block of
-// 1024 threads, like K1 (csrc/place_bulk.cu): a top-2 reduction, a
-// bitonic sort of N 64-bit keys in shared memory (global scratch past
-// 16,384 rows) and a block scan are dependent block-wide steps, so they
-// are bound by latency, not by the card's rates.
+// grid, 2.6 MB; K8b reads it back).  K8e is one block (a scan in greedy
+// order).  K8d and K8f are bound by latency: a top-2 over every row, then
+// each row's run and its place in the greedy order, each step waiting on
+// the one before across all rows.  The reference's order is a stable
+// argsort of where(wave, -cur, +inf), and every wave row has cur == top1,
+// so its keys take two values: the order is a stable partition (the wave
+// rows in row order, then the others in row order), and a row's place in
+// it is a prefix count in row order.  So K8d and K8f sort nothing: one
+// thread-block cluster of PROBE_CLUSTER blocks (a row a thread up to
+// 16,384 rows, a few contiguous rows a thread past that) takes the top-2
+// (warp, block, then the blocks' results through distributed shared
+// memory) and one exclusive scan of a pair of ints a row in row order
+// (block scan, then a prefix over the blocks' totals through
+// distributed shared memory): three cluster barriers in all.  K8f
+// evaluates a row's m = 1 cell once and keeps it in registers (RPT rows
+// a thread; rows past those, only past 131,072 rows, evaluate their
+// cells again in the later passes), and spreads the cells over the
+// cluster's SMs.
 //
 // Numerics: -fmad=false, powf, fit/18 as a multiply by the f32
 // reciprocal 1.0f/18.0f (what XLA compiles the reference's division by
 // that constant into), and every other division a true division, in the
-// reference's order of operations.  The order is a stable argsort of
-// where(wave, -cur, +inf): keys (orderable(key) << 32 | row), -0 folded
-// into +0 as JAX's sort does.
+// reference's order of operations.  The top-2 ranks in lax.top_k's
+// total order (a NaN by its sign: the card's +NaN above +inf).
+
+#include <cooperative_groups.h>
 
 #include "bulk_common.cuh"
+#include "cluster.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int R = 4;              // resource dims (cpu, mem, disk, net)
+// blocks of K8d's and K8f's cluster: 16, past the portable 8 (allowed by
+// cluster_launch), measured faster than 8 at 10,000 to 131,072 rows
+// (PERF.md)
+constexpr int PROBE_CLUSTER = 16;
+constexpr int RPT = 8;            // rows a K8f thread keeps in registers
 
 struct ProbeShared {
   float f[NW];
   float f2[NW];
   int i[NW];
+};
+
+// K8d's and K8f's cluster exchange: the warps' parts, the block's part
+// the other blocks read, and the cluster's result for the block.
+struct PartShared {
+  unsigned ka[NW], kb[NW];        // warps' top-2 keys
+  int sx[NW], sy[NW];             // warps' pair sums
+  unsigned top[2];                // the block's top-2 keys (read remotely)
+  int tot[2];                     // the block's pair totals (read remotely)
+  unsigned gtop[2];               // the cluster's top-2 keys
+  int gpre[2], gall[2];           // the lower blocks' totals, all blocks'
 };
 
 // The score stack of one cell from its fit (the reference's `score`).
@@ -71,12 +105,6 @@ __device__ __forceinline__ bool cell_util(const float* cap, const float* used,
     f = f && (u[d] <= cap[d]);
   }
   return f;
-}
-
-__device__ __forceinline__ unsigned long long order_key(bool wave, float cur,
-                                                        int row) {
-  const float k = wave ? (-cur + 0.0f) : INFINITY;
-  return ((unsigned long long)orderable(k) << 32) | (unsigned int)row;
 }
 
 // K8a: util_m f32[N, M, R], fits_m bool[N, M]
@@ -133,56 +161,199 @@ __global__ void score_kernel(const float* __restrict__ fit_m,
                           penalty[i], aff_on, aff);
 }
 
+// ------------------------------------------- K8d and K8f: the cluster
+
+// This thread's rows [lo, hi): block `rank` of the cluster owns a
+// contiguous range of the n rows, its threads contiguous runs of it in
+// thread order, so thread order within the cluster is row order.
+__device__ __forceinline__ void thread_rows(int n, cg::cluster_group& cl,
+                                            int* lo, int* hi) {
+  const int blocks = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int rpb = (n + blocks - 1) / blocks;
+  const int blo = min(rank * rpb, n), bhi = min(blo + rpb, n);
+  const int per = (bhi - blo + (int)blockDim.x - 1) / (int)blockDim.x;
+  *lo = min(blo + (int)threadIdx.x * per, bhi);
+  *hi = min(*lo + per, bhi);
+}
+
+// The cluster's top-2 keys (lax.top_k's order) of every thread's (a, b),
+// in every thread: warps, then the block, stored for the other blocks;
+// one cluster barrier; each block merges all blocks' parts.
+template <bool J>
+__device__ void cluster_top2(unsigned& a, unsigned& b, PartShared& sm,
+                             cg::cluster_group& cl) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (int)blockDim.x >> 5;
+  warp_key_top2(a, b);
+  jitter<J>(1);
+  if (lane == 0) {
+    sm.ka[warp] = a;
+    sm.kb[warp] = b;
+  }
+  __syncthreads();
+  jitter<J>(2);
+  if (warp == 0) {
+    a = lane < nw ? sm.ka[lane] : 0u;
+    b = lane < nw ? sm.kb[lane] : 0u;
+    warp_key_top2(a, b);
+    jitter<J>(3);
+    if (lane == 0) {
+      sm.top[0] = a;
+      sm.top[1] = b;
+    }
+  }
+  cl.sync();                      // every block's top-2 is stored
+  jitter<J>(4);
+  if (warp == 0) {
+    a = b = 0u;
+    if (lane < (int)cl.num_blocks()) {
+      const unsigned* t = cl.map_shared_rank(sm.top, lane);
+      a = t[0];
+      b = t[1];
+    }
+    warp_key_top2(a, b);
+    jitter<J>(5);
+    if (lane == 0) {
+      sm.gtop[0] = a;
+      sm.gtop[1] = b;
+    }
+  }
+  __syncthreads();
+  jitter<J>(6);
+  a = sm.gtop[0];
+  b = sm.gtop[1];
+}
+
+// inclusive warp scan of a pair
+__device__ __forceinline__ void warp_scan2(int& x, int& y) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int px = __shfl_up_sync(0xffffffffu, x, o);
+    const int py = __shfl_up_sync(0xffffffffu, y, o);
+    if (lane >= o) {
+      x += px;
+      y += py;
+    }
+  }
+}
+
+// The exclusive prefix, in row order, of every thread's pair v over the
+// cluster's threads; *all gets the cluster's totals.  A block scan, the
+// block's totals stored for the other blocks, one cluster barrier, then
+// each block's warp 0 sums the totals of the blocks before it.  Every
+// thread arrives at the cluster barrier's first half after its block's
+// last remote read: the kernel waits on it before it exits.
+template <bool J>
+__device__ int2 cluster_scan2(int2 v, PartShared& sm, cg::cluster_group& cl,
+                              int2* all) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (int)blockDim.x >> 5;
+  const int rank = (int)cl.block_rank();
+  int x = v.x, y = v.y;
+  warp_scan2(x, y);
+  jitter<J>(7);
+  if (lane == 31) {
+    sm.sx[warp] = x;
+    sm.sy[warp] = y;
+  }
+  __syncthreads();
+  jitter<J>(8);
+  int wx = lane < nw ? sm.sx[lane] : 0, wy = lane < nw ? sm.sy[lane] : 0;
+  warp_scan2(wx, wy);
+  // this thread's exclusive prefix within the block, and the block's total
+  const int bx = __shfl_sync(0xffffffffu, wx, 31);
+  const int by = __shfl_sync(0xffffffffu, wy, 31);
+  const int px = __shfl_sync(0xffffffffu, wx, (warp + 31) & 31);
+  const int py = __shfl_sync(0xffffffffu, wy, (warp + 31) & 31);
+  int2 ex = make_int2((warp ? px : 0) + x - v.x, (warp ? py : 0) + y - v.y);
+  if (threadIdx.x == 0) {
+    jitter<J>(9);
+    sm.tot[0] = bx;
+    sm.tot[1] = by;
+  }
+  cl.sync();                      // every block's totals are stored
+  jitter<J>(10);
+  if (warp == 0) {
+    int tx = 0, ty = 0;
+    if (lane < (int)cl.num_blocks()) {
+      const int* t = cl.map_shared_rank(sm.tot, lane);
+      tx = t[0];
+      ty = t[1];
+    }
+    warp_scan2(tx, ty);
+    const int ax = __shfl_sync(0xffffffffu, tx, 31);
+    const int ay = __shfl_sync(0xffffffffu, ty, 31);
+    const int qx = __shfl_sync(0xffffffffu, tx, (rank + 31) & 31);
+    const int qy = __shfl_sync(0xffffffffu, ty, (rank + 31) & 31);
+    jitter<J>(11);
+    if (lane == 0) {
+      sm.gpre[0] = rank ? qx : 0;
+      sm.gpre[1] = rank ? qy : 0;
+      sm.gall[0] = ax;
+      sm.gall[1] = ay;
+    }
+  }
+  cluster_arrive();               // no more reads of other blocks
+  __syncthreads();
+  jitter<J>(12);
+  ex.x += sm.gpre[0];
+  ex.y += sm.gpre[1];
+  *all = make_int2(sm.gall[0], sm.gall[1]);
+  return ex;
+}
+
 // K8d: run i32[N] (leading m's that fit and beat `second`, m = 1
-// forced) and order i32[N] (stable argsort of where(wave, -cur, inf)).
-// gkeys: past SMEM_SORT_ROWS the keys sort in that global scratch, all p
-// of them.  Unlike K1/K4 the probe cannot sort only the wave rows: its
-// order covers every row and its scatter gives instances to the rows
-// outside the wave too.  The probe runs at the bench's unpadded n_nodes,
-// so that path serves device_stages on a cluster of more than 16,384
-// nodes; the bench's scenarios probe 10,000, and only the cuda test at
-// 20,000 rows reaches it.  K8f sorts the same way.
+// forced) and order i32[N] (stable argsort of where(wave, -cur, inf)):
+// a row's place in the order is its wave count or its count outside the
+// wave before it in row order (the pair scan), the wave rows first.
+template <bool J>
 __global__ void __launch_bounds__(NT, 1)
 argmax_kernel(const uint8_t* __restrict__ fits_m,
               const float* __restrict__ score_m,
-              const float* __restrict__ ms, int n, int M, int p,
-              int* __restrict__ run, int* __restrict__ order,
-              unsigned long long* gkeys) {
-  extern __shared__ unsigned long long skeys[];  // p entries, or none
-  __shared__ ProbeShared sh;
-  unsigned long long* keys = gkeys ? gkeys : skeys;
-  const int tid = threadIdx.x;
-
-  float a = -INFINITY, b = -INFINITY;
-  for (int i = tid; i < n; i += NT) {
+              const float* __restrict__ ms, int n, int M,
+              int* __restrict__ run, int* __restrict__ order) {
+  __shared__ PartShared sm;
+  cg::cluster_group cl = cg::this_cluster();
+  int lo, hi;
+  thread_rows(n, cl, &lo, &hi);
+  auto cur_of = [&](int i) -> float {
     const size_t r0 = (size_t)i * M;
-    top2_push(a, b, fits_m[r0] ? score_m[r0] : -INFINITY);
-  }
-  block_top2(a, b, sh.f, sh.f2);
-  const float top1 = a, top2 = b;
+    return fits_m[r0] ? score_m[r0] : -INFINITY;
+  };
 
-  for (int i = tid; i < p; i += NT) {
-    unsigned long long key = NO_KEY;
-    if (i < n) {
-      const size_t r0 = (size_t)i * M;
-      const bool fits = fits_m[r0] != 0;
-      const float cur = fits ? score_m[r0] : -INFINITY;
-      const float second = (cur == top1) ? top2 : top1;
-      int r = 0;
-      for (int m = 0; m < M; ++m) {
-        const bool ok = fits_m[r0 + m] != 0 &&
-                        (score_m[r0 + m] > second || ms[m] == 1.0f);
-        if (!ok) break;
-        r = m + 1;
-      }
-      run[i] = r;
-      key = order_key(fits && cur == top1, cur, i);
+  unsigned ka = 0u, kb = 0u;
+  for (int i = lo; i < hi; ++i) key_top2_push(ka, kb, orderable(cur_of(i)));
+  cluster_top2<J>(ka, kb, sm, cl);
+  const float top1 = from_orderable(ka), top2 = from_orderable(kb);
+
+  int2 c = make_int2(0, 0);       // rows in the wave, rows outside it
+  for (int i = lo; i < hi; ++i) {
+    const size_t r0 = (size_t)i * M;
+    const bool fits = fits_m[r0] != 0;
+    const float cur = fits ? score_m[r0] : -INFINITY;
+    const float second = (cur == top1) ? top2 : top1;
+    int r = 0;
+    for (int m = 0; m < M; ++m) {
+      const bool ok = fits_m[r0 + m] != 0 &&
+                      (score_m[r0 + m] > second || ms[m] == 1.0f);
+      if (!ok) break;
+      r = m + 1;
     }
-    keys[i] = key;
+    run[i] = r;
+    if (fits && cur == top1) ++c.x; else ++c.y;
   }
-  __syncthreads();
-  block_bitonic_sort(keys, p);
-  for (int k = tid; k < n; k += NT) order[k] = (int)(keys[k] & 0xFFFFFFFFull);
+  int2 all;
+  int2 pre = cluster_scan2<J>(c, sm, cl, &all);
+  // Where top1 is -inf the wave rows' key -cur is +inf, every other
+  // row's too: every key ties and the order is the rows' own.
+  const bool ident = top1 == -INFINITY;
+  for (int i = lo; i < hi; ++i) {
+    const bool wave = cur_of(i) == top1 && fits_m[(size_t)i * M] != 0;
+    const int k = wave ? pre.x++ : all.x + pre.y++;
+    order[ident ? i : k] = i;
+  }
+  cluster_wait();                 // no block reads this one's totals now
 }
 
 // The probe's scatter (shared by K8e and K8f): per_node[order[k]] =
@@ -243,9 +414,14 @@ scatter_kernel(const int* __restrict__ run, const int* __restrict__ order,
   if (threadIdx.x == 0) *placed = total;
 }
 
-// K8f: the fused wave, K8a-K8e in one program without the [N, M] grid:
-// each row's cells are evaluated on the fly.  scratch: i32[3n] (run,
-// per_node, order).
+// K8f: the fused wave, K8a-K8e in one program without the [N, M] grid
+// and without an order: each row's cells are evaluated on the fly, and a
+// row's prefix in the greedy order comes from the pair scan of (its run
+// if in the wave, its run if not): a wave row's is the wave runs before
+// it, another row's the wave's total plus the other runs before it (all
+// runs before it where top1 is -inf).  placed = clip(count, 0, all runs),
+// the sum of the clipped runs.
+template <bool J>
 __global__ void __launch_bounds__(NT, 1)
 fused_wave_kernel(const float* __restrict__ cap,
                   const float* __restrict__ used,
@@ -254,16 +430,13 @@ fused_wave_kernel(const float* __restrict__ cap,
                   const float* __restrict__ affinity, int has_affinity,
                   float desired_f, const float* __restrict__ penalty,
                   const int* __restrict__ coll, int count, int M, int n,
-                  int p, float* __restrict__ used2, int* __restrict__ coll2,
-                  int* __restrict__ placed, int* __restrict__ scratch,
-                  unsigned long long* gkeys) {
-  extern __shared__ unsigned long long skeys[];  // p entries, or none
-  __shared__ ProbeShared sh;
-  unsigned long long* keys = gkeys ? gkeys : skeys;
-  int* run = scratch;
-  int* per_node = scratch + n;
-  int* order = scratch + 2 * n;
-  const int tid = threadIdx.x;
+                  float* __restrict__ used2, int* __restrict__ coll2,
+                  int* __restrict__ placed) {
+  __shared__ PartShared sm;
+  cg::cluster_group cl = cg::this_cluster();
+  int lo, hi;
+  thread_rows(n, cl, &lo, &hi);
+  const int cnt = hi - lo;
   const float desired_div = fmaxf(desired_f, 1.0f);
   float dem[R];
 #pragma unroll
@@ -282,45 +455,107 @@ fused_wave_kernel(const float* __restrict__ cap,
     return f;
   };
 
-  float a = -INFINITY, b = -INFINITY;
-  for (int i = tid; i < n; i += NT) {
+  // the m = 1 cells: the first RPT rows' kept in registers
+  float s1[RPT];
+  unsigned f1 = 0u;
+  unsigned ka = 0u, kb = 0u;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    if (k < cnt) {
+      float s;
+      const bool f = cell(lo + k, 1.0f, &s);
+      s1[k] = s;
+      f1 |= (f ? 1u : 0u) << k;
+      key_top2_push(ka, kb, orderable(f ? s : -INFINITY));
+    }
+  }
+  for (int i = lo + RPT; i < hi; ++i) {
     float s;
     const bool f = cell(i, 1.0f, &s);
-    top2_push(a, b, f ? s : -INFINITY);
+    key_top2_push(ka, kb, orderable(f ? s : -INFINITY));
   }
-  block_top2(a, b, sh.f, sh.f2);
-  const float top1 = a, top2 = b;
+  cluster_top2<J>(ka, kb, sm, cl);
+  const float top1 = from_orderable(ka), top2 = from_orderable(kb);
 
-  for (int i = tid; i < p; i += NT) {
-    unsigned long long key = NO_KEY;
-    if (i < n) {
-      float s1;
-      const bool fits = cell(i, 1.0f, &s1);
-      const float cur = fits ? s1 : -INFINITY;
-      const float second = (cur == top1) ? top2 : top1;
-      int r = 0;
-      for (int m = 1; m <= M; ++m) {
-        float s = s1;
-        const bool f = (m == 1) ? fits : cell(i, (float)m, &s);
-        if (!(f && (s > second || m == 1))) break;
-        r = m;
-      }
-      run[i] = r;
-      key = order_key(fits && cur == top1, cur, i);
+  // a row's run (m = 1 forced, then while it fits and beats `second`)
+  // and whether it is in the wave
+  auto run_of = [&](int i, bool fits, float s_1, bool* wave) -> int {
+    const float cur = fits ? s_1 : -INFINITY;
+    const float second = (cur == top1) ? top2 : top1;
+    *wave = fits && cur == top1;
+    if (!fits) return 0;
+    int r = 1;
+    for (int m = 2; m <= M; ++m) {
+      float s;
+      if (!(cell(i, (float)m, &s) && s > second)) break;
+      r = m;
     }
-    keys[i] = key;
+    return r;
+  };
+  int rn[RPT];
+  unsigned wv = 0u;
+  int2 c = make_int2(0, 0);       // runs in the wave, runs outside it
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    if (k < cnt) {
+      bool w;
+      rn[k] = run_of(lo + k, (f1 >> k) & 1u, s1[k], &w);
+      wv |= (w ? 1u : 0u) << k;
+      (w ? c.x : c.y) += rn[k];
+    }
   }
-  __syncthreads();
-  block_bitonic_sort(keys, p);
-  for (int k = tid; k < n; k += NT) order[k] = (int)(keys[k] & 0xFFFFFFFFull);
-  __syncthreads();
-  const int total = probe_scatter(run, order, count, used, demand, coll, n,
-                                  used2, coll2, per_node, sh);
-  if (tid == 0) *placed = total;
+  for (int i = lo + RPT; i < hi; ++i) {
+    float s;
+    const bool f = cell(i, 1.0f, &s);
+    bool w;
+    const int r = run_of(i, f, s, &w);
+    (w ? c.x : c.y) += r;
+  }
+  int2 all;
+  int2 pre = cluster_scan2<J>(c, sm, cl, &all);
+  const bool ident = top1 == -INFINITY;   // every key ties (see K8d)
+
+  // the row's instances: its run clipped by what the rows before it in
+  // the greedy order took
+  auto place = [&](int i, int r, bool w) {
+    const long long prefix = ident ? (long long)pre.x + pre.y
+                                   : (w ? pre.x : (long long)all.x + pre.y);
+    (w ? pre.x : pre.y) += r;
+    const int pn = (int)min(max((long long)count - prefix, 0ll),
+                            (long long)r);
+    const float pf = (float)pn;
+#pragma unroll
+    for (int d = 0; d < R; ++d) {
+      const float inc = pf * dem[d];
+      used2[(size_t)i * R + d] = used[(size_t)i * R + d] + inc;
+    }
+    coll2[i] = coll[i] + pn;
+  };
+#pragma unroll
+  for (int k = 0; k < RPT; ++k)
+    if (k < cnt) place(lo + k, rn[k], (wv >> k) & 1u);
+  for (int i = lo + RPT; i < hi; ++i) {
+    float s;
+    const bool f = cell(i, 1.0f, &s);
+    bool w;
+    const int r = run_of(i, f, s, &w);
+    place(i, r, w);
+  }
+  if (cl.block_rank() == 0 && threadIdx.x == 0)
+    *placed = (int)min(max((long long)count, 0ll),
+                       (long long)all.x + all.y);
+  cluster_wait();                 // no block reads this one's totals now
 }
 
 int cells_grid(int n, int M) {
   return (int)(((long long)n * M + 255) / 256);
+}
+
+// K8d's and K8f's cluster: PROBE_CLUSTER blocks of the fewest whole
+// warps that give each thread one row (at most NT)
+int probe_threads(int n) {
+  const int rpb = (n + PROBE_CLUSTER - 1) / PROBE_CLUSTER;
+  return min(NT, max(32, (rpb + 31) / 32 * 32));
 }
 
 }  // namespace
@@ -353,20 +588,14 @@ extern "C" int score_launch(const float* fit_m, const int* coll,
   return (int)cudaGetLastError();
 }
 
-// gkeys: NULL for n <= SMEM_SORT_ROWS (the sort runs in shared memory),
-// else a u64[sort_len(n)] global scratch
 extern "C" int argmax_launch(const uint8_t* fits_m, const float* score_m,
                              const float* ms, int n, int M, int* run,
-                             int* order, unsigned long long* gkeys,
-                             void* stream) {
-  if ((gkeys == nullptr) != (n <= SMEM_SORT_ROWS)) return (int)cudaErrorInvalidValue;
-  const int p = sort_len(n);
-  const size_t smem = gkeys ? 0 : (size_t)p * sizeof(unsigned long long);
-  cudaError_t err = allow_smem_sort(argmax_kernel);
-  if (err != cudaSuccess) return (int)err;
-  argmax_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
-      fits_m, score_m, ms, n, M, p, run, order, gkeys);
-  return (int)cudaGetLastError();
+                             int* order, void* stream) {
+  if (n < 2 || M < 1) return (int)cudaErrorInvalidValue;
+  return (int)cluster_launch(
+      jitter_on ? &argmax_kernel<true> : &argmax_kernel<false>,
+      PROBE_CLUSTER, probe_threads(n), 0, 0, (cudaStream_t)stream, fits_m,
+      score_m, ms, n, M, run, order);
 }
 
 extern "C" int scatter_launch(const int* run, const int* order, int count,
@@ -386,16 +615,19 @@ extern "C" int fused_wave_launch(const float* cap, const float* used,
                                  float desired_f, const float* penalty,
                                  const int* coll, int count, int fill_grid,
                                  int n, float* used2, int* coll2, int* placed,
-                                 int* scratch, unsigned long long* gkeys,
                                  void* stream) {
-  if ((gkeys == nullptr) != (n <= SMEM_SORT_ROWS)) return (int)cudaErrorInvalidValue;
-  const int p = sort_len(n);
-  const size_t smem = gkeys ? 0 : (size_t)p * sizeof(unsigned long long);
-  cudaError_t err = allow_smem_sort(fused_wave_kernel);
-  if (err != cudaSuccess) return (int)err;
-  fused_wave_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
-      cap, used, demand, feasible, affinity, has_affinity, desired_f,
-      penalty, coll, count, fill_grid, n, p, used2, coll2, placed, scratch,
-      gkeys);
-  return (int)cudaGetLastError();
+  if (n < 2 || fill_grid < 1) return (int)cudaErrorInvalidValue;
+  return (int)cluster_launch(
+      jitter_on ? &fused_wave_kernel<true> : &fused_wave_kernel<false>,
+      PROBE_CLUSTER, probe_threads(n), 0, 0, (cudaStream_t)stream, cap,
+      used, demand, feasible, affinity, has_affinity, desired_f, penalty,
+      coll, count, fill_grid, n, used2, coll2, placed);
 }
+
+// The delays of cluster.cuh at K8d's and K8f's exchange sites, for the
+// launches that follow on `stream` (0: none).
+extern "C" int stage_probe_set_jitter(int seed, void* stream) {
+  return (int)set_jitter(seed, (cudaStream_t)stream);
+}
+
+extern "C" int stage_probe_cluster_size() { return PROBE_CLUSTER; }

@@ -63,10 +63,12 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
         "feasibility_launch": [_P] * 5 + [_I, _I] + [_P] * 3,
         "fit_launch": [_P, _P, _I, _I, _P, _P],
         "score_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P],
-        "argmax_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "argmax_launch": [_P, _P, _P, _I, _I, _P, _P, _P],
         "scatter_launch": [_P, _P, _I, _P, _P, _P, _I] + [_P] * 5,
         "fused_wave_launch": [_P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _I,
-                              _I] + [_P] * 6,
+                              _I] + [_P] * 4,
+        "stage_probe_set_jitter": [_I, _P],
+        "stage_probe_cluster_size": [],
     },
     "sharded": {
         # K7a, K7b and K7c-K7e take their shard's packed operands (a

@@ -53,9 +53,6 @@ PACKED_WIDTH = 5 + 2 * TOP_K
 # reciprocal, so the port multiplies by the same f32 constant (the CUDA
 # kernels use 1.0f / 18.0f, the identical value)
 FIT_NORM = float(np.float32(1.0) / np.float32(18.0))
-# the one-block sorts of K8 sort in shared memory, 8 bytes a row,
-# up to this many rows; past it in a global scratch (`sort_scratch`)
-BULK_SMEM_ROWS = 16384
 # the bulk kernels' keys hold a row in 24 bits
 BULK_MAX_ROWS = 1 << 24
 # keys one selection round of K1/K4 takes (csrc/place_bulk.cu KMAX)
@@ -136,9 +133,21 @@ class PlaceResult:
 
 
 def _lax_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`lax.top_k` order: descending values, lower index first on ties."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """`lax.top_k(x, k)` for f32[n]: the k largest values in XLA's total
+    order (-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN), the
+    lower index first among equal bits, each value with its bits.  A
+    NaN's sign decides where it ranks: the CPU's 0 / 0 and inf / inf
+    give -NaN (lowest), the card's +NaN (highest)."""
+    i = x.contiguous().view(torch.int32)
+    key = torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+    idx = torch.sort(key, descending=True, stable=True).indices[:k]
+    return x[idx], idx
+
+
+def _argmax(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.argmax(x)` for f32[n]: the first NaN of either sign, else the
+    lowest index of the maximum (+0.0 and -0.0 equal)."""
+    return torch.sort(x, descending=True, stable=True).indices[0]
 
 
 # --------------------------------------------------------------------------
@@ -245,7 +254,7 @@ def place_eval_plain(inp: PlaceInputs, spread_algorithm: bool = False
                              torch.full_like(final, float("-inf")))
 
         top_scores, top_nodes = _lax_top_k(masked, TOP_K)
-        sel = top_nodes[0]                     # argmax, lowest row on ties
+        sel = _argmax(masked)
         ok = masked[sel] > float("-inf")
 
         # carry updates
@@ -287,22 +296,6 @@ def unpack_outputs(packed: np.ndarray):
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
-
-
-def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def sort_scratch(N: int, dev: torch.device) -> Optional[torch.Tensor]:
-    """The global key scratch of a one-block sort over N rows (u64 keys,
-    the next power of two of them), or None where the kernel sorts in
-    shared memory (N <= BULK_SMEM_ROWS)."""
-    if N <= BULK_SMEM_ROWS:
-        return None
-    p = 2
-    while p < N:
-        p *= 2
-    return torch.empty(p, dtype=torch.int64, device=dev)
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
@@ -1045,8 +1038,8 @@ def _cluster_top_k(masked: torch.Tensor, blocks: int):
     vals, rows = torch.cat(vals), torch.cat(rows)
     by_row = torch.argsort(rows)
     vals, rows = vals[by_row], rows[by_row]
-    order = torch.sort(vals, descending=True, stable=True).indices[:TOP_K]
-    return vals[order], rows[order]
+    top, order = _lax_top_k(vals, TOP_K)
+    return top, rows[order]
 
 
 def _scan_eval_model(inp: PlaceInputs, used: torch.Tensor,
@@ -1089,10 +1082,12 @@ def _scan_eval_model(inp: PlaceInputs, used: torch.Tensor,
         masked = torch.where(fits, total / (n_sc + sb_on.to(f32)),
                              torch.full_like(total, float("-inf")))
         top_s, top_n = _cluster_top_k(masked, blocks)
-        sel = int(top_n[0])
-        ok = bool(top_s[0] > float("-inf"))
+        # the kernel's pick is its first key, the row of the card's +NaN
+        # where there is one: jnp.argmax's row
+        sel = int(_argmax(masked))
+        ok = bool(masked[sel] > float("-inf"))
         out[s, 0] = float(sel) if ok else -1.0
-        out[s, 1] = top_s[0] if ok else 0.0
+        out[s, 1] = masked[sel] if ok else 0.0
         out[s, 2] = fit[sel] if ok else 0.0
         out[s, 3] = float(torch.sum(feas))
         out[s, 4] = float(torch.sum(feas & ~fits))

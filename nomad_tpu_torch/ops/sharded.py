@@ -63,6 +63,7 @@ from nomad_tpu_torch.ops.place import (
     PACKED_WIDTH,
     SCAN_MAX_SPREADS,
     TOP_K,
+    _argmax,
     _boost_tables,
     _lax_top_k,
     _partial_scores,
@@ -78,8 +79,9 @@ REC_TOPS = 5                        # TOP_K scores
 REC_TOPI = REC_TOPS + TOP_K         # TOP_K global rows
 REC_V = REC_TOPI + TOP_K            # spread value indices at the best row
 SCAN_REC = REC_V + SCAN_MAX_SPREADS
-# the bulk wave's per-shard statistics: top-2 of cur, max m=2 score, any fit
-STATS_W = 4
+# the bulk wave's per-shard statistics: top-2 of cur, the shard's part of
+# s* (max m=2 score), any fit, max non-NaN cur
+STATS_W = 5
 # the lane state of one bulk eval, per shard: placed, waves, stuck, done
 ST_PLACED, ST_WAVES, ST_STUCK, ST_DONE = 0, 1, 2, 3
 STATE_W = 4
@@ -299,11 +301,13 @@ def _scan_record(sh: ScanShard, g: int, masked: torch.Tensor,
                  fit_score: torch.Tensor, n_eval, n_exh,
                  top_s: torch.Tensor, top_i: torch.Tensor) -> torch.Tensor:
     """A shard's scan record (K7a's plain version and its cached model)
-    from its local top list (top_i local rows)."""
+    from its local top list (top_i local rows).  The best is jnp.max's
+    and its row jnp.argmax's (a NaN of either sign first): the kernel's
+    first key, where a NaN is the card's +NaN."""
     n = masked.shape[0]
     k = min(TOP_K, n)
-    best = top_s[0]
-    li = int(top_i[0])
+    li = int(_argmax(masked))
+    best = masked[li]
     rec = torch.zeros(SCAN_REC, dtype=torch.int32, device=masked.device)
     recf = _f(rec)
     recf[REC_BEST] = best
@@ -384,10 +388,9 @@ def _orderable(x: torch.Tensor) -> torch.Tensor:
 
 def _key_top(masked: torch.Tensor, off: int, k: int):
     """K7a's top-k by its 64-bit keys: the orderable score of v + 0.0
-    (+0.0 and -0.0 one score; NaN the card's positive NaN, above +inf),
-    then the lower row.  Returns (scores, local rows)."""
+    (+0.0 and -0.0 one score; a NaN by its sign, the card's +NaN above
+    +inf), then the lower row.  Returns (scores, local rows)."""
     v = masked + 0.0
-    v = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), v)
     rows = torch.arange(masked.shape[0], dtype=torch.int64) + off
     key = _orderable(v) * (1 << 31) + (0x7FFFFFFF - rows)
     top = torch.argsort(key, descending=True)[:k]
@@ -747,7 +750,12 @@ def bulk_stats_plain(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
     at once runs its tail.  Then, unless the eval is done, the wave's
     local statistics (lines 551-567): cur (the m = 1 score where the row
     fits, else -inf) into cur_g[off:off+n], and stats[shard] = (top-2 of
-    cur, max m = 2 score where it fits, any fit)."""
+    cur as `lax.top_k` ranks it, the shard's part of s*, any fit, the
+    largest cur that is not NaN).  The reference takes s* as the pmax of
+    each shard's `jnp.max` of its m = 2 scores where they fit: a NaN
+    there makes the shard's max NaN, which the pmax passes over, so the
+    shard's part is -inf.  Both maxima fold -0.0 into +0.0 (only their
+    order matters)."""
     if begin:
         if sh.delta_rows is not None:
             sh.delta.copy_(sh.used)
@@ -769,18 +777,23 @@ def bulk_stats_plain(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
     cur_g[sh.off:sh.off + n] = cur
     top2 = _lax_top_k(cur, 2)[0]
     smax = torch.max(torch.where(fits_m[:, 1], score_m[:, 1], ninf))
+    smax = torch.where(torch.isnan(smax), ninf[0], smax) + 0.0
+    cmax = torch.max(torch.where(torch.isnan(cur), ninf, cur)) + 0.0
     stats[shard] = torch.stack([top2[0], top2[1], smax,
-                                torch.any(fits).to(torch.float32)])
+                                torch.any(fits).to(torch.float32), cmax])
 
 
 def _wave_globals(stats: torch.Tensor):
-    """(any_fit, s_star, gmax, gsecond) from the gathered statistics: the
-    pmax of any-fit and of the m = 2 maxima, the global top-2 of cur as
+    """(any_fit, s_star, use_strict, gmax, gsecond) from the gathered
+    statistics: the pmax of any-fit and of the shards' parts of s*;
+    whether some row beats s* (the reference's pmax of `any(fits & (cur
+    > s*))`: a NaN beats nothing); the global top-2 of cur as
     `top_k(all_gather(local top-2), 2)`."""
     any_fit = bool(torch.any(stats[:, 3] > 0))
     s_star = torch.max(stats[:, 2])
+    use_strict = bool(torch.max(stats[:, 4]) > s_star)
     g2 = _lax_top_k(stats[:, :2].reshape(-1), 2)[0]
-    return any_fit, s_star, g2[0], g2[1]
+    return any_fit, s_star, use_strict, g2[0], g2[1]
 
 
 def bulk_run_plain(sh: BulkShard, e: int, stats: torch.Tensor,
@@ -789,18 +802,17 @@ def bulk_run_plain(sh: BulkShard, e: int, stats: torch.Tensor,
     """Plain version of K7d: base_g[off:off+n] = each local row's fill run
     (`bulk_run_lengths` against `second`) where the row is in the wave
     set, else 0.  The wave set is the strict set (cur > s*) when any row
-    beats s*, which is `gmax > s*`, else the tie set (cur == gmax); a
-    run is capped at the eval's remaining count (a longer run is only
-    ever used up to it)."""
+    beats s* (the largest cur that is not NaN does: a NaN beats nothing),
+    else the tie set (cur == gmax); a run is capped at the eval's
+    remaining count (a longer run is only ever used up to it)."""
     if int(sh.state[ST_DONE]):
         return
-    any_fit, s_star, gmax, gsecond = _wave_globals(stats)
+    any_fit, s_star, use_strict, gmax, gsecond = _wave_globals(stats)
     n = sh.capacity.shape[0]
     cur = cur_g[sh.off:sh.off + n]
     if not any_fit:
         base_g[sh.off:sh.off + n] = 0
         return
-    use_strict = bool(gmax > s_star)
     fits = cur > float("-inf")
     wave = (cur > s_star) if use_strict else (fits & (cur == gmax))
     second = torch.where(cur == gmax, gsecond, gmax)
@@ -823,12 +835,12 @@ def bulk_run_model(sh: BulkShard, e: int, stats: torch.Tensor,
     failing m - 1, or run_cap where none fails."""
     if int(sh.state[ST_DONE]):
         return
-    any_fit, s_star, gmax, gsecond = _wave_globals(stats)
+    any_fit, s_star, use_strict, gmax, gsecond = _wave_globals(stats)
     n = sh.capacity.shape[0]
     cur = cur_g[sh.off:sh.off + n]
     run_cap = max(min(fill_grid, int(sh.count[e]) - int(sh.state[ST_PLACED])),
                   0)
-    if bool(gmax > s_star):
+    if use_strict:
         wave = cur > s_star
     else:
         wave = (cur > float("-inf")) & (cur == gmax)

@@ -12,6 +12,10 @@ Torch port of the reference's parallel/stage_probe.py `_stage_fns`
   for CUDA tensors, takes the plain version for CPU tensors, and raises
   for anything else.  `launches` counts kernel launches only.
 
+K8d and K8f sort nothing: their order is a stable partition of the rows
+(the wave rows, then the others, each in row order), which
+`argmax_model` and `fused_wave_model` write out in PyTorch for the tests.
+
 These compute what the reference's probe computes, which is not
 production's wave (ops/place.py `_bulk_loop`): there is no strict set,
 and the scatter does not mask the run lengths by the wave set, so rows
@@ -27,8 +31,8 @@ from nomad_tpu_torch.encode.matrixizer import NUM_RESOURCE_DIMS
 from nomad_tpu_torch.ops import _build
 from nomad_tpu_torch.ops.fit import score_fit
 from nomad_tpu_torch.ops.place import (
-    FIT_NORM, _check, _device_of, _opt_ptr, _ptr, _stream, bulk_run_lengths,
-    bulk_wave_grid, sort_scratch)
+    FIT_NORM, _check, _device_of, _ptr, _stream, bulk_run_lengths,
+    _lax_top_k, bulk_wave_grid)
 
 # kernel launches per wrapper (the plain versions never count)
 launches = {"stage_feasibility": 0, "stage_fit": 0, "stage_score": 0,
@@ -84,17 +88,23 @@ def _order(wave, cur):
     return torch.argsort(key, stable=True).to(_I32)
 
 
+def _wave_start(fits_m, score_m):
+    """(cur, top1, second, wave) of the wave, its top-2 of cur as
+    `lax.top_k` ranks it (a NaN by its sign)."""
+    fits = fits_m[:, 0]
+    cur = torch.where(fits, score_m[:, 0],
+                      torch.full_like(score_m[:, 0], float("-inf")))
+    top1, top2 = _lax_top_k(cur, 2)[0]
+    second = torch.where(cur == top1, top2, top1)
+    return cur, top1, second, fits & (cur == top1)
+
+
 def argmax_plain(fits_m, score_m, ms):
     """(run i32[N], order i32[N]): each row's greedy fill run against the
     best wave-start score among the others (m = 1 forced), and the
     greedy order (wave rows by score desc, then the rest, row asc)."""
-    fits = fits_m[:, 0]
-    cur = torch.where(fits, score_m[:, 0],
-                      torch.full_like(score_m[:, 0], float("-inf")))
-    top2 = torch.topk(cur, 2).values
-    second = torch.where(cur == top2[0], top2[1], top2[0])
+    cur, _, second, wave = _wave_start(fits_m, score_m)
     run = bulk_run_lengths(ms, fits_m, score_m, second).to(_I32)
-    wave = fits & (cur == top2[0])
     return run, _order(wave, cur)
 
 
@@ -123,6 +133,76 @@ def fused_wave_plain(capacity, used, demand, feasible, affinity,
         float(desired_f), penalty, coll, False, fill_grid)
     run, order = argmax_plain(fits_m, score_m, ms)
     return scatter_plain(run, order, count, used, demand, coll)
+
+
+# --------------------------------------------------------------- models
+
+def _first_fail_runs(ms, fits_m, score_m, second):
+    """i64[N]: K8d's and K8f's run, the first m whose cell fails less one
+    (M where none fails); a cell fails where the row does not fit m more
+    or, past m = 1, its score does not beat `second`."""
+    ok = fits_m & ((score_m > second[:, None]) | (ms[None, :] == 1.0))
+    fail = ~ok
+    M = fits_m.shape[1]
+    return torch.where(torch.any(fail, dim=1),
+                       torch.argmax(fail.to(_I32), dim=1),
+                       torch.full_like(fail[:, 0], M, dtype=torch.int64))
+
+
+def _partition(wave, val):
+    """K8d's and K8f's pair scan: (px, py, X, Y), the exclusive row-order
+    prefixes of the pair (val of a wave row, val of any other row) and
+    its totals; val is 1 a row for K8d's order, the run for K8f."""
+    x = torch.where(wave, val, torch.zeros_like(val))
+    y = torch.where(wave, torch.zeros_like(val), val)
+    px, py = torch.cumsum(x, 0) - x, torch.cumsum(y, 0) - y
+    return px, py, int(torch.sum(x)), int(torch.sum(y))
+
+
+def argmax_model(fits_m, score_m, ms):
+    """K8d's algorithm (csrc/stage_probe.cu) in PyTorch, which the tests
+    hold equal to `argmax_plain` and the reference: no sort.  Every wave
+    row has cur == top1, so `where(wave, -cur, +inf)` takes two values and
+    its stable argsort is a stable partition: a wave row's place is the
+    wave rows before it in row order, any other row's the wave's size
+    plus the other rows before it.  Where top1 is -inf the wave rows' key
+    is +inf too and the order is the rows' own."""
+    _, top1, second, wave = _wave_start(fits_m, score_m)
+    run = _first_fail_runs(ms, fits_m, score_m, second)
+    rows = torch.arange(run.shape[0], device=run.device)
+    if float(top1) == float("-inf"):
+        return run.to(_I32), rows.to(_I32)
+    px, py, nx, _ = _partition(wave, torch.ones_like(run))
+    order = torch.empty_like(rows)
+    order[torch.where(wave, px, nx + py)] = rows
+    return run.to(_I32), order.to(_I32)
+
+
+def fused_wave_model(capacity, used, demand, feasible, affinity,
+                     has_affinity: bool, desired_f: float, penalty, coll,
+                     count: int, fill_grid: int):
+    """K8f's algorithm in PyTorch, held to `fused_wave_plain`: no order.
+    A row's prefix in the greedy order comes from one row-order scan of
+    the pair (run if in the wave, run if not): a wave row's is the wave
+    runs before it, any other row's the wave's total plus the other runs
+    before it (all runs before it where top1 is -inf).  placed is
+    clip(count, 0, all runs), the sum of the clipped runs."""
+    ms, fits_m, score_m = bulk_wave_grid(
+        capacity, used, demand, feasible, affinity, has_affinity,
+        float(desired_f), penalty, coll, False, fill_grid)
+    _, top1, second, wave = _wave_start(fits_m, score_m)
+    run = _first_fail_runs(ms, fits_m, score_m, second)
+    px, py, nx, ny = _partition(wave, run)
+    if float(top1) == float("-inf"):
+        prefix = px + py
+    else:
+        prefix = torch.where(wave, px, nx + py)
+    per_node = torch.minimum(torch.clamp(int(count) - prefix, min=0),
+                             run).to(_I32)
+    used2 = used + per_node[:, None].to(_F32) * demand
+    placed = min(max(int(count), 0), nx + ny)
+    return used2, coll + per_node, torch.tensor(placed, dtype=_I32,
+                                                device=used.device)
 
 
 # --------------------------------------------------------------- wrappers
@@ -215,10 +295,9 @@ def argmax(fits_m, score_m, ms):
     _check("argmax.ms", ms, dev, _F32, (M,))
     run = torch.empty(N, dtype=_I32, device=dev)
     order = torch.empty(N, dtype=_I32, device=dev)
-    keys = sort_scratch(N, dev)
     rc = _build.load("stage_probe").argmax_launch(
         _ptr(fits_m), _ptr(score_m), _ptr(ms), N, M, _ptr(run), _ptr(order),
-        _opt_ptr(keys), _stream(dev))
+        _stream(dev))
     _launch("stage_argmax", rc)
     return run, order
 
@@ -272,13 +351,10 @@ def fused_wave(capacity, used, demand, feasible, affinity,
     used2 = torch.empty((N, R), dtype=_F32, device=dev)
     coll2 = torch.empty(N, dtype=_I32, device=dev)
     placed = torch.empty((), dtype=_I32, device=dev)
-    scratch = torch.empty((3, N), dtype=_I32, device=dev)
-    keys = sort_scratch(N, dev)
     rc = _build.load("stage_probe").fused_wave_launch(
         _ptr(capacity), _ptr(used), _ptr(demand), _ptr(feasible),
         _ptr(affinity), int(bool(has_affinity)), float(desired_f),
         _ptr(penalty), _ptr(coll), int(count), int(fill_grid), N,
-        _ptr(used2), _ptr(coll2), _ptr(placed), _ptr(scratch),
-        _opt_ptr(keys), _stream(dev))
+        _ptr(used2), _ptr(coll2), _ptr(placed), _stream(dev))
     _launch("stage_fused_wave", rc)
     return used2, coll2, placed

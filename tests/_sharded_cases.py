@@ -55,7 +55,9 @@ def bulk_select_cases(n_rows: int, node_shards: int, lanes: int,
     threshold splits the rows of one score, across a shard boundary; a
     `remaining` of at least the wave; scores of exactly 0.0 at the top;
     lane pads of count 0 with deltas; delta rows that repeat a row (in an
-    order that rounds differently); a usage row at +inf under deltas."""
+    order that rounds differently); a usage row at +inf under deltas;
+    fitting rows that score NaN at m = 1, at m = 2 only, and on one shard
+    between finite scores on the others (spread waves)."""
     rng = np.random.default_rng(seed)
     N, NS, W = n_rows, node_shards, lanes
     n = N // NS
@@ -155,6 +157,48 @@ def bulk_select_cases(n_rows: int, node_shards: int, lanes: int,
                   _select_lanes(N, [[ev(5 + w, deltas=ds), ev(3, deltas=ds),
                                      ev(0, deltas=ds)] for w in range(W)]),
                   False))
+
+    # fitting rows that score NaN: +inf capacity and usage (1 - inf / inf;
+    # -NaN on the CPU, +NaN on the card).  Spread, so that a strict wave
+    # (some m = 1 score above every m = 2 score) keeps placing wherever
+    # the NaN ranks in the top-2
+    nan_used = (rng.integers(0, 4, (N, 4)) * d).astype(np.float32)
+    nan_cap, r_nan = cap.copy(), n + 5
+    nan_cap[r_nan, 0] = nan_used[r_nan, 0] = np.inf
+    cases.append(("a fitting row scoring NaN at m = 1", nan_cap, nan_used,
+                  _select_lanes(N, [[ev(6 + w), ev(3), ev(0)]
+                                    for w in range(W)]), True))
+
+    # cpu in units of 1e38: the row at +inf capacity and 2e38 usage fits
+    # m = 1 at a finite score and m = 2 at NaN (4e38 rounds to +inf), so
+    # its shard's m = 2 maximum is NaN; after it takes one instance its
+    # m = 1 score is NaN too
+    big_d = np.asarray((1e38, 256.0, 0.0, 0.0), np.float32)
+    big_cap = cap.copy()
+    big_cap[:, 0] = np.finfo(np.float32).max
+    big_used = np.zeros((N, 4), np.float32)
+    big_used[:, 0] = rng.choice(np.float32([0.0, 0.5e38, 1e38]), N)
+    r_m2 = n + 2
+    big_cap[r_m2, 0], big_used[r_m2, 0] = np.inf, 2e38
+    cases.append(("a fitting row scoring NaN at m = 2 only", big_cap,
+                  big_used,
+                  _select_lanes(N, [[ev(5 + w, demand=big_d),
+                                     ev(2, demand=big_d), ev(0)]
+                                    for w in range(W)]), True))
+
+    # a NaN row on shard 1 between finite rows on the shards before and
+    # after it: the best score on shard 0, the second on the last shard,
+    # the NaN shard's own rows below both
+    mid_used = np.tile(3 * d, (N, 1)).astype(np.float32)
+    mid_cap = cap.copy()
+    mid_used[4] = 0.0
+    mid_used[N - 2] = d / 2
+    mid_used[n + 1] = d
+    mid_cap[n + 3, 0] = mid_used[n + 3, 0] = np.inf
+    cases.append(("a NaN row on one shard between finite scores on the "
+                  "others", mid_cap, mid_used,
+                  _select_lanes(N, [[ev(4 + w), ev(9), ev(0)]
+                                    for w in range(W)]), True))
     return cases
 
 

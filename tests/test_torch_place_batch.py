@@ -321,13 +321,23 @@ def test_bulk_batch_matches_reference_past_the_shared_memory_sort(case):
 
 
 def test_bulk_wrappers_take_rows_past_the_shared_memory_sort():
-    """The row ceiling is the key's 24 row bits, not shared memory; past
-    BULK_SMEM_ROWS the one-block sorts of K7e and K8 take a global key
-    scratch (K1/K4 select their keys and need none)."""
+    """The row ceiling is the key's 24 row bits, not shared memory, and
+    no wrapper takes a global key scratch: K1/K4 and K7e select their
+    keys, and the stage probe's K8d/K8f partition the rows.  K8d's
+    partition at 20,000 rows (past the 16,384 keys a block's shared
+    memory sorted) gives the plain version's argsort."""
+    from nomad_tpu_torch.ops import stage_probe as tsp
+    from nomad_tpu_torch.parallel import stage_probe as psp
     assert tp.BULK_MAX_ROWS == 1 << 24
-    assert tp.sort_scratch(tp.BULK_SMEM_ROWS, torch.device("cpu")) is None
-    keys = tp.sort_scratch(100_000, torch.device("cpu"))
-    assert keys.shape == (131072,) and keys.dtype == torch.int64
+    assert not hasattr(tp, "sort_scratch")
+    x = psp.probe_inputs(20000, fill_grid=16, device="cpu")
+    fits_m = torch.from_numpy(np.random.default_rng(3).random((20000, 16))
+                              < 0.9)
+    score_m = torch.zeros((20000, 16), dtype=torch.float32)
+    score_m[::7, 0] = 0.5                  # 2,858 rows tied at the top
+    for got, want in zip(tsp.argmax_model(fits_m, score_m, x["ms"]),
+                         tsp.argmax_plain(fits_m, score_m, x["ms"])):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -157,6 +157,28 @@ def test_k3_plain_matches_reference(case, spread):
                                rtol=RTOL)
 
 
+# the ends of lax.top_k's total order: NaN of either sign (by its bits),
+# +-inf, +-0.0, and values that tie
+EDGE_VALUES = np.concatenate([
+    np.array([0x7FC00000, 0xFFC00000], np.uint32).view(np.float32),
+    np.array([np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 0.5], np.float32)])
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("seed", range(4))
+def test_lax_top_k_matches_reference(seed, k):
+    """ops/place.py `_lax_top_k` against `lax.top_k` on vectors drawn
+    from EDGE_VALUES: the same rows and the same bits.  The plain
+    versions of K2, K7a, K7c, K7d and K8d take their top lists and
+    top-2s from it."""
+    from jax import lax
+    x = np.random.default_rng(seed).choice(EDGE_VALUES, size=16)
+    ref_v, ref_i = lax.top_k(jnp.asarray(x), k)
+    got_v, got_i = tp._lax_top_k(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    _bits_equal(got_v.numpy(), np.asarray(ref_v))
+
+
 @pytest.mark.cuda
 def test_scan_kernels_match_plain_on_every_case():
     """On the card: K3 bit-equal to its plain version on every case, K2

@@ -5,8 +5,12 @@ that steer K7e's selection, held against the reference.
 a tie wave with more tied rows than `remaining`, strict waves at one
 score and split by the threshold across a shard boundary, a `remaining`
 of at least the wave, scores of exactly 0.0, lane pads of count 0 with
-deltas, delta rows that repeat a row, and a usage row at +inf under
-deltas.  Each goes through the reference's `place_bulk_batch_sharded`
+deltas, delta rows that repeat a row, a usage row at +inf under deltas,
+and fitting rows that score NaN (at m = 1, at m = 2 only, and on one
+shard between finite scores on the others): the wave's statistics
+follow the reference's rules there (s* the pmax of each shard's max,
+which a NaN makes NaN and the pmax passes over; the strict set used
+where some row beats s*; the top-2 in lax.top_k's order).  Each goes through the reference's `place_bulk_batch_sharded`
 on conftest.py's eight virtual CPU devices and through the port's two
 CPU forms on a mesh of eight "cpu" entries of the same shape, (4, 2) and
 (2, 4): `place_bulk_batch_sharded_plain` (the reference's function as
@@ -153,6 +157,38 @@ def test_selection_case_waves_take_their_paths(shape):
     assert (got[2][pad] == 0).all() and (got[0][pad] == 0).all()
 
 
+@pytest.mark.parametrize("form", FORMS)
+def test_nan_row_in_a_tie_wave_ranks_as_lax_top_k(form):
+    """A binpack wave of tied empty rows beside a fitting row that scores
+    NaN (+inf capacity and usage): no m = 1 score beats s*, so the wave is
+    the tie set at the global top score.  The reference's lax.top_k
+    ranks the CPU's -NaN below every score, so the top score is the tied
+    rows' and the wave places; a top-2 that put any NaN first (as
+    torch.sort does) would leave the tie set empty and the eval spinning
+    to max_waves.  The port's forms take lax.top_k's total order
+    (ops/place.py _lax_top_k) and place as the reference does."""
+    shape = (4, 2)
+    _, cap, used, _, _ = _case(LABELS[0], shape)
+    cap, used = cap.copy(), used.copy()
+    cap[N // 2 + 3, 0] = used[N // 2 + 3, 0] = np.inf
+    # one co-placement and a large desired count: the anti-affinity term
+    # counts from m = 1 and is small, so every row's m = 2 score is above
+    # its m = 1 score (binpack) and no row beats s*
+    ev = lambda c: dict(count=c, coll0=np.ones(N, np.int32),  # noqa: E731
+                        desired=1000)
+    f = sc._select_lanes(N, [[ev(5 + w), ev(3), ev(0)]
+                             for w in range(shape[1])])
+    kw = dict(spread_algorithm=False, max_waves=4)
+    mesh = rs.make_mesh(n_wave_shards=shape[1], n_node_shards=shape[0])
+    ref = [np.asarray(x) for x in rs.place_bulk_batch_sharded(
+        mesh, cap, used, *[f[k] for k in ORDER], **kw)[:6]]
+    got = getattr(ps, f"place_bulk_batch_sharded_{form}")(
+        _port_mesh(shape), cap, used, *[f[k] for k in ORDER], **kw)
+    for name, g, r in zip(NAMES, got[:6], ref):
+        _close(g.cpu().numpy(), r, f"{form}: {name}")
+    assert (ref[2] == f["count"]).all() and (ref[5] < 4).all()
+
+
 def test_order_ties_signed_zeros_as_the_reference():
     """bulk_order_plain's order on a wave whose scores include +0.0 and
     -0.0 (which tie) equals the reference's `jnp.argsort(where(wave,
@@ -173,7 +209,7 @@ def test_order_ties_signed_zeros_as_the_reference():
     got = np.zeros(n_rows, np.int64)
     for i in range(4):
         sh = _order_shard(n, n_rows, i * n, remaining)
-        k7.bulk_order_plain(sh, 0, torch.tensor([[0.5, 0.5, 0.0, 1.0]]),
+        k7.bulk_order_plain(sh, 0, torch.tensor([[0.5, 0.5, 0.0, 1.0, 0.5]]),
                             torch.from_numpy(cur), torch.from_numpy(base),
                             False, 1000)
         got[i * n:(i + 1) * n] = sh.assign[0].numpy()
@@ -242,7 +278,7 @@ def test_order_kernel_ties_signed_zeros(cuda_mesh_of):
     cur = rng.choice(np.array([0.5, 0.0, -0.0, -0.25, 0.0, -0.0],
                               np.float32), n_rows)
     base = rng.integers(0, 3, n_rows).astype(np.int32)
-    stats = torch.tensor([[0.5, 0.5, 0.0, 1.0]])
+    stats = torch.tensor([[0.5, 0.5, 0.0, 1.0, 0.5]])
     for remaining in (1, 17, 700, 5000):
         for i in range(4):
             outs = []

@@ -25,6 +25,8 @@ except ImportError:     # a machine with a card and no JAX runs the cuda
 from nomad_tpu_torch.ops import stage_probe as tsp
 from nomad_tpu_torch.parallel import stage_probe as psp
 
+import _stage_cases as stc
+
 torch.set_num_threads(1)
 
 RTOL = 1e-5
@@ -276,24 +278,42 @@ def test_stage_wrappers_refuse_other_devices():
 @pytest.mark.cuda
 def test_stage_kernels_match_plain_on_the_card():
     """K8a-K8f against their plain versions on the card, at the bench's
-    shape (N = 10,000, M = 16) and past the shared-memory sort (N =
-    20,000): integers equal, floats bit-equal (same operations, same
-    order, -fmad=false, powf)."""
+    shape (N = 10,000, M = 16), past the 16,384 rows one block sorted in
+    shared memory (N = 20,000), at 131,072 rows (8 a thread of K8d's and
+    K8f's cluster), at M = 64, and on the edge rows of
+    `probe_edge_inputs` (tests/_stage_cases.py) at N = 10,000: integers
+    equal, floats bit-equal (same operations, same order, -fmad=false,
+    powf; NaN against NaN), and K8f's outputs equal to the K8a->K8e
+    kernel chain's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
                     "false)")
-    for n in (10000, 20000):
-        x = psp.probe_inputs(n, fill_grid=16, device="cuda")
+    cases = [psp.probe_inputs(n, fill_grid=M, device="cuda")
+             for n, M in ((10000, 16), (20000, 16), (131072, 16),
+                          (10000, 64), (131072, 64))]
+    cases += [stc.probe_edge_inputs(kind, 10000, M, device="cuda")
+              for M in (16, 64) for kind in stc.EDGE_KINDS]
+    for x in cases:
         got = _unit_chain(x, kernels=True)
         want = _unit_chain(x, kernels=False)
         torch.cuda.synchronize()
+        what = f"N={x['capacity'].shape[0]} M={x['fill_grid']}"
         for name in want:
-            g, w = got[name].cpu().numpy(), want[name].cpu().numpy()
-            if g.dtype == np.float32:
-                np.testing.assert_array_equal(g.view(np.uint32),
-                                              w.view(np.uint32), err_msg=name)
-            else:
-                np.testing.assert_array_equal(g, w, err_msg=name)
+            _bit_equal(got[name], want[name], f"{what}: {name}")
+        for name in ("used2", "coll2", "placed"):
+            _bit_equal(got["fused_" + name], got[name],
+                       f"{what}: K8f {name} vs the K8a->K8e chain")
+
+
+def _bit_equal(got, want, what):
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert g.dtype == w.dtype and g.shape == w.shape, what
+    if w.dtype == np.float32:
+        nan = np.isnan(w)
+        np.testing.assert_array_equal(np.isnan(g), nan, err_msg=what)
+        g, w = np.where(nan, 0, g).view(np.uint32), \
+            np.where(nan, 0, w).view(np.uint32)
+    np.testing.assert_array_equal(g, w, err_msg=what)
 
 
 def _unit_chain(x, kernels):
