@@ -443,7 +443,8 @@ def _bulk_call(fn, a, dev):
     args = (t(a["cap"]), t(a["used"]), t(a["feas"]), t(a["aff"]),
             a["has_aff"], a["desired"], t(a["pen"]), t(a["coll"]),
             t(a["demand"]), a["count"])
-    kw = dict(spread_algorithm=a.get("spread", False))
+    kw = dict(spread_algorithm=a.get("spread", False),
+              max_waves=a.get("max_waves", 65536))
     return lambda: fn(*args, **kw)
 
 
@@ -487,10 +488,11 @@ def jittered(label, fn, want, kernel="place_bulk", seeds=JITTER_SEEDS):
         set_jitter(0, stream)
 
 
-def check_bulk(a, label, place_all, jitter=False):
+def check_bulk(a, label, place_all, jitter=False, stall_ok=False):
     """Kernel vs plain on the card (and, with jitter, again under each of
     JITTER_SEEDS); returns (max_abs_err, waves, rows that took instances,
-    kernel callable, plain callable)."""
+    kernel callable, plain callable).  A case with a count places some of
+    it, unless stall_ok (a wave that the card's +NaN leaves empty)."""
     import torch
     from nomad_tpu_torch.ops import place as tp
     dev = torch.device("cuda")
@@ -510,7 +512,7 @@ def check_bulk(a, label, place_all, jitter=False):
         raise AssertionError(f"{label}: (placed, n_eval, n_exh, waves) "
                              f"kernel {kr[1:4] + (kr[5],)} plain "
                              f"{pr[1:4] + (pr[5],)}")
-    if (a["count"] > 0 and kr[1] == 0) or \
+    if (a["count"] > 0 and kr[1] == 0 and not stall_ok) or \
             (place_all and kr[1] != a["count"]):
         raise AssertionError(f"{label}: placed {kr[1]} of {a['count']}")
     err = max(_compare_floats(f"{label} used", kr[6], pr[6]),
@@ -630,6 +632,8 @@ def phase_kernels():
     log(f"kernels: place_bulk C2M group N={N_ROWS}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
     check_bulk_select()
+    check_bulk_odd()
+    bulk_turns()
 
     f_main = scan_inputs(4, main_path=True)
     err_m, kern, plain = check_scan(f_main, "rack spread")
@@ -875,11 +879,12 @@ def c2m_eval_inputs(seed: int, n_rows: int = N_ROWS, n_nodes: int = N_NODES,
 
 
 def _batch_bulk_case(label, inputs, sparse, exact, fill_grid, spread=False,
-                     host_check=True, jitter=False):
+                     host_check=True, jitter=False, max_waves=65536,
+                     stall_ok=False):
     """K4 kernel vs plain on the card, bit for bit (and, with the exact
     carry and host_check, against the host rank-1 update; with jitter,
     again under each of JITTER_SEEDS); returns unpack_bulk_batch of the
-    kernel's output."""
+    kernel's output.  Every eval places its count, unless stall_ok."""
     import torch
     from nomad_tpu_torch import native
     from nomad_tpu_torch.ops import place as tp
@@ -888,7 +893,8 @@ def _batch_bulk_case(label, inputs, sparse, exact, fill_grid, spread=False,
     E, n = heavy.shape[0], cap.shape[0]
     calls = [lambda fn=fn: fn(
         t(cap), t(used), t(heavy), t(dyn), D, sparse_out=sparse,
-        fill_grid=fill_grid, exact_out=exact, spread_algorithm=spread)
+        fill_grid=fill_grid, exact_out=exact, spread_algorithm=spread,
+        max_waves=max_waves)
         for fn in (tp.place_bulk_batch, tp.place_bulk_batch_plain)]
     outs = [[x.cpu().numpy() for x in call()] for call in calls]
     torch.cuda.synchronize()
@@ -899,7 +905,7 @@ def _batch_bulk_case(label, inputs, sparse, exact, fill_grid, spread=False,
     res = tp.unpack_bulk_batch(outs[0][0], n, sparse=sparse)
     light = dyn.reshape(E, -1)
     want = np.rint(light[:, 2]).astype(np.int32)
-    if not np.array_equal(res[2], want):
+    if not stall_ok and not np.array_equal(res[2], want):
         raise AssertionError(f"place_bulk_batch {label}: placed "
                              f"{res[2].tolist()} of {want.tolist()}")
     if exact and host_check:
@@ -1001,6 +1007,72 @@ def select_k4_inputs(seed, n_rows, n_nodes, counts, desired=None,
             DELTA_BUCKET)
 
 
+# the runaway guard of the NaN cases: on the card a fitting row's NaN
+# score is +NaN, which lax.top_k's order ranks above every score, so a
+# tie wave is empty and an eval runs to max_waves
+NAN_WAVES = 40
+
+
+def select_odd_inputs(kind, seed, n_rows, n_nodes, spread):
+    """K1 inputs with fitting rows that score NaN or -inf (ops/place.py
+    bulk_wave_allocs, ROADMAP queue C): "NaN at m = 1" three rows at +inf
+    capacity and usage (NaN at every m); "NaN at m = 2" cpu demands of
+    1e38 on capacities of the largest f32, three rows at +inf capacity
+    and 2e38 usage (finite at m = 1, NaN at m = 2, and at m = 1 once they
+    took an instance); either NaN at m = 2 makes s* NaN, so every wave is
+    a tie wave.  "-inf": an affinity of -inf on every node, so every
+    fitting row scores -inf, with nodes at full usage (which do not fit
+    and score -inf too) before and among them: the tie set at -inf is
+    the fitting rows.  Count 40, max_waves NAN_WAVES."""
+    rng = np.random.default_rng(seed)
+    a = bulk_inputs(seed, True, n_rows, n_nodes)
+    rows = [0, n_nodes // 2, n_nodes - 1]
+    if kind == "NaN at m = 1":
+        a["cap"][rows, 0] = a["used"][rows, 0] = np.inf
+    elif kind == "-inf":
+        full = [0, 1, 3, n_nodes // 2]
+        a["used"][full, :2] = a["cap"][full, :2]
+        a["aff"][:] = -np.inf
+        a["has_aff"] = True
+    else:
+        a["demand"][0] = 1e38
+        a["cap"][:n_nodes, 0] = np.finfo(np.float32).max
+        a["used"][:n_nodes, 0] = rng.choice(
+            np.float32([0.0, 0.5e38, 1e38]), n_nodes)
+        a["cap"][rows, 0], a["used"][rows, 0] = np.inf, 2e38
+    a.update(spread=spread, count=40, desired=40, max_waves=NAN_WAVES)
+    return a
+
+
+def check_bulk_odd():
+    """K1 and K4 bit-equal to their plain versions on fitting rows that
+    score NaN or -inf (select_odd_inputs, binpack and spread, at 10,000
+    and 16,384 rows), each also under every seed of JITTER_SEEDS: the
+    wave's top-2 in lax.top_k's order (the card's +NaN first), s* NaN
+    where a fitting m = 2 score is, and the tie set of the fitting rows
+    at a top score of -inf."""
+    from nomad_tpu_torch.ops import place as tp
+    for n_rows, n_nodes in SELECT_WORLDS[:2]:
+        for kind in ("NaN at m = 1", "NaN at m = 2", "-inf"):
+            for spread in (False, True):
+                a = select_odd_inputs(kind, 46, n_rows, n_nodes, spread)
+                how = "spread" if spread else "binpack"
+                check_bulk(a, f"{kind} {how} N={n_rows}", kind == "-inf",
+                           jitter=True, stall_ok=kind != "-inf")
+            a = select_odd_inputs(kind, 47, n_rows, n_nodes, False)
+            heavy = np.stack([tp.pack_bulk_heavy(a["feas"], a["aff"],
+                                                 a["pen"], a["coll"])] * 4)
+            dyn = np.concatenate([
+                tp.pack_bulk_light(a["has_aff"], max(c, 1), c, a["demand"],
+                                   [], n_rows, DELTA_BUCKET)
+                for c in (30, 0, 12, 25)])
+            _batch_bulk_case(
+                f"{kind}, E=4 counts 30/0/12/25, dense, exact carry",
+                (a["cap"], a["used"], heavy, dyn, DELTA_BUCKET), False, True,
+                16, host_check=False, jitter=True, max_waves=NAN_WAVES,
+                stall_ok=kind != "-inf")
+
+
 def check_bulk_select():
     """K1 and K4 bit-equal to their plain versions on each path of the
     kernels' selection (select_k1_inputs, select_k4_inputs), at 10,000,
@@ -1042,6 +1114,63 @@ def check_bulk_select():
             "E=17 C2M chain with deltas and a count-0 pad, sparse, exact "
             "carry", batch_bulk_inputs(45, 16, n_rows, n_nodes), True, True,
             fg, jitter=True)
+
+
+def _turns(label, new, kname, on_parent):
+    """new() against the parent's (new() inside `on_parent()`) in turns
+    (parent, new, new, parent): outputs equal, then the CUDA-event time of
+    the call and the kernel alone (profiler, kernels named `kname`)."""
+    with on_parent():
+        want = new()
+    got = new()
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for k, (a, b) in enumerate(zip(want, got)):
+        _same(f"turns {label} output {k} (parent vs new)",
+              a.cpu().numpy(), b.cpu().numpy())
+    ev, alone = {}, {}
+    for turn in ("parent", "new", "new", "parent"):
+        with on_parent() if turn == "parent" else contextlib.nullcontext():
+            ev.setdefault(turn, []).append(time_cuda(new, reps=5))
+            alone.setdefault(turn, []).append(kernel_device_ms(new, kname,
+                                                               n=5))
+    fmt = lambda v: "/".join(f"{t:.4f}" for t in v)  # noqa: E731
+    log(f"kernels: turns {label}: events parent {fmt(ev['parent'])} new "
+        f"{fmt(ev['new'])} ms; alone parent {fmt(alone['parent'])} new "
+        f"{fmt(alone['new'])} ms")
+
+
+def bulk_turns():
+    """K1 and K4 against the parent tree's (PARENT_TREE) in turns: K1 on
+    the C2M group at N_ROWS rows, K4 on the bench spine's longest chain
+    (BENCH_CHAIN groups with deltas, sparse, no exact carry), outputs
+    equal: what ranking the wave's top-2 by orderable keys, the NaN s*
+    and the NOFIT slots cost.  Logs that it skipped where there is no
+    parent tree or its entry points take other arguments."""
+    import torch
+    from nomad_tpu_torch.ops import _build
+    from nomad_tpu_torch.ops import place as tp
+    pb = _parent_build()
+    if pb is None:
+        log(f"kernels: K1/K4 turns against the parent skipped (no tree "
+            f"under {PARENT_TREE})")
+        return
+    if pb._ARGTYPES["place_bulk"] != _build._ARGTYPES["place_bulk"]:
+        log("kernels: K1/K4 turns against the parent skipped (its entry "
+            "points take other arguments)")
+        return
+    lib = pb.load("place_bulk")
+    on_parent = lambda: _kernels_from("place_bulk", lib)  # noqa: E731
+    _turns(f"place_bulk C2M group N={N_ROWS}",
+           _bulk_call(tp.place_bulk, bulk_inputs(1, main_path=True),
+                      torch.device("cuda")), "place_bulk_kernel", on_parent)
+    t = lambda x: torch.from_numpy(np.array(x)).cuda()   # noqa: E731
+    chain = batch_bulk_inputs(15, BENCH_CHAIN - 1)
+    args = tuple(t(x) for x in chain[:4]) + (chain[4],)
+    _turns(f"place_bulk_batch E={BENCH_CHAIN} bench chain, sparse",
+           lambda: tp.place_bulk_batch(*args, sparse_out=True,
+                                       fill_grid=tp.fill_grid_for(10)),
+           "place_bulk_batch_kernel", on_parent)
 
 
 # the longest chain the bench's spine gives one K4 launch: the engine's
@@ -1654,6 +1783,32 @@ def _compare_any(name, got, ref):
     return err, bool(np.array_equal(got.view(np.uint32), ref.view(np.uint32)))
 
 
+def _stage_work(n, M, run, R=4):
+    """({unit: bytes}, {unit: float ops}) of each K8 unit at n rows and
+    fill grid M, given K8d's runs (the cells K8d and K8f evaluate)."""
+    extra_cells = int(np.minimum(run.cpu().numpy() + 1, M).sum()) - n
+    f4 = 4
+    nbytes = {
+        "stage_feasibility": n * R * f4 * 2 + R * f4 + n + M * f4
+        + n * M * R * f4 + n * M,
+        "stage_fit": n * 2 * f4 + n * M * 2 * f4 + n * M * f4,
+        "stage_score": n * M * f4 + n * 3 * f4 + M * f4 + n * M * f4,
+        "stage_argmax": (n + extra_cells) * (1 + f4) + M * f4 + n * 2 * f4,
+        "stage_scatter": n * 2 * f4 + n * R * f4 * 2 + R * f4 + n * f4 * 2
+        + f4,
+        "stage_fused_wave": n * R * f4 * 3 + R * f4 + n + n * f4 * 4 + f4,
+    }
+    ops = {
+        "stage_feasibility": n * M * 3 * R,
+        "stage_fit": n * M * OPS_FIT,
+        "stage_score": n * M * OPS_SCORE,
+        "stage_argmax": 0,
+        "stage_scatter": n * (2 * R + 1),
+        "stage_fused_wave": (n + extra_cells) * OPS_PER_CELL,
+    }
+    return nbytes, ops
+
+
 def check_stage_probe():
     """K8a-K8f against their plain versions on the card at the bench's
     shape (N = 10,000 unpadded rows, M = fill_grid_for(10) = 16, R = 4;
@@ -1661,8 +1816,9 @@ def check_stage_probe():
     chain's outputs of the stages before it), integers and bools equal,
     floats within the tests' tolerances (the log says whether they are
     bit-equal); the fused wave (K8f) equal to the K8a->K8e kernel chain
-    in used2, coll2 and placed.  CUDA-event times beside the plain
-    versions' and the bounds."""
+    in used2, coll2 and placed.  CUDA-event times beside the kernel alone
+    (profiler), the wrapper's host time a call, the plain versions'
+    times and the bounds."""
     import torch
     from nomad_tpu_torch.ops import stage_probe as sp
     from nomad_tpu_torch.parallel import stage_probe as psp
@@ -1688,27 +1844,7 @@ def check_stage_probe():
                                       x["coll"])),
         "stage_fused_wave": ("fused_wave", fused_args),
     }
-    runs = run.cpu().numpy()
-    extra_cells = int(np.minimum(runs + 1, M).sum()) - n
-    f4 = 4
-    nbytes = {
-        "stage_feasibility": n * R * f4 * 2 + R * f4 + n + M * f4
-        + n * M * R * f4 + n * M,
-        "stage_fit": n * 2 * f4 + n * M * 2 * f4 + n * M * f4,
-        "stage_score": n * M * f4 + n * 3 * f4 + M * f4 + n * M * f4,
-        "stage_argmax": (n + extra_cells) * (1 + f4) + M * f4 + n * 2 * f4,
-        "stage_scatter": n * 2 * f4 + n * R * f4 * 2 + R * f4 + n * f4 * 2
-        + f4,
-        "stage_fused_wave": n * R * f4 * 3 + R * f4 + n + n * f4 * 4 + f4,
-    }
-    ops = {
-        "stage_feasibility": n * M * 3 * R,
-        "stage_fit": n * M * OPS_FIT,
-        "stage_score": n * M * OPS_SCORE,
-        "stage_argmax": 0,
-        "stage_scatter": n * (2 * R + 1),
-        "stage_fused_wave": (n + extra_cells) * OPS_PER_CELL,
-    }
+    nbytes, ops = _stage_work(n, M, run)
     entries = {}
     for name, (fn, args) in calls.items():
         kern = lambda fn=fn, args=args: getattr(sp, fn)(*args)
@@ -1725,10 +1861,12 @@ def check_stage_probe():
         p_ms = time_cuda(plain)
         bound, by = _bound(nbytes[name], ops[name])
         alone = kernel_device_ms(kern, STAGE_KERNELS[name])
+        host = host_us(kern, n=500)
         log(f"kernels: {name} N={n} M={M}: integers equal, floats "
             f"{'bit-equal' if bits else f'max |err| {err:.3g}'}; kernel "
-            f"{k_ms:.4f} ms (alone {alone:.4f} ms), plain {p_ms:.4f} ms, "
-            f"bound {bound:.6f} ms ({by})")
+            f"{k_ms:.4f} ms (alone {alone:.4f} ms, wrapper's host time "
+            f"{host:.2f} us a call), plain {p_ms:.4f} ms, bound "
+            f"{bound:.6f} ms ({by})")
         jax_fn, replaces = STAGE_UNITS[name]
         entries[name] = dict(
             name=name, route="cuda",
@@ -1819,8 +1957,10 @@ def check_stage_cases():
     (a best row scoring -inf, NaN scores at m = 1 and past it, no row
     fitting, every row tied, two rows, a count above every run), M = 16
     and 64: every output bit-equal (NaN against NaN), K8f's equal to the
-    K8a->K8e kernel chain's, and K8d and K8f again under each of
-    STAGE_JITTER_SEEDS of the delays at their cluster exchanges."""
+    K8a->K8e kernel chain's, K8e also on a random permutation of the rows
+    (its contract: any permutation), and K8a, K8d, K8e (on both orders)
+    and K8f again under each of STAGE_JITTER_SEEDS of the delays at the
+    cluster exchanges."""
     import torch
     from nomad_tpu_torch.ops import stage_probe as sp
     from nomad_tpu_torch.parallel import stage_probe as psp
@@ -1854,16 +1994,40 @@ def check_stage_cases():
                  (got["fused_used2"], got["fused_coll2"],
                   got["fused_placed"].reshape(())), kernel="stage_probe",
                  seeds=STAGE_JITTER_SEEDS)
+        jittered(f"stage probe {label}: K8a",
+                 lambda: sp.feasibility(x["capacity"], x["used"],
+                                        x["demand"], x["feasible"], x["ms"]),
+                 (got["util_m"], got["fits_m"]), kernel="stage_probe",
+                 seeds=STAGE_JITTER_SEEDS)
+        # K8e on K8d's order and on a random permutation of the rows
+        n = x["capacity"].shape[0]
+        perm = torch.from_numpy(np.random.default_rng(n).permutation(n)
+                                .astype(np.int32)).cuda()
+        run = torch.from_numpy(got["run"]).cuda()
+        for what, order in (("K8d's order", torch.from_numpy(
+                got["order"]).cuda()), ("a random permutation", perm)):
+            sc = (run, order, x["count"], x["used"], x["demand"], x["coll"])
+            k_out = sp.scatter(*sc)
+            p_out = sp.scatter_plain(*sc)
+            torch.cuda.synchronize()
+            for k, (a, b) in enumerate(zip(k_out, p_out)):
+                _same(f"stage probe {label}: K8e on {what} output {k}",
+                      a.cpu().numpy(), b.cpu().numpy())
+            jittered(f"stage probe {label}: K8e on {what}",
+                     lambda sc=sc: sp.scatter(*sc),
+                     [t.cpu().numpy() for t in k_out], kernel="stage_probe",
+                     seeds=STAGE_JITTER_SEEDS)
         nw = int((want["order"] != np.arange(want["order"].size)).sum())
         log(f"kernels: stage probe {label}: K8a-K8f bit-equal to their "
-            f"plain versions, K8f to the K8a->K8e chain, K8d/K8f also under "
+            f"plain versions, K8f to the K8a->K8e chain, K8e also on a "
+            f"random permutation, K8a/K8d/K8e/K8f also under "
             f"{len(STAGE_JITTER_SEEDS)} seeds of the delays; placed "
             f"{int(want['placed'][0])} of {x['count']}, {nw} rows out of "
             f"row order")
 
 
 # where a tree of the parent commit may be unpacked (`git archive`) to
-# time its K8d/K8f beside this tree's in the same run
+# time its stage-probe kernels beside this tree's in the same run
 PARENT_TREE = "smoke_archive/parent"
 
 
@@ -1883,81 +2047,66 @@ def _parent_build():
     return mod
 
 
-def _sort_argtypes():
-    """K8d's and K8f's C entry points where they sorted in one block:
-    K8d with a u64 key scratch, K8f with an i32[3, N] scratch and the
-    key scratch (both NULL up to 16,384 rows), before the stream."""
+def _scratch_scatter_argtypes():
+    """K8e's C entry point where it ran on one block with an i32[N]
+    per-row scratch before the stream (the parent's form)."""
     import ctypes
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return {"argmax_launch": [P, P, P, I, I, P, P, P, P],
-            "fused_wave_launch": [P, P, P, P, P, I, F, P, P, I, I, I]
-            + [P] * 6}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return [P, P, I, P, P, P, I] + [P] * 5
 
 
 @contextlib.contextmanager
-def _stage_probe_from(lib):
-    """This tree's stage-probe wrappers launching on `lib` while the
-    block runs (they look up `_build.load` at every launch)."""
+def _kernels_from(kernel, lib):
+    """This tree's wrappers of kernel source `kernel` launching on `lib`
+    while the block runs (they look up `_build.load` at every launch)."""
     from nomad_tpu_torch.ops import _build
     load = _build.load
-    _build.load = lambda name: lib if name == "stage_probe" else load(name)
+    _build.load = lambda name: lib if name == kernel else load(name)
     try:
         yield
     finally:
         _build.load = load
 
 
-def _sorting_parent(lib, x, fits_m, score_m):
-    """Calls of a parent's K8d and K8f that take the one-block sort's
-    scratch (_sort_argtypes), on the probe's inputs `x`."""
+def _scratch_scatter(lib, run, order, count, used, demand, coll):
+    """A call of a parent's one-block K8e (_scratch_scatter_argtypes)."""
     import ctypes
     import torch
-    n, M = x["capacity"].shape[0], x["fill_grid"]
-    vp = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa
-    stream = lambda: ctypes.c_void_p(  # noqa: E731
-        torch.cuda.current_stream().cuda_stream)
-    p = 2
-    while p < n:
-        p *= 2
-    keys = torch.empty(p, dtype=torch.int64, device="cuda") \
-        if n > 16384 else None
-    run = torch.empty(n, dtype=torch.int32, device="cuda")
-    order = torch.empty_like(run)
-    used2 = torch.empty_like(x["used"])
-    coll2 = torch.empty_like(run)
-    placed = torch.empty((), dtype=torch.int32, device="cuda")
-    scratch = torch.empty((3, n), dtype=torch.int32, device="cuda")
+    n = used.shape[0]
+    vp = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    used2 = torch.empty_like(used)
+    coll2 = torch.empty_like(coll)
+    placed = torch.empty((), dtype=torch.int32, device=used.device)
+    scratch = torch.empty(n, dtype=torch.int32, device=used.device)
 
-    def argmax():
-        if lib.argmax_launch(vp(fits_m), vp(score_m), vp(x["ms"]), n, M,
-                             vp(run), vp(order), vp(keys), stream()):
-            raise RuntimeError("parent argmax launch failed")
-        return run, order
-
-    def fused():
-        if lib.fused_wave_launch(
-                vp(x["capacity"]), vp(x["used"]), vp(x["demand"]),
-                vp(x["feasible"]), vp(x["affinity"]), 1,
-                float(x["desired_f"]), vp(x["penalty"]), vp(x["coll"]),
-                int(x["count"]), M, n, vp(used2), vp(coll2), vp(placed),
-                vp(scratch), vp(keys), stream()):
-            raise RuntimeError("parent fused_wave launch failed")
+    def call():
+        if lib.scatter_launch(
+                vp(run), vp(order), int(count), vp(used), vp(demand),
+                vp(coll), n, vp(used2), vp(coll2), vp(placed), vp(scratch),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)):
+            raise RuntimeError("parent scatter launch failed")
         return used2, coll2, placed
+    return call
 
-    return argmax, fused
+
+# the stage-probe units timed against the parent, by C entry point
+TURN_UNITS = {"stage_feasibility": "feasibility_launch",
+              "stage_argmax": "argmax_launch",
+              "stage_scatter": "scatter_launch",
+              "stage_fused_wave": "fused_wave_launch"}
 
 
 def stage_turns():
-    """K8d and K8f against the parent tree's in turns (parent, new, new,
-    parent), each on the probe's inputs at STAGE_SHAPES: the CUDA-event
-    time of the wrapper call and the kernel alone (profiler), ms.  The
-    parent's library is built and bound by the parent's own ops/_build.py.
-    Where its entry points take this tree's arguments, this tree's
-    wrappers launch on it; where they take the one-block sort's scratch
-    (_sort_argtypes), the calls pass that scratch.  The parent's outputs
-    must equal the new ones.  Logs that it skipped where PARENT_TREE
-    holds no tree, or where the parent's entry points take other
-    arguments."""
+    """K8a, K8d, K8e and K8f against the parent tree's in turns (parent,
+    new, new, parent), each on the probe's inputs at STAGE_SHAPES (K8e on
+    K8d's order): the CUDA-event time of the wrapper call and the kernel
+    alone (profiler), ms, beside the unit's bound at that shape.  The parent's library is built and bound by the
+    parent's own ops/_build.py.  Where a parent entry point takes this
+    tree's arguments, this tree's wrapper launches on it; where its K8e
+    takes the one-block scratch (_scratch_scatter_argtypes) the call
+    passes one.  The parent's outputs must equal the new ones.  Logs that
+    it skipped a unit whose parent entry point takes other arguments, or
+    every unit where PARENT_TREE holds no tree."""
     import torch
     from nomad_tpu_torch.ops import _build
     from nomad_tpu_torch.ops import stage_probe as sp
@@ -1967,54 +2116,59 @@ def stage_turns():
         log(f"kernels: stage probe turns against the parent skipped (no "
             f"tree under {PARENT_TREE})")
         return
-    entries = ("argmax_launch", "fused_wave_launch")
     theirs = pb._ARGTYPES["stage_probe"]
-    if all(theirs.get(e) == _build._ARGTYPES["stage_probe"][e]
-           for e in entries):
-        sorting = False
-    elif all(theirs.get(e) == _sort_argtypes()[e] for e in entries):
-        sorting = True
-    else:
-        log("kernels: stage probe turns against the parent skipped (its "
-            "argmax_launch and fused_wave_launch take other arguments)")
-        return
+    ours = _build._ARGTYPES["stage_probe"]
     lib = pb.load("stage_probe")
     for n, M in STAGE_SHAPES:
         x = psp.probe_inputs(n, fill_grid=M, device="cuda")
-        util_m, fits_m = sp.feasibility(x["capacity"], x["used"],
-                                        x["demand"], x["feasible"], x["ms"])
+        args = (x["capacity"], x["used"], x["demand"], x["feasible"], x["ms"])
+        util_m, fits_m = sp.feasibility(*args)
         score_m = sp.score(sp.fit(x["capacity"], util_m), x["coll"],
                            x["ms"], x["desired_f"], x["penalty"],
                            x["affinity"], x["has_affinity"])
+        run, order = sp.argmax(fits_m, score_m, x["ms"])
+        sc_args = (run, order, x["count"], x["used"], x["demand"], x["coll"])
+        nbytes, ops = _stage_work(n, M, run)
         units = {
+            "stage_feasibility": lambda: sp.feasibility(*args),
             "stage_argmax": lambda: sp.argmax(fits_m, score_m, x["ms"]),
+            "stage_scatter": lambda: sp.scatter(*sc_args),
             "stage_fused_wave": lambda: sp.fused_wave(*_fused_args(x)),
         }
-        if sorting:
-            old = dict(zip(units, _sorting_parent(lib, x, fits_m, score_m)))
-            on_parent = contextlib.nullcontext
-        else:
-            old = units
-            on_parent = lambda: _stage_probe_from(lib)  # noqa: E731
         for name, cur in units.items():
+            entry = TURN_UNITS[name]
+            if theirs.get(entry) == ours[entry]:
+                old = cur
+                on_parent = lambda: _kernels_from("stage_probe",  # noqa
+                                                  lib)
+            elif entry == "scatter_launch" and \
+                    theirs.get(entry) == _scratch_scatter_argtypes():
+                old = _scratch_scatter(lib, *sc_args)
+                on_parent = contextlib.nullcontext
+            else:
+                log(f"kernels: turns {name} against the parent skipped (its "
+                    f"{entry} takes other arguments)")
+                continue
             with on_parent():
-                want = [t.cpu().numpy() for t in old[name]()]
+                want = [t.cpu().numpy() for t in old()]
             for k, (a, b) in enumerate(zip(want, cur())):
                 _same(f"turns {name} N={n} M={M} output {k} (parent vs new)",
                       a, b.cpu().numpy())
             kname = STAGE_KERNELS[name]
             ev, alone = {}, {}
             for turn in ("parent", "new", "new", "parent"):
-                fn = old[name] if turn == "parent" else cur
+                fn = old if turn == "parent" else cur
                 with on_parent() if turn == "parent" \
                         else contextlib.nullcontext():
                     ev.setdefault(turn, []).append(time_cuda(fn))
                     alone.setdefault(turn, []).append(
                         kernel_device_ms(fn, kname))
             fmt = lambda v: "/".join(f"{t:.4f}" for t in v)  # noqa: E731
+            bound, by = _bound(nbytes[name], ops[name])
             log(f"kernels: turns {name} N={n} M={M}: events parent "
                 f"{fmt(ev['parent'])} new {fmt(ev['new'])} ms; alone parent "
-                f"{fmt(alone['parent'])} new {fmt(alone['new'])} ms")
+                f"{fmt(alone['parent'])} new {fmt(alone['new'])} ms; bound "
+                f"{bound:.6f} ms ({by})")
 
 
 # --------------------------------------------------------------- the slice
@@ -3122,7 +3276,7 @@ def _state_of(name, args):
         extra = [args[3], args[4]] if name == "bulk_stats" else \
             [args[2], args[3], args[4]]
         return [sh.used, sh.exact, sh.delta, sh.coll, sh.assign, sh.scores,
-                sh.partial, sh.state] + extra
+                sh.partial, sh.state, sh.fits] + extra
     return list(args)                          # bulk_counts, basis_merge
 
 
@@ -4058,7 +4212,8 @@ def check_signed_zero_order(n_rows=N_ROWS, n_shards=4, dev="cuda"):
     gathered scores tie +0.0 and -0.0 (the order word of -cur + 0.0), at
     `remaining` 1, 17, 700 and 5,000 (two selection rounds), every state
     tensor bit for bit but the tail's scores (the tail reuses the scores
-    K7c wrote for the shard's rows; these are made up)."""
+    and fits K7c wrote for the shard's rows; these are made up: every row
+    fits at its gathered score)."""
     import torch
     from nomad_tpu_torch.ops import sharded as k7
     rng = np.random.default_rng(5)
@@ -4089,7 +4244,9 @@ def check_signed_zero_order(n_rows=N_ROWS, n_shards=4, dev="cuda"):
                     delta_rows=None, delta_vals=None,
                     assign=z(1, n, t=torch.int32), scores=z(1, n),
                     partial=z(1, 4, t=torch.int32),
-                    state=z(4, t=torch.int32)).check()
+                    state=z(4, t=torch.int32),
+                    fits=torch.ones(n, dtype=torch.bool,
+                                    device=dev)).check()
                 fn(sh, 0, stats, cur, base, False, 1000)
                 outs.append([t.cpu().numpy() for t in (
                     sh.used, sh.coll, sh.assign, sh.state, sh.partial,

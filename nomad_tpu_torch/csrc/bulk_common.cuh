@@ -115,21 +115,9 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// (a, b) = the two largest values of a multiset, a >= b
-__device__ __forceinline__ void top2_merge(float& a, float& b, float oa, float ob) {
-  float na = fmaxf(a, oa);
-  float nb = fmaxf(fminf(a, oa), fmaxf(b, ob));
-  a = na;
-  b = nb;
-}
-
-// a thread's running top-2 (lax.top_k(x, 2) values: duplicates count)
-__device__ __forceinline__ void top2_push(float& a, float& b, float v) {
-  if (v >= a) { b = a; a = v; } else if (v > b) { b = v; }
-}
-
-// The same over orderable keys: lax.top_k's total order, where a NaN
-// ranks by its sign (ops/place.py _lax_top_k).  Start from (0, 0), below
+// A thread's running top-2 (lax.top_k(x, 2) values: duplicates count)
+// over orderable keys: lax.top_k's total order, where a NaN ranks by its
+// sign (ops/place.py _lax_top_k).  Start from (0, 0), below
 // every key but the lowest -NaN's, which equals it.
 __device__ __forceinline__ void key_top2_push(unsigned& a, unsigned& b,
                                               unsigned k) {
@@ -147,28 +135,9 @@ __device__ __forceinline__ void warp_key_top2(unsigned& a, unsigned& b) {
   }
 }
 
-__device__ __forceinline__ void warp_top2(float& a, float& b) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float oa = __shfl_xor_sync(0xffffffffu, a, o);
-    float ob = __shfl_xor_sync(0xffffffffu, b, o);
-    top2_merge(a, b, oa, ob);
-  }
-}
-
-// Block-wide reductions; every thread returns the result.  The trailing
-// barrier lets the scratch be reused by the next call.
-__device__ int block_sum(int v, int* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  int r = warp_sum(sh[lane]);
-  __syncthreads();
-  return r;
-}
-
-// Exclusive prefix sum over the block's threads; *total gets the sum.
+// Exclusive prefix sum over the block's threads; *total gets the sum;
+// every thread returns its prefix.  The trailing barrier lets the
+// scratch be reused by the next call.
 __device__ int block_exclusive_scan(int v, int* sh, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x = v;

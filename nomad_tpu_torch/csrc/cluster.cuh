@@ -2,7 +2,7 @@
 // of one cluster through cudaLaunchKernelEx, the cluster barrier in two
 // halves, and the random delays that stand in for a race checker.
 // Included by place_bulk.cu (K1, K4), place_scan.cu (K2, K3), sharded.cu
-// (K7a, K7c) and stage_probe.cu (K8d, K8f); each source builds into its
+// (K7a, K7c) and stage_probe.cu (K8d, K8e, K8f); each source builds into its
 // own library, so the delays' seed and switch are each library's own.
 //
 // The delays: compute-sanitizer's racecheck and synccheck do not run on

@@ -90,7 +90,10 @@
 // -(coll+1)/max(desired,1), total/n_scorers), so each row's scores are
 // the plain version's bit for bit.  fit/18 is a multiply by the f32
 // reciprocal 1.0f/18.0f, which is what XLA compiles the reference's
-// division by that constant into.
+// division by that constant into.  The wave's top-2 ranks in lax.top_k's
+// total order (orderable keys: a NaN by its sign, the card's +NaN above
+// +inf, so a fitting row that scores NaN leaves the tie set empty), and
+// s* is NaN where a fitting m = 2 score is, as jnp.max propagates it.
 
 #include <cooperative_groups.h>
 
@@ -113,6 +116,20 @@ static_assert(NW == 32, "one warp reads the block's warp records");
 static_assert(CLUSTER <= 32, "one warp reads the cluster's slots");
 
 using Row = BulkRow;
+
+// A row's score slot holds its wave-start score where it fits, else
+// NOFIT: a fitting row may score -inf (an affinity of -inf), and the tie
+// set at a top score of -inf holds the fitting rows only.  NOFIT is a NaN
+// that the card's arithmetic never gives (its NaN results are
+// 0x7fffffff), so every comparison with it is false and no wave takes
+// the row; the tail reads it as -inf and as a row that did not fit.
+constexpr unsigned NOFIT_BITS = 0xffc00001u;
+__device__ __forceinline__ float nofit() {
+  return __uint_as_float(NOFIT_BITS);
+}
+__device__ __forceinline__ bool is_nofit(float v) {
+  return __float_as_uint(v) == NOFIT_BITS;
+}
 
 // K1's node fields, as the wrapper passes them
 struct K1Fields {
@@ -141,7 +158,8 @@ struct K4Fields {
 // written again only after the next exchange's barrier, by which time
 // every block has read it).
 struct Xch {
-  float a, b, smax;   // the block's top-2 scores, its best m = 2 score
+  float a, smax;      // the block's best cur and m = 2 score (not NaN)
+  unsigned ka, kb;    // the block's top-2 keys of cur (lax.top_k's order)
   int v[4];           // counts of one exchange
   unsigned hist[256];
 };
@@ -151,11 +169,12 @@ __device__ __forceinline__ void maxcount(float& a, int& c, float ya, int yc) {
   if (ya > a) { a = ya; c = yc; } else if (ya == a) { c += yc; }
 }
 
-// A warp's partial of the row pass: (max, rows at it) scanned, top-2,
-// best m = 2 score, fitting rows.
+// A warp's partial of the row pass: (max, rows at it) scanned, the
+// top-2 keys, the best m = 2 score and whether one is NaN, fitting rows.
 struct WarpRec {
-  float a, b, smax;
-  int c, fit;
+  float a, smax;
+  unsigned ka, kb;
+  int c, fit, snan;
 };
 
 struct Shared {
@@ -243,7 +262,7 @@ __device__ __forceinline__ unsigned long long key_of(unsigned word, int row) {
 
 // Everything one eval's wavefront reads and writes.  Rows [lo, hi) are
 // this block's; thread t's slice is [lo + t*rpt, lo + (t+1)*rpt), and
-// its i-th row's wave-start score and instances taken sit at
+// its i-th row's wave-start score (or NOFIT) and instances taken sit at
 // slot i*cs_i + t*cs_t of cur / asg.  A row's co-placements are its
 // field's value plus the instances it took.
 template <class F, bool J>
@@ -306,27 +325,32 @@ __device__ __forceinline__ void canonicalize(Ctx<F, J>& c, Row& r, int i,
   }
 }
 
-// The wave's top-2 scores (lax.top_k: duplicates count), s*, fitting
-// rows, and the rows at top1: in the cluster (n_top), in the blocks
-// ranked before this one (top_off), in this block's slices before this
-// thread's (top_pre), in this thread's slice (top_mine) and in this
-// block (top_blk).
+// The wave's top-2 scores (lax.top_k's total order, where a NaN ranks by
+// its sign; duplicates count), s* (NaN where a fitting m = 2 score is
+// NaN, as jnp.max gives it), the largest cur that is not NaN (cmax: some
+// row beats s* where it does), fitting rows, and the rows at top1: in
+// the cluster (n_top), in the blocks ranked before this one (top_off), in
+// this block's slices before this thread's (top_pre), in this thread's
+// slice (top_mine) and in this block (top_blk).  A NaN top1 has no row
+// at it: the tie set is empty.
 struct WaveStats {
-  float top1, top2, s_star;
+  float top1, top2, s_star, cmax;
   int any_fit;
   int n_top, top_off, top_pre, top_mine, top_blk;
 };
 
 // The wave's row pass: every row's m = 1 score (cur, -inf where it no
-// longer fits) and m = 2 score, then the cluster's top-2, s*, fitting
-// rows and the rows at the top score with their row-order offsets.
+// longer fits; its slot NOFIT) and m = 2 score, then the cluster's top-2,
+// s*, fitting rows and the fitting rows at the top score with their
+// row-order offsets.
 template <class F, bool J>
 __device__ void row_pass(Ctx<F, J>& c, cg::cluster_group& cl,
                          WaveStats& ws) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float a = -INFINITY, b = -INFINITY, smax = -INFINITY;
+  unsigned ka = 0u, kb = 0u;
+  float smax = -INFINITY;
   float ma = -INFINITY;
-  int mc = 0, fit = 0, nf = 0, nx = 0;
+  int mc = 0, fit = 0, snan = 0, nf = 0, nx = 0;
   const int r0 = c.slice_lo(), r1 = c.slice_hi();
   jitter<J>(4);
   for (int row = r0, i = 0; row < r1; ++row, ++i) {
@@ -338,10 +362,13 @@ __device__ void row_pass(Ctx<F, J>& c, cg::cluster_group& cl,
     grid_cell(r, c.dem, 1.0f, c.desired_div, c.spread, &f1, &s1);
     grid_cell(r, c.dem, 2.0f, c.desired_div, c.spread, &f2, &s2);
     const float cur = f1 ? s1 : -INFINITY;
-    c.cur[c.slot(i)] = cur;
-    top2_push(a, b, cur);
-    maxcount(ma, mc, cur, 1);
-    if (f2) smax = fmaxf(smax, s2);
+    c.cur[c.slot(i)] = f1 ? s1 : nofit();
+    key_top2_push(ka, kb, orderable(cur));
+    maxcount(ma, mc, cur, f1 ? 1 : 0);  // passes over a NaN
+    if (f2) {
+      if (isnan(s2)) snan = 1;
+      else smax = fmaxf(smax, s2);
+    }
     fit |= f1 ? 1 : 0;
     nf += r.feas ? 1 : 0;
     nx += (r.feas && !f1) ? 1 : 0;
@@ -359,20 +386,22 @@ __device__ void row_pass(Ctx<F, J>& c, cg::cluster_group& cl,
     const int yc = __shfl_up_sync(FULL, sc, o);
     if (lane >= o) maxcount(sa, sc, ya, yc);
   }
-  warp_top2(a, b);
+  warp_key_top2(ka, kb);
   smax = warp_max(smax);
   fit = warp_sum(fit);
+  snan = __any_sync(FULL, snan != 0) ? 1 : 0;
   WarpRec* rec = c.sm->rec[c.sp];
   c.sp ^= 1;
   jitter<J>(5);
-  if (lane == 31) rec[warp] = WarpRec{sa, b, smax, sc, fit};
+  if (lane == 31) rec[warp] = WarpRec{sa, smax, ka, kb, sc, fit, snan};
   __syncthreads();
   jitter<J>(6);
   const WarpRec w = rec[lane];
-  float wa = w.a, wb = w.b;
-  warp_top2(wa, wb);
-  const float blk_b = wb, blk_smax = warp_max(w.smax);
+  unsigned wka = w.ka, wkb = w.kb;
+  warp_key_top2(wka, wkb);
+  const float blk_smax = warp_max(w.smax);
   const int blk_fit = warp_sum(w.fit);
+  const int blk_snan = __any_sync(FULL, w.snan != 0) ? 1 : 0;
   float ia = w.a;
   int ic = w.c;
 #pragma unroll
@@ -397,29 +426,36 @@ __device__ void row_pass(Ctx<F, J>& c, cg::cluster_group& cl,
   jitter<J>(7);
   if (tid == 0) {
     x->a = blk_a;
-    x->b = blk_b;
     x->smax = blk_smax;
+    x->ka = wka;
+    x->kb = wkb;
     x->v[0] = blk_fit;
     x->v[1] = blk_c;
+    x->v[2] = blk_snan;
   }
   cl.sync();
   const int rank = (int)cl.block_rank();
-  float ra = -INFINITY, rb = -INFINITY, rs = -INFINITY;
-  int rf = 0, rn = 0;
+  float ra = -INFINITY, rs = -INFINITY;
+  unsigned rka = 0u, rkb = 0u;
+  int rf = 0, rn = 0, rsn = 0;
   jitter<J>(8);
   if (lane < CLUSTER) {
     const Xch* rx = cl.map_shared_rank(x, lane);
     ra = rx->a;
-    rb = rx->b;
     rs = rx->smax;
+    rka = rx->ka;
+    rkb = rx->kb;
     rf = rx->v[0];
     rn = rx->v[1];
+    rsn = rx->v[2];
   }
-  float t1 = ra, t2 = rb;
-  warp_top2(t1, t2);
+  warp_key_top2(rka, rkb);
+  const float t1 = from_orderable(rka);
   ws.top1 = t1;
-  ws.top2 = t2;
-  ws.s_star = warp_max(rs);
+  ws.top2 = from_orderable(rkb);
+  ws.s_star = __any_sync(FULL, rsn != 0) ? __int_as_float(0x7fffffff)
+                                         : warp_max(rs);
+  ws.cmax = warp_max(ra);
   ws.any_fit = warp_sum(rf);
   const int at_top = (lane < CLUSTER && ra == t1) ? rn : 0;
   ws.n_top = warp_sum(at_top);
@@ -611,10 +647,11 @@ __device__ void bulk_wavefront(Ctx<F, J>& c, cg::cluster_group& cl,
     const int remaining = count - placed;
     const int run_cap = min(fill_grid, remaining);
     const float top1 = ws.top1, s_star = ws.s_star;
-    // the wave: strict rows (cur > s*) if any, else the rows at top1; k,
-    // the rows that can take instances, is min(remaining, |wave|)
+    // the wave: strict rows (cur > s*) if any (the largest cur that is
+    // not NaN beats s*), else the rows at top1; k, the rows that can take
+    // instances, is min(remaining, |wave|)
     int k;
-    if (!(top1 > s_star)) {
+    if (!(ws.cmax > s_star)) {
       k = min(remaining, ws.n_top);
     } else if (ws.n_top >= remaining) {
       k = remaining;
@@ -721,7 +758,9 @@ __device__ void bulk_tail(Ctx<F, J>& c, cg::cluster_group& cl, bool waved,
   jitter<J>(20);
   for (int row = r0, i = 0; row < r1; ++row, ++i) {
     const int asg = c.asg[c.slot(i)];
-    float score = c.cur[c.slot(i)];
+    const float cv = c.cur[c.slot(i)];
+    const bool fit = !is_nofit(cv);      // at the last row pass
+    float score = fit ? cv : -INFINITY;
     if (!waved || asg > 0) {
       Row r;
       load_row(c, r, row, asg);
@@ -730,7 +769,7 @@ __device__ void bulk_tail(Ctx<F, J>& c, cg::cluster_group& cl, bool waved,
       float s;
       grid_cell(r, c.dem, 1.0f, c.desired_div, c.spread, &f, &s);
       if (waved) {
-        nx -= (r.feas && !(score > -INFINITY)) ? 1 : 0;
+        nx -= (r.feas && !fit) ? 1 : 0;    // the row pass counted it
       } else {
         ne += r.feas ? 1 : 0;
       }

@@ -782,6 +782,7 @@ struct BulkArgs {
   float* scores;             // f32[E, ostride]
   int* partial;              // i32[E, COUNTS_W]
   int* state;                // i32[4]
+  uint8_t* fits;             // bool[n]: each row's wave-start fit (K7c)
   int n, N, off, D, ostride;
 };
 
@@ -1032,6 +1033,7 @@ bulk_stats_kernel(BulkArgs a, int e, int begin, float* __restrict__ stats,
     grid_cell(r, v.dem, 2.0f, v.desired_div, spread, &f2, &s2);
     const float cur = f1 ? s1 : -INFINITY;
     cur_g[a.off + i] = cur;
+    a.fits[i] = f1 ? 1 : 0;          // a fitting row may score -inf
     key_top2_push(p.a, p.b, orderable(cur));
     p.cmax = fmaxf(p.cmax, cur);             // fmaxf passes over a NaN
     if (f2) {
@@ -1137,7 +1139,7 @@ bulk_run_kernel(BulkArgs a, int e, const float* __restrict__ stats, int nsh,
   bool need = false;
   if (lo + tid < hi && tid < RUN_ROWS) {
     const float cur = cur_g[a.off + lo + tid];
-    const bool fits = cur > -INFINITY;
+    const bool fits = a.fits[lo + tid] != 0;
     need = g.any_fit && run_cap > 0 &&
         (g.use_strict ? (cur > g.s_star) : (fits && cur == g.gmax));
     if (!need) base_g[a.off + lo + tid] = 0;
@@ -1463,9 +1465,9 @@ __device__ unsigned radix_select(const Order& o, OrderShared& sm,
 // shared memory.  Every row of this shard gets used + alloc * demand
 // (alloc 0 off the selection), as the plain version adds on every row.
 // When the stop test ends the eval, the tail: a row that took nothing
-// and whose usage kept its bits keeps the wave-start score cur (the same
-// inputs give the same score), so only rows that took instances (and
-// feasible rows that did not fit) are scored again.
+// and whose usage kept its bits keeps the wave-start score cur and fit
+// (K7c's `fits`: the same inputs give the same score), so only rows that
+// took instances are scored again.
 __global__ void __launch_bounds__(NT, 1)
 bulk_order_kernel(BulkArgs a, int e, const float* __restrict__ stats,
                   int nsh, const float* __restrict__ cur_g,
@@ -1655,7 +1657,7 @@ bulk_order_kernel(BulkArgs a, int e, const float* __restrict__ stats,
   int ne = 0, nx = 0;
   for (int i0 = tid; i0 < a.n; i0 += NT * TCH) {
     int asg[TCH];
-    bool feas[TCH];
+    bool feas[TCH], fit[TCH];
     float s[TCH];
 #pragma unroll
     for (int q = 0; q < TCH; ++q) {
@@ -1663,14 +1665,15 @@ bulk_order_kernel(BulkArgs a, int e, const float* __restrict__ stats,
       const bool in = i < a.n;
       asg[q] = in ? v.assign[i] : 0;
       feas[q] = in && v.feas[i] != 0;
+      fit[q] = in && a.fits[i] != 0;
       s[q] = in ? cur_g[a.off + i] : 0.0f;
     }
 #pragma unroll
     for (int q = 0; q < TCH; ++q) {
       const int i = i0 + q * NT;
       if (i >= a.n) continue;
-      bool fits = feas[q];
-      if (rescore_all || asg[q] > 0 || (feas[q] && !(s[q] > -INFINITY))) {
+      bool fits = fit[q];
+      if (rescore_all || asg[q] > 0) {
         BulkRow r;
         load_row(r, a, v, i);
         grid_cell(r, v.dem, 1.0f, v.desired_div, spread, &fits, &s[q]);

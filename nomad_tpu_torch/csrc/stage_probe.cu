@@ -14,12 +14,20 @@
 // wave rows, in row order (ROADMAP queue C).
 //
 // What bounds them on this card, at the bench's shape (N = 10,000, M =
-// 16, R = 4): K8a-K8c are one thread per (row, m) cell, elementwise with
-// an R-wide reduction, and bound by bytes (K8a writes the f32[N, M, R]
-// grid, 2.6 MB; K8b reads it back).  K8e is one block (a scan in greedy
-// order).  K8d and K8f are bound by latency: a top-2 over every row, then
-// each row's run and its place in the greedy order, each step waiting on
-// the one before across all rows.  The reference's order is a stable
+// 16, R = 4): K8a-K8c are elementwise with an R-wide reduction, and
+// bound by bytes (K8a writes the f32[N, M, R] grid, 2.6 MB; K8b reads it
+// back).  K8a-K8c are one thread per (row, m) cell; K8a reads a row as
+// float4 and stores a cell's usage as one float4, so a warp's stores are
+// 512 contiguous bytes (a thread taking 4 cells of a row, its stores 64
+// bytes apart across lanes, measured slower: PERF.md).  K8e is one cluster
+// of PROBE_CLUSTER blocks over the greedy positions: one cluster scan of
+// run[order[k]] gives each position its prefix, and the thread of
+// position k writes row order[k] (a 16-byte usage row and its
+// co-placements) directly; order is a permutation, so each row is
+// written once, and no pass over the rows follows.  K8d and K8f are
+// bound by latency: a top-2 over every row, then each row's run and its
+// place in the greedy order, each step waiting on the one before across
+// all rows.  The reference's order is a stable
 // argsort of where(wave, -cur, +inf), and every wave row has cur == top1,
 // so its keys take two values: the order is a stable partition (the wave
 // rows in row order, then the others in row order), and a row's place in
@@ -51,20 +59,15 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int R = 4;              // resource dims (cpu, mem, disk, net)
-// blocks of K8d's and K8f's cluster: 16, past the portable 8 (allowed by
-// cluster_launch), measured faster than 8 at 10,000 to 131,072 rows
-// (PERF.md)
+// blocks of K8d's, K8e's and K8f's cluster: 16, past the portable 8
+// (allowed by cluster_launch), measured faster than 8 for K8d and K8f at
+// 10,000 to 131,072 rows (PERF.md)
 constexpr int PROBE_CLUSTER = 16;
-constexpr int RPT = 8;            // rows a K8f thread keeps in registers
+constexpr int RPT = 8;            // rows a K8e/K8f thread keeps in registers
+constexpr int FEAS_NT = 256;      // threads of a K8a block
 
-struct ProbeShared {
-  float f[NW];
-  float f2[NW];
-  int i[NW];
-};
-
-// K8d's and K8f's cluster exchange: the warps' parts, the block's part
-// the other blocks read, and the cluster's result for the block.
+// K8d's, K8e's and K8f's cluster exchange: the warps' parts, the block's
+// part the other blocks read, and the cluster's result for the block.
 struct PartShared {
   unsigned ka[NW], kb[NW];        // warps' top-2 keys
   int sx[NW], sy[NW];             // warps' pair sums
@@ -107,24 +110,30 @@ __device__ __forceinline__ bool cell_util(const float* cap, const float* used,
   return f;
 }
 
-// K8a: util_m f32[N, M, R], fits_m bool[N, M]
-__global__ void feasibility_kernel(const float* __restrict__ cap,
-                                   const float* __restrict__ used,
-                                   const float* __restrict__ demand,
-                                   const uint8_t* __restrict__ feasible,
-                                   const float* __restrict__ ms, int n, int M,
-                                   float* __restrict__ util_m,
-                                   uint8_t* __restrict__ fits_m) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= (long long)n * M) return;
-  const int i = (int)(c / M), m = (int)(c % M);
-  float dem[R], u[R];
-#pragma unroll
-  for (int d = 0; d < R; ++d) dem[d] = demand[d];
-  const bool f = cell_util(cap + (size_t)i * R, used + (size_t)i * R, dem,
-                           ms[m], u);
-#pragma unroll
-  for (int d = 0; d < R; ++d) util_m[c * R + d] = u[d];
+// K8a: util_m f32[N, M, R], fits_m bool[N, M], a thread a cell c = i *
+// M + m (32-bit index arithmetic: the launch keeps N * M below 2^31).
+// The row's capacity and usage are read as float4 (the wrapper refuses
+// unaligned rows; the M threads of a row read the same 32 bytes), the
+// cell's usage is one float4 store, so a warp stores 512 contiguous
+// bytes, and its fit one byte (32 contiguous bytes a warp).
+__global__ void __launch_bounds__(FEAS_NT)
+feasibility_kernel(const float4* __restrict__ cap,
+                   const float4* __restrict__ used,
+                   const float* __restrict__ demand,
+                   const uint8_t* __restrict__ feasible,
+                   const float* __restrict__ ms, int n, int M,
+                   float4* __restrict__ util_m,
+                   uint8_t* __restrict__ fits_m) {
+  const unsigned c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= (unsigned)n * (unsigned)M) return;
+  const unsigned i = c / (unsigned)M;
+  const float dem[R] = {demand[0], demand[1], demand[2], demand[3]};
+  const float4 c4 = cap[i], u4 = used[i];
+  const float cp[R] = {c4.x, c4.y, c4.z, c4.w};
+  const float us[R] = {u4.x, u4.y, u4.z, u4.w};
+  float u[R];
+  const bool f = cell_util(cp, us, dem, ms[c - i * (unsigned)M], u);
+  util_m[c] = make_float4(u[0], u[1], u[2], u[3]);
   fits_m[c] = (f && feasible[i] != 0) ? 1 : 0;
 }
 
@@ -161,7 +170,7 @@ __global__ void score_kernel(const float* __restrict__ fit_m,
                           penalty[i], aff_on, aff);
 }
 
-// ------------------------------------------- K8d and K8f: the cluster
+// ------------------------------------- K8d, K8e and K8f: the cluster
 
 // This thread's rows [lo, hi): block `rank` of the cluster owns a
 // contiguous range of the n rows, its threads contiguous runs of it in
@@ -356,62 +365,65 @@ argmax_kernel(const uint8_t* __restrict__ fits_m,
   cluster_wait();                 // no block reads this one's totals now
 }
 
-// The probe's scatter (shared by K8e and K8f): per_node[order[k]] =
-// clip(count - exclusive_cumsum(run[order])[k], 0, run[order[k]]), then
-// used2 = used + per_node * demand, coll2 = coll + per_node; returns the
-// placed total in every thread.  per_node: i32[n] scratch.
-__device__ int probe_scatter(const int* __restrict__ run,
-                             const int* __restrict__ order, int count,
-                             const float* __restrict__ used,
-                             const float* __restrict__ demand,
-                             const int* __restrict__ coll, int n,
-                             float* __restrict__ used2,
-                             int* __restrict__ coll2,
-                             int* __restrict__ per_node, ProbeShared& sh) {
-  const int tid = threadIdx.x;
-  const int per = (n + NT - 1) / NT;
-  const int lo = min(tid * per, n), hi = min(lo + per, n);
-  int local = 0;
-  for (int k = lo; k < hi; ++k) local += run[order[k]];
-  int total;
-  int prefix = block_exclusive_scan(local, sh.i, &total);
-  for (int k = lo; k < hi; ++k) {
-    const int row = order[k];
-    const int base = run[row];
-    per_node[row] = min(max(count - prefix, 0), base);
-    prefix += base;
-  }
-  __syncthreads();
-  float dem[R];
-#pragma unroll
-  for (int d = 0; d < R; ++d) dem[d] = demand[d];
-  int placed = 0;
-  for (int i = tid; i < n; i += NT) {
-    const int pn = per_node[i];
-    const float pf = (float)pn;
-#pragma unroll
-    for (int d = 0; d < R; ++d) {
-      const float inc = pf * dem[d];
-      used2[(size_t)i * R + d] = used[(size_t)i * R + d] + inc;
-    }
-    coll2[i] = coll[i] + pn;
-    placed += pn;
-  }
-  return block_sum(placed, sh.i);
-}
-
-// K8e: used2 f32[N, R], coll2 i32[N], placed i32
+// K8e: used2 f32[N, R], coll2 i32[N], placed i32.  One cluster whose
+// threads own contiguous runs of the greedy positions k (thread order is
+// position order): one cluster scan of run[order[k]] gives each
+// position its exclusive prefix, and the thread of position k writes row
+// order[k]: per_node = clip(count - prefix, 0, run), used2 = used +
+// per_node * demand (one float4 load and store), coll2 = coll +
+// per_node.  order is a permutation of the rows (the wrapper's
+// contract), so every row is written exactly once, by one thread.  The
+// prefix is held in 64 bits; placed is clip(count, 0, all runs), the sum
+// of the clipped runs (runs are >= 0, K8d's).  A thread keeps its first
+// RPT positions' rows and runs in registers and reads past those again.
+template <bool J>
 __global__ void __launch_bounds__(NT, 1)
 scatter_kernel(const int* __restrict__ run, const int* __restrict__ order,
-               int count, const float* __restrict__ used,
+               int count, const float4* __restrict__ used,
                const float* __restrict__ demand,
                const int* __restrict__ coll, int n,
-               float* __restrict__ used2, int* __restrict__ coll2,
-               int* __restrict__ placed, int* __restrict__ scratch) {
-  __shared__ ProbeShared sh;
-  const int total = probe_scatter(run, order, count, used, demand, coll, n,
-                                  used2, coll2, scratch, sh);
-  if (threadIdx.x == 0) *placed = total;
+               float4* __restrict__ used2, int* __restrict__ coll2,
+               int* __restrict__ placed) {
+  __shared__ PartShared sm;
+  cg::cluster_group cl = cg::this_cluster();
+  int lo, hi;
+  thread_rows(n, cl, &lo, &hi);
+  const int cnt = hi - lo;
+  int rows[RPT], runs[RPT];
+  int local = 0;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    if (k < cnt) {
+      rows[k] = order[lo + k];
+      runs[k] = run[rows[k]];
+      local += runs[k];
+    }
+  }
+  for (int k = lo + RPT; k < hi; ++k) local += run[order[k]];
+  int2 all;
+  const int2 pre = cluster_scan2<J>(make_int2(local, 0), sm, cl, &all);
+  const float dem[R] = {demand[0], demand[1], demand[2], demand[3]};
+  long long prefix = pre.x;
+  auto put = [&](int row, int r) {
+    const int pn = (int)min(max((long long)count - prefix, 0ll),
+                            (long long)r);
+    prefix += r;
+    const float pf = (float)pn;
+    const float4 u = used[row];
+    used2[row] = make_float4(u.x + pf * dem[0], u.y + pf * dem[1],
+                             u.z + pf * dem[2], u.w + pf * dem[3]);
+    coll2[row] = coll[row] + pn;
+  };
+#pragma unroll
+  for (int k = 0; k < RPT; ++k)
+    if (k < cnt) put(rows[k], runs[k]);
+  for (int k = lo + RPT; k < hi; ++k) {
+    const int row = order[k];
+    put(row, run[row]);
+  }
+  if (cl.block_rank() == 0 && threadIdx.x == 0)
+    *placed = (int)min(max((long long)count, 0ll), (long long)all.x);
+  cluster_wait();                 // no block reads this one's totals now
 }
 
 // K8f: the fused wave, K8a-K8e in one program without the [N, M] grid
@@ -551,7 +563,7 @@ int cells_grid(int n, int M) {
   return (int)(((long long)n * M + 255) / 256);
 }
 
-// K8d's and K8f's cluster: PROBE_CLUSTER blocks of the fewest whole
+// K8d's, K8e's and K8f's cluster: PROBE_CLUSTER blocks of the fewest whole
 // warps that give each thread one row (at most NT)
 int probe_threads(int n) {
   const int rpb = (n + PROBE_CLUSTER - 1) / PROBE_CLUSTER;
@@ -565,8 +577,14 @@ extern "C" int feasibility_launch(const float* cap, const float* used,
                                   const float* ms, int n, int M,
                                   float* util_m, uint8_t* fits_m,
                                   void* stream) {
-  feasibility_kernel<<<cells_grid(n, M), 256, 0, (cudaStream_t)stream>>>(
-      cap, used, demand, feasible, ms, n, M, util_m, fits_m);
+  const long long cells = (long long)n * M;
+  if (n < 1 || M < 1 || cells >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  feasibility_kernel<<<(int)((cells + FEAS_NT - 1) / FEAS_NT), FEAS_NT, 0,
+                       (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(cap),
+      reinterpret_cast<const float4*>(used), demand, feasible, ms, n, M,
+      reinterpret_cast<float4*>(util_m), fits_m);
   return (int)cudaGetLastError();
 }
 
@@ -601,12 +619,13 @@ extern "C" int argmax_launch(const uint8_t* fits_m, const float* score_m,
 extern "C" int scatter_launch(const int* run, const int* order, int count,
                               const float* used, const float* demand,
                               const int* coll, int n, float* used2,
-                              int* coll2, int* placed, int* scratch,
-                              void* stream) {
-  scatter_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
-      run, order, count, used, demand, coll, n, used2, coll2, placed,
-      scratch);
-  return (int)cudaGetLastError();
+                              int* coll2, int* placed, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  return (int)cluster_launch(
+      jitter_on ? &scatter_kernel<true> : &scatter_kernel<false>,
+      PROBE_CLUSTER, probe_threads(n), 0, 0, (cudaStream_t)stream, run,
+      order, count, reinterpret_cast<const float4*>(used), demand, coll, n,
+      reinterpret_cast<float4*>(used2), coll2, placed);
 }
 
 extern "C" int fused_wave_launch(const float* cap, const float* used,
@@ -624,7 +643,7 @@ extern "C" int fused_wave_launch(const float* cap, const float* used,
       coll, count, fill_grid, n, used2, coll2, placed);
 }
 
-// The delays of cluster.cuh at K8d's and K8f's exchange sites, for the
+// The delays of cluster.cuh at K8d's, K8e's and K8f's exchange sites, for the
 // launches that follow on `stream` (0: none).
 extern "C" int stage_probe_set_jitter(int seed, void* stream) {
   return (int)set_jitter(seed, (cudaStream_t)stream);

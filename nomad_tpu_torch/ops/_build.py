@@ -64,7 +64,7 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
         "fit_launch": [_P, _P, _I, _I, _P, _P],
         "score_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P],
         "argmax_launch": [_P, _P, _P, _I, _I, _P, _P, _P],
-        "scatter_launch": [_P, _P, _I, _P, _P, _P, _I] + [_P] * 5,
+        "scatter_launch": [_P, _P, _I, _P, _P, _P, _I] + [_P] * 4,
         "fused_wave_launch": [_P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _I,
                               _I] + [_P] * 4,
         "stage_probe_set_jitter": [_I, _P],

@@ -448,8 +448,11 @@ def bulk_wave_allocs(ms, fits_m, score_m, remaining: int):
     """One wave of `_bulk_loop` on its grid: the wave set (strict rows,
     cur > s*, if any, else the rows tied at the top score), its runs in
     greedy order (score desc, stable argsort -> row asc among ties),
-    capped cumulatively at `remaining`.  Returns (per-node instances
-    i64[N], any_fit)."""
+    capped cumulatively at `remaining`.  s* propagates a NaN (jnp.max),
+    which empties the strict set; the top-2 ranks as `lax.top_k` (a NaN by
+    its sign: the CPU's -NaN lowest, the card's +NaN highest, where the
+    tie set is then empty).  Returns (per-node instances i64[N],
+    any_fit)."""
     neg_inf = float("-inf")
     fits = fits_m[:, 0]
     cur = torch.where(fits, score_m[:, 0], torch.full_like(score_m[:, 0], neg_inf))
@@ -457,7 +460,7 @@ def bulk_wave_allocs(ms, fits_m, score_m, remaining: int):
     s_star = torch.max(torch.where(fits_m[:, 1], score_m[:, 1],
                                    torch.full_like(cur, neg_inf)))
     strict = fits & (cur > s_star)
-    top2 = torch.topk(cur, 2).values
+    top2 = _lax_top_k(cur, 2)[0]
     tie = fits & (cur == top2[0])
     wave = strict if bool(torch.any(strict)) else tie
     second = torch.where(cur == top2[0], top2[1], top2[0])
@@ -510,10 +513,16 @@ def bulk_wave_select_model(ms, fits_m, score_m, remaining: int,
     if not fits.any():
         return torch.from_numpy(per_node), False, info
     s_star = np.max(np.where(fits_m[:, 1], score_m[:, 1], neg_inf))
-    top1, top2 = np.sort(cur)[::-1][:2]    # lax.top_k: duplicates count
-    n_top = int(np.count_nonzero(cur == top1))
-    strict = top1 > s_star
-    wave = (cur > s_star) if strict else (cur == top1)
+    # lax.top_k's order (a NaN by its sign; duplicates count)
+    top1, top2 = _lax_top_k(torch.from_numpy(cur), 2)[0].numpy()
+    # the fitting rows at the top score (where it is -inf, every fitting
+    # row: the kernel's rows that do not fit hold NOFIT, not -inf)
+    top = fits & (cur == top1)
+    n_top = int(np.count_nonzero(top))
+    # some row beats s* where the largest cur that is not NaN does (a NaN
+    # s* is beaten by none)
+    strict = np.max(np.where(np.isnan(cur), neg_inf, cur)) > s_star
+    wave = (cur > s_star) if strict else top
     run_cap = min(M, remaining)
     words = _score_words(cur)
     rows = np.arange(N)
@@ -536,11 +545,11 @@ def bulk_wave_select_model(ms, fits_m, score_m, remaining: int,
     run_base = 0
     if n_top >= k:
         info["path"] = "top"
-        at_top = np.flatnonzero(cur == top1)
+        at_top = np.flatnonzero(top)
         for base in range(0, k, kmax):
             if run_base >= remaining:
                 break
-            run_base = take(at_top[base:base + kmax], run_base)
+            run_base = take(at_top[base:min(base + kmax, k)], run_base)
     else:
         info["path"] = "radix"
         taken, lo = 0, None                # lo: (word, row) last taken

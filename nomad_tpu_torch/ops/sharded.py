@@ -680,12 +680,20 @@ class BulkShard:
     scores: torch.Tensor          # f32[E, n] output view
     partial: torch.Tensor         # i32[E, COUNTS_W]
     state: torch.Tensor           # i32[STATE_W]
+    # scratch: each row's wave-start fit (K7c writes it, K7d and K7e's
+    # tail read it: a fitting row may score -inf); check() makes it
+    fits: Optional[torch.Tensor] = None   # bool[n]
     packed: Optional[tuple] = field(default=None, init=False, repr=False,
                                     compare=False)   # K7c-K7e's operands
 
     def check(self) -> "BulkShard":
-        _check_same_device("BulkShard", self)
         n = self.capacity.shape[0]
+        if self.fits is None:
+            self.fits = torch.zeros(n, dtype=torch.bool,
+                                    device=self.capacity.device)
+        _check_same_device("BulkShard", self)
+        if self.fits.shape != (n,) or self.fits.dtype != torch.bool:
+            raise ValueError("BulkShard.fits: bool[n]")
         E = self.feasible.shape[0]
         if self.assign.shape != (E, n) or self.scores.shape != (E, n) \
                 or self.assign.stride(1) != 1 or self.scores.stride(1) != 1 \
@@ -749,7 +757,8 @@ def bulk_stats_plain(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
     lane state from (0 placed, 0 waves); an eval that the stop test ends
     at once runs its tail.  Then, unless the eval is done, the wave's
     local statistics (lines 551-567): cur (the m = 1 score where the row
-    fits, else -inf) into cur_g[off:off+n], and stats[shard] = (top-2 of
+    fits, else -inf) into cur_g[off:off+n], the fit itself into
+    `sh.fits` (a fitting row may score -inf), and stats[shard] = (top-2 of
     cur as `lax.top_k` ranks it, the shard's part of s*, any fit, the
     largest cur that is not NaN).  The reference takes s* as the pmax of
     each shard's `jnp.max` of its m = 2 scores where they fit: a NaN
@@ -775,6 +784,7 @@ def bulk_stats_plain(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
     cur = torch.where(fits, score_m[:, 0], ninf)
     n = cur.shape[0]
     cur_g[sh.off:sh.off + n] = cur
+    sh.fits.copy_(fits)
     top2 = _lax_top_k(cur, 2)[0]
     smax = torch.max(torch.where(fits_m[:, 1], score_m[:, 1], ninf))
     smax = torch.where(torch.isnan(smax), ninf[0], smax) + 0.0
@@ -803,8 +813,9 @@ def bulk_run_plain(sh: BulkShard, e: int, stats: torch.Tensor,
     (`bulk_run_lengths` against `second`) where the row is in the wave
     set, else 0.  The wave set is the strict set (cur > s*) when any row
     beats s* (the largest cur that is not NaN does: a NaN beats nothing),
-    else the tie set (cur == gmax); a run is capped at the eval's
-    remaining count (a longer run is only ever used up to it)."""
+    else the tie set (the fitting rows, `sh.fits` from K7c, at cur ==
+    gmax: where gmax is -inf, every fitting row); a run is capped at the
+    eval's remaining count (a longer run is only ever used up to it)."""
     if int(sh.state[ST_DONE]):
         return
     any_fit, s_star, use_strict, gmax, gsecond = _wave_globals(stats)
@@ -813,8 +824,7 @@ def bulk_run_plain(sh: BulkShard, e: int, stats: torch.Tensor,
     if not any_fit:
         base_g[sh.off:sh.off + n] = 0
         return
-    fits = cur > float("-inf")
-    wave = (cur > s_star) if use_strict else (fits & (cur == gmax))
+    wave = (cur > s_star) if use_strict else (sh.fits & (cur == gmax))
     second = torch.where(cur == gmax, gsecond, gmax)
     ms, fits_m, score_m = _grid(sh, e, fill_grid, spread)
     run = bulk_run_lengths(ms, fits_m, score_m, second)
@@ -843,7 +853,7 @@ def bulk_run_model(sh: BulkShard, e: int, stats: torch.Tensor,
     if use_strict:
         wave = cur > s_star
     else:
-        wave = (cur > float("-inf")) & (cur == gmax)
+        wave = sh.fits & (cur == gmax)
     wave = wave & any_fit & (run_cap > 0)
     second = torch.where(cur == gmax, gsecond, gmax)
     ms, fits_m, score_m = _grid(sh, e, fill_grid, spread)
@@ -899,7 +909,7 @@ class BulkArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "cap", "used", "exact", "delta", "coll", "feas", "aff", "pen",
         "coll0", "has_aff", "desired", "demand", "count", "drows", "dvals",
-        "assign", "scores", "partial", "state")] + \
+        "assign", "scores", "partial", "state", "fits")] + \
         [(name, ctypes.c_int) for name in ("n", "N", "off", "D", "ostride")]
 
 
@@ -910,7 +920,7 @@ def _bulk_args(sh: BulkShard) -> ctypes.c_void_p:
               sh.feasible, sh.affinity, sh.penalty, sh.coll0,
               sh.has_affinity, sh.desired, sh.demand, sh.count,
               sh.delta_rows, sh.delta_vals, sh.assign, sh.scores,
-              sh.partial, sh.state)
+              sh.partial, sh.state, sh.fits)
         sh.packed = _packed(BulkArgs, [
             None if t is None else t.data_ptr() for t in ts] + [
             sh.capacity.shape[0], sh.n_rows, sh.off, sh.D,

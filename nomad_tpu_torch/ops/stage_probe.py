@@ -15,6 +15,9 @@ Torch port of the reference's parallel/stage_probe.py `_stage_fns`
 K8d and K8f sort nothing: their order is a stable partition of the rows
 (the wave rows, then the others, each in row order), which
 `argmax_model` and `fused_wave_model` write out in PyTorch for the tests.
+K8e is one cluster over the greedy positions, each position's prefix
+from one scan and each row written by the thread of its position;
+`scatter_model` writes that out.
 
 These compute what the reference's probe computes, which is not
 production's wave (ops/place.py `_bulk_loop`): there is no strict set,
@@ -149,6 +152,41 @@ def _first_fail_runs(ms, fits_m, score_m, second):
                        torch.full_like(fail[:, 0], M, dtype=torch.int64))
 
 
+# blocks of K8d's, K8e's and K8f's cluster (csrc/stage_probe.cu
+# PROBE_CLUSTER)
+PROBE_CLUSTER = 16
+
+
+def scatter_model(run, order, count: int, used, demand, coll,
+                  blocks: int = PROBE_CLUSTER):
+    """K8e's algorithm (csrc/stage_probe.cu) in PyTorch, which the tests
+    hold equal to `scatter_plain` and the reference: the greedy positions
+    k split into `blocks` contiguous ranges as the cluster splits them,
+    each block's inclusive prefix of run[order[k]] in position order,
+    then the exclusive sum of the blocks' totals added; each position's
+    instances clip(count - prefix, 0, run) written straight to its row
+    order[k] (a permutation: every row once).  placed is clip(count, 0,
+    all runs), the sum of the clipped runs (runs >= 0, K8d's)."""
+    n = run.shape[0]
+    o = order.long()
+    base = run[o].to(torch.int64)
+    rpb = -(-n // blocks)
+    prefix = torch.empty_like(base)
+    totals = 0
+    for b in range(blocks):
+        lo, hi = min(b * rpb, n), min((b + 1) * rpb, n)
+        part = base[lo:hi]
+        prefix[lo:hi] = totals + torch.cumsum(part, 0) - part
+        totals += int(torch.sum(part))
+    per_node = torch.empty(n, dtype=_I32, device=run.device)
+    per_node[o] = torch.minimum(torch.clamp(int(count) - prefix, min=0),
+                                base).to(_I32)
+    used2 = used + per_node[:, None].to(_F32) * demand
+    placed = min(max(int(count), 0), totals)
+    return used2, coll + per_node, torch.tensor(placed, dtype=_I32,
+                                                device=used.device)
+
+
 def _partition(wave, val):
     """K8d's and K8f's pair scan: (px, py, X, Y), the exclusive row-order
     prefixes of the pair (val of a wave row, val of any other row) and
@@ -223,6 +261,14 @@ def _check_r(name: str, R: int) -> None:
         raise ValueError(f"{name}: R={R}, kernel takes {NUM_RESOURCE_DIMS}")
 
 
+def _check_rows16(name: str, *ts) -> None:
+    """The kernel reads an [N, R] row as one aligned float4."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads a row as one "
+                             f"aligned float4")
+
+
 def feasibility(capacity, used, demand, feasible, ms):
     """K8a wrapper, as `feasibility_plain`."""
     N, dev = _rows(capacity)
@@ -235,6 +281,7 @@ def feasibility(capacity, used, demand, feasible, ms):
     _check("feasibility.demand", demand, dev, _F32, (R,))
     _check("feasibility.feasible", feasible, dev, torch.bool, (N,))
     _check("feasibility.ms", ms, dev, _F32, (M,))
+    _check_rows16("stage_feasibility", capacity, used)
     util_m = torch.empty((N, M, R), dtype=_F32, device=dev)
     fits_m = torch.empty((N, M), dtype=torch.bool, device=dev)
     rc = _build.load("stage_probe").feasibility_launch(
@@ -304,25 +351,27 @@ def argmax(fits_m, score_m, ms):
 
 def scatter(run, order, count: int, used, demand, coll):
     """K8e wrapper, as `scatter_plain`; `order` must be a permutation of
-    the rows (K8d's output)."""
+    the rows and the runs >= 0 (K8d's outputs)."""
     N, dev = _rows(used)
     if dev.type == "cpu":
         return scatter_plain(run, order, count, used, demand, coll)
     R = used.shape[1]
     _check_r("stage_scatter", R)
+    if N < 1:
+        raise ValueError("stage_scatter: N=0")
     _check("scatter.run", run, dev, _I32, (N,))
     _check("scatter.order", order, dev, _I32, (N,))
     _check("scatter.used", used, dev, _F32, (N, R))
     _check("scatter.demand", demand, dev, _F32, (R,))
     _check("scatter.coll", coll, dev, _I32, (N,))
+    _check_rows16("stage_scatter", used)
     used2 = torch.empty((N, R), dtype=_F32, device=dev)
     coll2 = torch.empty(N, dtype=_I32, device=dev)
     placed = torch.empty((), dtype=_I32, device=dev)
-    per_node = torch.empty(N, dtype=_I32, device=dev)
     rc = _build.load("stage_probe").scatter_launch(
         _ptr(run), _ptr(order), int(count), _ptr(used), _ptr(demand),
         _ptr(coll), N, _ptr(used2), _ptr(coll2), _ptr(placed),
-        _ptr(per_node), _stream(dev))
+        _stream(dev))
     _launch("stage_scatter", rc)
     return used2, coll2, placed
 

@@ -57,7 +57,8 @@ def bulk_select_cases(n_rows: int, node_shards: int, lanes: int,
     lane pads of count 0 with deltas; delta rows that repeat a row (in an
     order that rounds differently); a usage row at +inf under deltas;
     fitting rows that score NaN at m = 1, at m = 2 only, and on one shard
-    between finite scores on the others (spread waves)."""
+    between finite scores on the others (spread waves); every fitting row
+    scoring -inf (an affinity of -inf) among rows that do not fit."""
     rng = np.random.default_rng(seed)
     N, NS, W = n_rows, node_shards, lanes
     n = N // NS
@@ -199,6 +200,22 @@ def bulk_select_cases(n_rows: int, node_shards: int, lanes: int,
                   "others", mid_cap, mid_used,
                   _select_lanes(N, [[ev(4 + w), ev(9), ev(0)]
                                     for w in range(W)]), True))
+
+    # an affinity of -inf on every row: every fitting row scores -inf at
+    # every m, so the top score and s* are -inf and the wave is the tie
+    # set of the fitting rows (the reference takes `fits` itself), one
+    # instance a row in row order; rows that do not fit (usage at
+    # capacity) lie before, between and after them, on both sides of a
+    # shard boundary, and score -inf too
+    ninf_used = (rng.integers(0, 4, (N, 4)) * d).astype(np.float32)
+    full_rows = [0, 1, 3, n - 1, n, N - 2]
+    ninf_used[full_rows] = cap[full_rows]
+    ninf = np.full(N, -np.inf, np.float32)
+    ninf_ev = lambda c: ev(c, affinity=ninf, has_affinity=True)  # noqa: E731
+    cases.append(("every fitting row scoring -inf (an affinity of -inf)",
+                  cap, ninf_used,
+                  _select_lanes(N, [[ninf_ev(5 + w), ninf_ev(n + 3), ev(0)]
+                                    for w in range(W)]), False))
     return cases
 
 

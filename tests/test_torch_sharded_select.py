@@ -230,7 +230,8 @@ def _order_shard(n, n_rows, off, count, dev="cpu"):
         count=torch.tensor([count], dtype=torch.int32, device=dev),
         delta_rows=None, delta_vals=None, assign=z(1, n, t=torch.int32),
         scores=z(1, n), partial=z(1, 4, t=torch.int32),
-        state=z(4, t=torch.int32)).check()
+        state=z(4, t=torch.int32),
+        fits=torch.ones(n, dtype=torch.bool, device=dev)).check()
 
 
 # ---------------------------------------------------------------- the card
@@ -290,10 +291,10 @@ def test_order_kernel_ties_signed_zeros(cuda_mesh_of):
                 outs.append([t.cpu() for t in (sh.used, sh.coll, sh.assign,
                                                sh.state, sh.scores,
                                                sh.partial, sh.exact)])
-            # the tail takes the wave-start scores K7c wrote for this
-            # shard's rows; these gathered scores are made up, so the
-            # tail's scores are not compared here (the selection cases
-            # compare them)
+            # the tail takes the wave-start scores and fits K7c wrote for
+            # this shard's rows; these are made up (every row fits at its
+            # gathered score), so the tail's scores are not compared here
+            # (the selection cases compare them)
             del outs[0][4], outs[1][4]
             for k, (g, w) in enumerate(zip(*outs)):
                 _equal(g.numpy(), w.numpy(), f"remaining {remaining} shard "
