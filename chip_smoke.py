@@ -30,8 +30,10 @@ Phases, all run in this order:
            case also under random delays at every exchange phase (six
            seeds); K2 and K3 (one cluster each, rows' scores cached
            between slots) on the edge cases of their cached step
-           (ops/place.py scan_model_cases), K3 bit-equal and K2 within
-           the tolerances, each case again under three seeds of the
+           (ops/place.py scan_model_cases, fitting rows scoring NaN
+           and -inf and +NaN and -NaN affinities among them), K3
+           bit-equal and K2 within the tolerances (NaN against NaN),
+           each case again under three seeds of the
            delays, as are K3's main shape and E = 8 chain, and K3 at
            131,072 rows and past the rows its cluster caches in shared
            memory; then at 32,768 and 131,072 rows (20,000- and
@@ -45,12 +47,14 @@ Phases, all run in this order:
            K8a->K8e kernel chain; then bit for bit at 20,000 and
            131,072 rows and M = 64 and on the probe's edge rows (a best
            row scoring -inf, NaN scores, no row fitting, ties, two
-           rows, a count above every run), K8d/K8f (one cluster each)
-           also under three seeds of the delays at their cluster
-           exchanges, and, where a parent tree is unpacked under
-           smoke_archive/parent, K8d/K8f timed in turns against the
-           parent's (parent, new, new, parent), its library built and
-           bound by its own ops/_build.py.
+           rows, a count above every run), K8d/K8e/K8f also under
+           three seeds of the delays at their cluster exchanges (K8a
+           rerun under them too; K8a and K8b have no delay site);
+           each K8 wrapper's host time with the raw stream read and
+           with a Stream object, in turns; and, where a parent tree is
+           unpacked under smoke_archive/parent, K8b timed in turns
+           against the parent's (parent, new, new, parent), its library
+           built and bound by its own ops/_build.py.
   slice    the engine-off path (NOMAD_TPU_ENGINE=0): the scheduler's
            eval-to-commit path through the entry points a user calls
            (Harness(device="cuda") -> GenericScheduler -> DenseStack ->
@@ -115,18 +119,25 @@ Phases, all run in this order:
            hand-set records on 1, 2, 4 and 8 shards, ties, +0.0/-0.0,
            -inf tails, NaN, K = 1 and 64) and K7g at 32,768 rows a shard
            with W = 1, 2 and 4 lanes (out a fresh tensor and the donated
-           basis), each bit-equal to its plain version; K7e's
+           basis), each bit-equal to its plain version; K7g and the
+           parent's K7g and K7f timed in turns (k7_turns, where a parent
+           tree is unpacked), and the staged path on meshes over several
+           cards where there are several (check_fold_cards); K7e's
            selection cases (tests/_sharded_cases.py, at N =
            16,384, and count-512 evals at 131,072), every K7c-K7g call
-           checked, each case again under six seeds of the delays of
-           K7c's cluster exchange, and K7e alone on waves that tie +0.0
+           checked (K7g's with the counts it writes), each case again
+           under six seeds of the delays of K7c's cluster exchange,
+           and K7e alone on waves that tie +0.0
            and -0.0; K7c's time a launch by kind (a begin with a wave, a
            count-0 begin and tail, a wave), and every K7 time a launch;
            K5' on
            every shard, every shard of a mesh in one launch, and the
            stall reading on a mesh world; then the engine phase's
            10,000-node stream on a (4, 2)
-           engine (the main path: K7's counts are read there) with
+           engine (the main path: K7's counts are read there; K7f has
+           none of its own, node shard 0's K7g launch writing its
+           counts; the parent tree's counts on the same stream, from a
+           process of its own) with
            per-job row maps equal to the single-device engine's, a
            donation-off run (K5' add_rank1_local), bench_e2e_spine's
            shape on (8, 1) with one worker against the single-device
@@ -449,11 +460,15 @@ def _bulk_call(fn, a, dev):
 
 
 def _compare_floats(name, got, ref):
+    """Infinities of one sign and NaN (of either sign) where the plain
+    version has them, finite values within RTOL/ATOL; returns the
+    largest finite difference."""
     both_inf = np.isinf(got) & np.isinf(ref) & (np.sign(got) == np.sign(ref))
     fin = ~both_inf
     if not np.array_equal(np.isfinite(got), np.isfinite(ref)):
         raise AssertionError(f"{name}: finite masks differ")
-    err = float(np.max(np.abs(got[fin] - ref[fin]))) if fin.any() else 0.0
+    both = np.isfinite(got)
+    err = float(np.max(np.abs(got[both] - ref[both]))) if both.any() else 0.0
     np.testing.assert_allclose(got[fin], ref[fin], rtol=RTOL, atol=ATOL,
                                err_msg=name)
     return err
@@ -633,7 +648,6 @@ def phase_kernels():
         f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
     check_bulk_select()
     check_bulk_odd()
-    bulk_turns()
 
     f_main = scan_inputs(4, main_path=True)
     err_m, kern, plain = check_scan(f_main, "rack spread")
@@ -1116,61 +1130,31 @@ def check_bulk_select():
             fg, jitter=True)
 
 
-def _turns(label, new, kname, on_parent):
-    """new() against the parent's (new() inside `on_parent()`) in turns
-    (parent, new, new, parent): outputs equal, then the CUDA-event time of
-    the call and the kernel alone (profiler, kernels named `kname`)."""
+def _turns(label, new, kname, on_parent=contextlib.nullcontext, old=None,
+           bound=""):
+    """new() against the parent's in turns (parent, new, new, parent):
+    the parent's call is old() (default new()) inside `on_parent()`.
+    Outputs equal, then the CUDA-event time of the call and the kernel
+    alone (profiler, kernels whose name holds `kname`), ms, logged beside
+    `bound`.  Returns (events, alone): {turn: [ms, ms]}."""
+    old = old or new
+    host = lambda r: [t.cpu().numpy() for t in (  # noqa: E731
+        r if isinstance(r, tuple) else (r,))]
     with on_parent():
-        want = new()
-    got = new()
-    want = want if isinstance(want, tuple) else (want,)
-    got = got if isinstance(got, tuple) else (got,)
-    for k, (a, b) in enumerate(zip(want, got)):
-        _same(f"turns {label} output {k} (parent vs new)",
-              a.cpu().numpy(), b.cpu().numpy())
+        want = host(old())
+    for k, (a, b) in enumerate(zip(want, host(new()))):
+        _same(f"turns {label} output {k} (parent vs new)", a, b)
     ev, alone = {}, {}
     for turn in ("parent", "new", "new", "parent"):
+        fn = old if turn == "parent" else new
         with on_parent() if turn == "parent" else contextlib.nullcontext():
-            ev.setdefault(turn, []).append(time_cuda(new, reps=5))
-            alone.setdefault(turn, []).append(kernel_device_ms(new, kname,
-                                                               n=5))
-    fmt = lambda v: "/".join(f"{t:.4f}" for t in v)  # noqa: E731
+            ev.setdefault(turn, []).append(time_cuda(fn))
+            alone.setdefault(turn, []).append(kernel_device_ms(fn, kname))
+    fmt = lambda v: "/".join(f"{t:.5f}" for t in v)  # noqa: E731
     log(f"kernels: turns {label}: events parent {fmt(ev['parent'])} new "
         f"{fmt(ev['new'])} ms; alone parent {fmt(alone['parent'])} new "
-        f"{fmt(alone['new'])} ms")
-
-
-def bulk_turns():
-    """K1 and K4 against the parent tree's (PARENT_TREE) in turns: K1 on
-    the C2M group at N_ROWS rows, K4 on the bench spine's longest chain
-    (BENCH_CHAIN groups with deltas, sparse, no exact carry), outputs
-    equal: what ranking the wave's top-2 by orderable keys, the NaN s*
-    and the NOFIT slots cost.  Logs that it skipped where there is no
-    parent tree or its entry points take other arguments."""
-    import torch
-    from nomad_tpu_torch.ops import _build
-    from nomad_tpu_torch.ops import place as tp
-    pb = _parent_build()
-    if pb is None:
-        log(f"kernels: K1/K4 turns against the parent skipped (no tree "
-            f"under {PARENT_TREE})")
-        return
-    if pb._ARGTYPES["place_bulk"] != _build._ARGTYPES["place_bulk"]:
-        log("kernels: K1/K4 turns against the parent skipped (its entry "
-            "points take other arguments)")
-        return
-    lib = pb.load("place_bulk")
-    on_parent = lambda: _kernels_from("place_bulk", lib)  # noqa: E731
-    _turns(f"place_bulk C2M group N={N_ROWS}",
-           _bulk_call(tp.place_bulk, bulk_inputs(1, main_path=True),
-                      torch.device("cuda")), "place_bulk_kernel", on_parent)
-    t = lambda x: torch.from_numpy(np.array(x)).cuda()   # noqa: E731
-    chain = batch_bulk_inputs(15, BENCH_CHAIN - 1)
-    args = tuple(t(x) for x in chain[:4]) + (chain[4],)
-    _turns(f"place_bulk_batch E={BENCH_CHAIN} bench chain, sparse",
-           lambda: tp.place_bulk_batch(*args, sparse_out=True,
-                                       fill_grid=tp.fill_grid_for(10)),
-           "place_bulk_batch_kernel", on_parent)
+        f"{fmt(alone['new'])} ms{bound}")
+    return ev, alone
 
 
 # the longest chain the bench's spine gives one K4 launch: the engine's
@@ -1861,11 +1845,19 @@ def check_stage_probe():
         p_ms = time_cuda(plain)
         bound, by = _bound(nbytes[name], ops[name])
         alone = kernel_device_ms(kern, STAGE_KERNELS[name])
-        host = host_us(kern, n=500)
+        # the wrapper's host time, and with the stream read as a Stream
+        # object (the parent's ops/place.py _stream), in turns
+        host = {}
+        for turn in ("object", "raw", "raw", "object"):
+            with _stream_object(sp) if turn == "object" else \
+                    contextlib.nullcontext():
+                host.setdefault(turn, []).append(host_us(kern, n=500))
         log(f"kernels: {name} N={n} M={M}: integers equal, floats "
             f"{'bit-equal' if bits else f'max |err| {err:.3g}'}; kernel "
             f"{k_ms:.4f} ms (alone {alone:.4f} ms, wrapper's host time "
-            f"{host:.2f} us a call), plain {p_ms:.4f} ms, bound "
+            f"{'/'.join(f'{h:.2f}' for h in host['raw'])} us a call, "
+            f"{'/'.join(f'{h:.2f}' for h in host['object'])} with the "
+            f"stream read as a Stream object), plain {p_ms:.4f} ms, bound "
             f"{bound:.6f} ms ({by})")
         jax_fn, replaces = STAGE_UNITS[name]
         entries[name] = dict(
@@ -1891,6 +1883,22 @@ def check_stage_probe():
     check_stage_cases()
     stage_turns()
     return entries
+
+
+@contextlib.contextmanager
+def _stream_object(module):
+    """`module`'s wrappers reading the current stream through a
+    torch.cuda.current_stream(dev) Stream object, as before ops/place.py
+    read the raw handle, while the block runs."""
+    import ctypes
+    import torch
+    raw = module._stream
+    module._stream = lambda dev: ctypes.c_void_p(
+        torch.cuda.current_stream(dev).cuda_stream)
+    try:
+        yield
+    finally:
+        module._stream = raw
 
 
 # the kernel's name in the profiler, per K8 wrapper
@@ -1958,9 +1966,10 @@ def check_stage_cases():
     fitting, every row tied, two rows, a count above every run), M = 16
     and 64: every output bit-equal (NaN against NaN), K8f's equal to the
     K8a->K8e kernel chain's, K8e also on a random permutation of the rows
-    (its contract: any permutation), and K8a, K8d, K8e (on both orders)
-    and K8f again under each of STAGE_JITTER_SEEDS of the delays at the
-    cluster exchanges."""
+    (its contract: any permutation), and K8a, K8b, K8d, K8e (on both
+    orders) and K8f again under each of STAGE_JITTER_SEEDS of the delays
+    at the cluster exchanges (K8a and K8b have no delay site: under a
+    seed they run again and must repeat their outputs)."""
     import torch
     from nomad_tpu_torch.ops import stage_probe as sp
     from nomad_tpu_torch.parallel import stage_probe as psp
@@ -2021,7 +2030,8 @@ def check_stage_cases():
         log(f"kernels: stage probe {label}: K8a-K8f bit-equal to their "
             f"plain versions, K8f to the K8a->K8e chain, K8e also on a "
             f"random permutation, K8a/K8d/K8e/K8f also under "
-            f"{len(STAGE_JITTER_SEEDS)} seeds of the delays; placed "
+            f"{len(STAGE_JITTER_SEEDS)} seeds of the delays (K8a and K8b "
+            f"have no delay site); placed "
             f"{int(want['placed'][0])} of {x['count']}, {nw} rows out of "
             f"row order")
 
@@ -2047,14 +2057,6 @@ def _parent_build():
     return mod
 
 
-def _scratch_scatter_argtypes():
-    """K8e's C entry point where it ran on one block with an i32[N]
-    per-row scratch before the stream (the parent's form)."""
-    import ctypes
-    P, I = ctypes.c_void_p, ctypes.c_int
-    return [P, P, I, P, P, P, I] + [P] * 5
-
-
 @contextlib.contextmanager
 def _kernels_from(kernel, lib):
     """This tree's wrappers of kernel source `kernel` launching on `lib`
@@ -2068,45 +2070,16 @@ def _kernels_from(kernel, lib):
         _build.load = load
 
 
-def _scratch_scatter(lib, run, order, count, used, demand, coll):
-    """A call of a parent's one-block K8e (_scratch_scatter_argtypes)."""
-    import ctypes
-    import torch
-    n = used.shape[0]
-    vp = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    used2 = torch.empty_like(used)
-    coll2 = torch.empty_like(coll)
-    placed = torch.empty((), dtype=torch.int32, device=used.device)
-    scratch = torch.empty(n, dtype=torch.int32, device=used.device)
-
-    def call():
-        if lib.scatter_launch(
-                vp(run), vp(order), int(count), vp(used), vp(demand),
-                vp(coll), n, vp(used2), vp(coll2), vp(placed), vp(scratch),
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)):
-            raise RuntimeError("parent scatter launch failed")
-        return used2, coll2, placed
-    return call
-
-
-# the stage-probe units timed against the parent, by C entry point
-TURN_UNITS = {"stage_feasibility": "feasibility_launch",
-              "stage_argmax": "argmax_launch",
-              "stage_scatter": "scatter_launch",
-              "stage_fused_wave": "fused_wave_launch"}
-
-
 def stage_turns():
-    """K8a, K8d, K8e and K8f against the parent tree's in turns (parent,
-    new, new, parent), each on the probe's inputs at STAGE_SHAPES (K8e on
-    K8d's order): the CUDA-event time of the wrapper call and the kernel
-    alone (profiler), ms, beside the unit's bound at that shape.  The parent's library is built and bound by the
-    parent's own ops/_build.py.  Where a parent entry point takes this
-    tree's arguments, this tree's wrapper launches on it; where its K8e
-    takes the one-block scratch (_scratch_scatter_argtypes) the call
-    passes one.  The parent's outputs must equal the new ones.  Logs that
-    it skipped a unit whose parent entry point takes other arguments, or
-    every unit where PARENT_TREE holds no tree."""
+    """K8b against the parent tree's (PARENT_TREE) in turns (parent,
+    new, new, parent) on the probe's inputs at every shape of
+    STAGE_SHAPES: outputs equal, the CUDA-event time of the wrapper call
+    and the kernel alone (profiler), ms, beside the unit's bound (and
+    the bound with every 16-byte cell read whole, as its 32-byte sectors
+    bring it).  The parent's library is built and bound by the parent's
+    own ops/_build.py, and this tree's wrapper launches on it where its
+    fit_launch takes this tree's arguments.  Logs that it skipped where
+    PARENT_TREE holds no tree or the arguments differ."""
     import torch
     from nomad_tpu_torch.ops import _build
     from nomad_tpu_torch.ops import stage_probe as sp
@@ -2116,59 +2089,26 @@ def stage_turns():
         log(f"kernels: stage probe turns against the parent skipped (no "
             f"tree under {PARENT_TREE})")
         return
-    theirs = pb._ARGTYPES["stage_probe"]
-    ours = _build._ARGTYPES["stage_probe"]
+    entry = "fit_launch"
+    if pb._ARGTYPES["stage_probe"].get(entry) != \
+            _build._ARGTYPES["stage_probe"][entry]:
+        log(f"kernels: turns stage_fit against the parent skipped (its "
+            f"{entry} takes other arguments)")
+        return
     lib = pb.load("stage_probe")
     for n, M in STAGE_SHAPES:
         x = psp.probe_inputs(n, fill_grid=M, device="cuda")
-        args = (x["capacity"], x["used"], x["demand"], x["feasible"], x["ms"])
-        util_m, fits_m = sp.feasibility(*args)
-        score_m = sp.score(sp.fit(x["capacity"], util_m), x["coll"],
-                           x["ms"], x["desired_f"], x["penalty"],
-                           x["affinity"], x["has_affinity"])
-        run, order = sp.argmax(fits_m, score_m, x["ms"])
-        sc_args = (run, order, x["count"], x["used"], x["demand"], x["coll"])
-        nbytes, ops = _stage_work(n, M, run)
-        units = {
-            "stage_feasibility": lambda: sp.feasibility(*args),
-            "stage_argmax": lambda: sp.argmax(fits_m, score_m, x["ms"]),
-            "stage_scatter": lambda: sp.scatter(*sc_args),
-            "stage_fused_wave": lambda: sp.fused_wave(*_fused_args(x)),
-        }
-        for name, cur in units.items():
-            entry = TURN_UNITS[name]
-            if theirs.get(entry) == ours[entry]:
-                old = cur
-                on_parent = lambda: _kernels_from("stage_probe",  # noqa
-                                                  lib)
-            elif entry == "scatter_launch" and \
-                    theirs.get(entry) == _scratch_scatter_argtypes():
-                old = _scratch_scatter(lib, *sc_args)
-                on_parent = contextlib.nullcontext
-            else:
-                log(f"kernels: turns {name} against the parent skipped (its "
-                    f"{entry} takes other arguments)")
-                continue
-            with on_parent():
-                want = [t.cpu().numpy() for t in old()]
-            for k, (a, b) in enumerate(zip(want, cur())):
-                _same(f"turns {name} N={n} M={M} output {k} (parent vs new)",
-                      a, b.cpu().numpy())
-            kname = STAGE_KERNELS[name]
-            ev, alone = {}, {}
-            for turn in ("parent", "new", "new", "parent"):
-                fn = old if turn == "parent" else cur
-                with on_parent() if turn == "parent" \
-                        else contextlib.nullcontext():
-                    ev.setdefault(turn, []).append(time_cuda(fn))
-                    alone.setdefault(turn, []).append(
-                        kernel_device_ms(fn, kname))
-            fmt = lambda v: "/".join(f"{t:.4f}" for t in v)  # noqa: E731
-            bound, by = _bound(nbytes[name], ops[name])
-            log(f"kernels: turns {name} N={n} M={M}: events parent "
-                f"{fmt(ev['parent'])} new {fmt(ev['new'])} ms; alone parent "
-                f"{fmt(alone['parent'])} new {fmt(alone['new'])} ms; bound "
-                f"{bound:.6f} ms ({by})")
+        util_m, _ = sp.feasibility(x["capacity"], x["used"], x["demand"],
+                                   x["feasible"], x["ms"])
+        nbytes, ops = _stage_work(n, M, torch.zeros(n, dtype=torch.int32))
+        bound, by = _bound(nbytes["stage_fit"], ops["stage_fit"])
+        whole = _bound(nbytes["stage_fit"] + n * M * 8, ops["stage_fit"])[0]
+        _turns(f"stage_fit N={n} M={M}",
+               lambda: sp.fit(x["capacity"], util_m),
+               STAGE_KERNELS["stage_fit"],
+               lambda: _kernels_from("stage_probe", lib),
+               bound=f"; bound {bound:.6f} ms ({by}), {whole:.6f} with "
+                     f"the whole 16-byte cells read")
 
 
 # --------------------------------------------------------------- the slice
@@ -3233,8 +3173,6 @@ K7_UNITS = {
     "bulk_run": ("shard_bulk_run", "nomad_tpu/parallel/sharded.py:485"),
     "bulk_order": ("shard_bulk_order",
                    "nomad_tpu/parallel/sharded.py:485"),
-    "bulk_counts": ("shard_bulk_counts",
-                    "nomad_tpu/parallel/sharded.py:485"),
     "basis_merge": ("shard_basis_merge",
                     "nomad_tpu/parallel/sharded.py:485"),
 }
@@ -3277,7 +3215,8 @@ def _state_of(name, args):
             [args[2], args[3], args[4]]
         return [sh.used, sh.exact, sh.delta, sh.coll, sh.assign, sh.scores,
                 sh.partial, sh.state, sh.fits] + extra
-    return list(args)                          # bulk_counts, basis_merge
+    # basis_merge: u0, exacts, out, and node shard 0's partials and counts
+    return [a for a in args if a is not None]
 
 
 class K7Check:
@@ -3286,16 +3225,16 @@ class K7Check:
     state restored, its plain version on the same tensors, and requires
     every state tensor bit-equal (but K7a's cache, which only the kernel
     keeps: restored, not compared).  The first step of each kernel
-    across the mesh (its launch on every node shard of one lane, every
-    lane for K7f; a scan slot past the first for K7a) is kept for
-    timing.  These launches are the comparison's, not a path's."""
+    across the mesh (its launch on every node shard of one lane; a scan
+    slot past the first for K7a; K7g's first, node shard 0's, carrying
+    K7f's counts) is kept for timing.  These launches are the
+    comparison's, not a path's."""
 
     def __init__(self, shape=(1, 1)):
         from nomad_tpu_torch.ops import sharded as k7
         self.k7 = k7
         self.seen = {n: 0 for n in K7_UNITS}
-        self.step = {n: shape[1] if n == "bulk_counts" else shape[0]
-                     for n in K7_UNITS}
+        self.step = {n: shape[0] for n in K7_UNITS}
         self.kept = {n: [] for n in K7_UNITS}
         self.orig = {n: getattr(k7, n) for n in K7_UNITS}
 
@@ -3439,11 +3378,10 @@ def _k7_work(name, args) -> tuple:
             return (n * 8 + wave * row + 16 * args[2].shape[0],
                     cells * OPS_PER_CELL)
         return 8 * N + wave * 40, 0
-    if name == "bulk_counts":
-        partials, out = args
-        return partials.numel() * 4 + out.numel() * 4, 0
-    u0, exacts, out = args
-    return (exacts.numel() + 2 * u0.numel()) * 4, 2 * exacts.numel()
+    u0, exacts, out, *counts = args
+    return ((exacts.numel() + 2 * u0.numel()) * 4
+            + sum(t.numel() * 4 for t in counts if t is not None),
+            2 * exacts.numel())
 
 
 def _k7_bound(name, calls) -> tuple:
@@ -3986,7 +3924,7 @@ def shard_load(shape, n_jobs=LOAD_JOBS, workers=48):
 def _shard_outputs(out):
     import torch
     return [x.cpu().numpy() for x in out[:6]] + \
-        [torch.cat(list(out[6])).cpu().numpy()]
+        [torch.cat([u.cpu() for u in out[6]]).numpy()]
 
 
 def _cases(name: str = "_sharded_cases"):
@@ -4121,6 +4059,200 @@ def check_basis_merge_large(n=32768, lanes=(1, 2, 4)):
             f"kernel alone {dev_ms:.4f} (profiler), host {h_us:.2f} us, plain "
             f"{plain_ms:.4f}, bound {bound:.6f} ({by})")
     return res
+
+
+def bulk_counts_entry(kept):
+    """The kernels line's entry of K7f, which has no launch of its own:
+    node shard 0's K7g launch of the kept (4, 2) step carries it (its
+    thread j writes counts[j]).  ms, device_ms and host_us are that
+    launch's (events, alone, host), tail_ms its alone time less the same
+    launch without the counts; plain_ms is bulk_counts_plain on its partials;
+    the bound counts the partials read and the counts written."""
+    from nomad_tpu_torch.ops import sharded as k7
+    fused = kept.kept["basis_merge"][:1]
+    args, state, before = fused[0]
+    u0, exacts, out, partials, counts = args
+    bare = [((u0, exacts, out), [out], [before[2]])]
+    merge = kept.orig["basis_merge"]
+    ms = step_ms(fused, merge)
+    dev_ms = step_device_ms(fused, merge, "basis_merge_kernel")
+    bare_ms = step_device_ms(bare, merge, "basis_merge_kernel")
+    h_us = step_host_us(fused, merge)
+    plain_ms = step_ms([((partials, counts), [counts], [counts.clone()])],
+                       k7.bulk_counts_plain)
+    bound, by = _bound((partials.numel() + counts.numel()) * 4, 0)
+    log(f"sharded: shard_bulk_counts inside node shard 0's K7g launch on "
+        f"(4, 2) (partials {tuple(partials.shape)}): that launch {ms:.4f} "
+        f"ms (CUDA events), alone {dev_ms:.5f} ms against {bare_ms:.5f} "
+        f"without the counts, host {h_us:.2f} us; plain {plain_ms:.4f} ms, "
+        f"bound {bound:.7f} ({by})")
+    return dict(
+        name="shard_bulk_counts", route="cuda",
+        source="nomad_tpu_torch/csrc/sharded.cu",
+        replaces="nomad_tpu/parallel/sharded.py:485", launches=0,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None, device_ms=dev_ms, host_us=h_us,
+        runs_in="shard_basis_merge", tail_ms=dev_ms - bare_ms)
+
+
+# (2, 2) meshes over several cards, [node shard][lane] card indices: a
+# lane a card (lane 1's counts gathered on its shard 0's card, then one
+# copy to the output card), a node shard a card, a shard a card
+FOLD_LAYOUTS = ([[0, 1], [0, 1]], [[0, 0], [1, 1]], [[0, 1], [2, 3]])
+
+
+def check_fold_cards():
+    """The staged bulk path on (2, 2) meshes whose shards sit on several
+    cards (FOLD_LAYOUTS, each where the machine has its cards), so
+    shards' partials reach the output card by peer copies before the
+    fused K7g launch: every output of every selection case bit-equal to
+    the plain form on the same mesh.  Logs that it skipped on a machine
+    of one card (a mesh of one card repeated has no such copy)."""
+    import torch
+    from nomad_tpu_torch.parallel import sharded as ps
+    ran = []
+    for cards in FOLD_LAYOUTS:
+        if torch.cuda.device_count() <= max(max(r) for r in cards):
+            continue
+        mesh = ps.make_mesh(2, 2, devices=[f"cuda:{c}" for r in cards
+                                           for c in r])
+        cases = _cases().bulk_select_cases(N_ROWS, 2, 2)
+        for label, cap, used, f, spread in cases:
+            args = [f[k] for k in SHARD_BULK_ORDER]
+            got = _shard_outputs(ps.place_bulk_batch_sharded(
+                mesh, cap, used, *args, spread_algorithm=spread))
+            want = _shard_outputs(ps.place_bulk_batch_sharded_plain(
+                mesh, cap, used, *args, spread_algorithm=spread))
+            for k, (x, y) in enumerate(zip(got, want)):
+                _bitwise(f"cards {cards}: {label} output {k}", x, y)
+        ran.append(f"{cards} ({len(cases)} cases)")
+    if not ran:
+        log("sharded: K7f's counts with shards on several cards skipped "
+            "(one card: the peer copies of the partials run only across "
+            "cards)")
+        return
+    log(f"sharded: K7f's counts on (2, 2) meshes over cards "
+        f"{'; '.join(ran)}: every output bit-equal to the plain form")
+
+
+def k7_turns(shape=(4, 2), E=8):
+    """K7g and K7f against the parent tree's (PARENT_TREE) in turns
+    (parent, new, new, parent), at n = 4,096 rows a shard (N_ROWS over
+    the mesh's node shards: the engine stream's) and 32,768, W = lanes
+    of `shape`: this tree's K7g without the counts (node shards past 0)
+    and node shard 0's with them (partials i32[W, n_shard, E, 4]) against
+    the parent's K7g, and the parent's own K7f launch (one a lane) alone.
+    Outputs equal (the counts to bulk_counts_plain); kernel alone
+    (profiler) and CUDA events, ms.  The parent's entry points are
+    called through the parent's own ops/_build.py.  Logs that it
+    skipped where there is no parent tree, or where the parent's
+    entry points are not those of a tree with K7f's own launch
+    (_PARENT_K7)."""
+    import ctypes
+    import torch
+    from nomad_tpu_torch.ops import sharded as k7
+    pb = _parent_build()
+    if pb is None:
+        log(f"sharded: K7f/K7g turns against the parent skipped (no tree "
+            f"under {PARENT_TREE})")
+        return
+    if not _parent_has_k7f(pb):
+        log("sharded: K7f/K7g turns against the parent skipped (its "
+            "K7f/K7g entry points take other arguments)")
+        return
+    lib = pb.load("sharded")
+    NS, W = shape
+    vp = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    st = lambda: ctypes.c_void_p(  # noqa: E731
+        torch.cuda.current_stream().cuda_stream)
+    rng = np.random.default_rng(48)
+    for n in (N_ROWS // NS, 32768):
+        u0 = torch.from_numpy((rng.integers(0, 64, (n, 4)) * 12.5)
+                              .astype(np.float32)).cuda()
+        exacts = u0[None] + torch.from_numpy(
+            (rng.random((W, n, 4)) * 70).astype(np.float32)).cuda()
+        partials = torch.from_numpy(rng.integers(
+            0, 4096, (W, NS, E, 4)).astype(np.int32)).cuda()
+        out = torch.empty_like(u0)
+        counts = torch.empty((W, E, 4), dtype=torch.int32, device="cuda")
+
+        def parent_merge():
+            if lib.basis_merge_launch(vp(u0), vp(exacts), vp(out), W, n,
+                                      st()):
+                raise RuntimeError("parent basis_merge launch failed")
+            return out
+
+        def parent_counts():
+            for w in range(W):
+                if lib.bulk_counts_launch(vp(partials[w]), vp(counts[w]),
+                                          NS, E, st()):
+                    raise RuntimeError("parent bulk_counts launch failed")
+            return counts
+
+        def bare():
+            k7.basis_merge(u0, exacts, out)
+            return out
+
+        def fused():
+            k7.basis_merge(u0, exacts, out, partials, counts)
+            return out, counts
+
+        want = torch.empty_like(counts)
+        k7.bulk_counts_plain(partials, want)
+        _bitwise(f"K7g n={n} counts vs bulk_counts_plain",
+                 fused()[1].cpu().numpy(), want.cpu().numpy())
+        _bitwise(f"parent K7f n={n} counts vs bulk_counts_plain",
+                 parent_counts().cpu().numpy(), want.cpu().numpy())
+        _turns(f"K7g n={n} W={W} without the counts", bare,
+               "basis_merge_kernel", old=parent_merge)
+        _turns(f"K7g n={n} W={W} with K7f's counts (E={E}, node shard 0's "
+               f"launch) against the parent's K7g", lambda: fused()[0],
+               "basis_merge_kernel", old=parent_merge)
+        alone = kernel_device_ms(parent_counts, "bulk_counts_kernel")
+        log(f"sharded: parent K7f alone {alone:.5f} ms a launch ({W} "
+            f"launches a bulk call on {shape}, E={E})")
+
+
+# the K7f and K7g entry points of a parent tree where K7f still has a
+# launch of its own (bulk_counts_launch), as k7_turns calls them
+_PARENT_K7 = {"bulk_counts_launch": ["P", "P", "I", "I", "P"],
+              "basis_merge_launch": ["P", "P", "P", "I", "I", "P"]}
+
+
+def _parent_has_k7f(pb) -> bool:
+    """Whether the parent's ops/_build.py `pb` binds K7f and K7g as
+    _PARENT_K7 has them."""
+    import ctypes
+    code = {"P": ctypes.c_void_p, "I": ctypes.c_int}
+    got = pb._ARGTYPES.get("sharded", {})
+    return all(got.get(k) == [code[c] for c in v]
+               for k, v in _PARENT_K7.items())
+
+
+def parent_stream_launches(shape=(4, 2)):
+    """The parent tree's launches by kernel on the engine stream over
+    `shape` (shard_stream), run in a process of its own with the
+    parent's package first on the path (its kernels built inside the
+    parent tree), to hold K7f's launches there against none here; None
+    where there is no parent tree or its K7f has no launch of its own
+    (_parent_has_k7f)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tree = os.path.join(root, PARENT_TREE)
+    pb = _parent_build()
+    if pb is None or not _parent_has_k7f(pb):
+        return None
+    code = (f"import json, sys; sys.path[:0] = [{tree!r}, {root!r}]; "
+            f"import chip_smoke as c; "
+            f"from nomad_tpu_torch.ops import _build; _build.build_all(); "
+            f"_, n, _, _ = c.shard_stream({tuple(shape)!r}); "
+            f"print('LAUNCHES', json.dumps(n))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=900, cwd=root)
+    if r.returncode != 0:
+        raise AssertionError(f"parent stream on {shape}: rc {r.returncode}"
+                             f": {r.stderr[-3000:]}")
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("LAUNCHES ")]
+    return json.loads(line[-1][len("LAUNCHES "):])
 
 
 def check_run_cases():
@@ -4398,6 +4530,9 @@ def phase_sharded():
             replaces=replaces, launches=0, max_abs_err=0.0,
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             library_ms=None, device_ms=dev_ms, host_us=h_us)
+    entries["bulk_counts"] = bulk_counts_entry(kept)
+    k7_turns()
+    check_fold_cards()
 
     k7c_kinds((4, 2))
 
@@ -4417,6 +4552,14 @@ def phase_sharded():
     if missing or st["sharded_evals"] == 0:
         raise AssertionError(f"sharded stream: never launched {missing}; "
                              f"sharded_evals {st['sharded_evals']}")
+    # K7f runs inside node shard 0's K7g launch, none of its own
+    parent = parent_stream_launches((4, 2))
+    theirs = (f"skipped (no tree under {PARENT_TREE}, or its K7f has no "
+              f"launch of its own)") if parent is None else \
+        {k: parent.get(k, 0) for k in ("bulk_counts", *K7_UNITS)}
+    log(f"sharded: K7 launches on the (4, 2) engine stream: "
+        f"{ {k: k7c[k] for k in K7_UNITS} }, K7f inside basis_merge; the "
+        f"parent tree's on the same stream: {theirs}")
     if launches["place_bulk_batch"] or launches["place_batch"]:
         raise AssertionError(f"sharded stream: unsharded kernels ran "
                              f"{launches}")
@@ -4426,9 +4569,8 @@ def phase_sharded():
         f"sharded_evals {st['sharded_evals']}, wave_lanes "
         f"{st['wave_lanes']}, donated_carries {st['donated_carries']}; "
         f"device basis equals host snapshot bit for bit")
-    for name in K7_UNITS:
+    for name in list(K7_UNITS) + ["set_rows_local"]:
         entries[name]["launches"] = k7c[name]
-    entries["set_rows_local"]["launches"] = k7c["set_rows_local"]
 
     # donation off: resolved placements scatter into the sharded basis
     os.environ["NOMAD_TPU_DONATE"] = "0"
@@ -4474,8 +4616,7 @@ def phase_sharded():
     # load: C2M through the spine, 48 workers, (4, 2), cut to LOAD_JOBS jobs
     rate, ld_launches, ld_st, causes = shard_load((4, 2), LOAD_JOBS)
     if not all(ld_launches[k] for k in ("bulk_stats", "bulk_run",
-                                        "bulk_order", "basis_merge",
-                                        "bulk_counts")):
+                                        "bulk_order", "basis_merge")):
         raise AssertionError(f"sharded load: {ld_launches}")
     log(f"sharded: load, {LOAD_JOBS} C2M jobs ({LOAD_JOBS * 100} allocs, "
         f"10,000 nodes, 48 workers) on (4, 2): every alloc committed at "

@@ -46,7 +46,9 @@
 //                    row order, or a radix select) and only they are
 //                    sorted; this shard's share of it, the lane state
 //                    and the stop test; the eval's tail when it ends.
-//   K7f bulk_counts  psum of the shards' n_eval/n_exh partials.
+//   K7f bulk_counts  psum of the shards' n_eval/n_exh partials: no
+//                    launch of its own, node shard 0's K7g launch
+//                    writes it.
 //   K7g basis_merge  used_tot = u0 + psum_wave(exact - u0), a thread a
 //                    row (16-byte loads).
 // Every bulk launch for an eval whose lane state says `done` returns at
@@ -1701,24 +1703,6 @@ bulk_order_kernel(BulkArgs a, int e, const float* __restrict__ stats,
   }
 }
 
-__global__ void bulk_counts_kernel(const int* __restrict__ partials,
-                                   int* __restrict__ out, int nsh, int E) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  int ne = 0, nx = 0;
-  for (int j = 0; j < nsh; ++j) {
-    const int* p = partials + ((size_t)j * E + e) * COUNTS_W;
-    ne += p[1];
-    nx += p[2];
-  }
-  const int* p0 = partials + (size_t)e * COUNTS_W;
-  int* o = out + (size_t)e * COUNTS_W;
-  o[0] = p0[0];
-  o[1] = ne;
-  o[2] = nx;
-  o[3] = p0[3];
-}
-
 // K7g: a thread a row; the row's R = 4 floats come as one 16-byte load
 // from u0 and from each lane's exact carry, every lane's load issued
 // before the adds, which keep the reference's order: acc = (e0 - u) +
@@ -1726,8 +1710,19 @@ __global__ void bulk_counts_kernel(const int* __restrict__ partials,
 // meshes' wave axes), or WL = 0: any W, BASIS_LANES loads in flight at a
 // time.  `out` may be u0 itself (each thread reads its row before it
 // writes it).
+//
+// Node shard 0's launch also carries K7f (CNT; no launch of its own):
+// with `partials` i32[W, nsh, E, 4] (each lane's shards' (placed,
+// n_eval, n_exh, waves) per eval), thread j < W * E writes counts[j] of
+// i32[W, E, 4] for lane j / E, eval j % E: placed and waves from shard
+// 0, n_eval and n_exh summed over the shards in shard order (integers:
+// exact in any order).  Its shards' 16-byte records are loaded with its
+// row, COUNT_LANES at a time, before any arithmetic (a block of its own
+// after the row blocks made the launch slower, PERF.md); the grid
+// covers max(n, W * E) threads.  The wrapper refuses unaligned operands.
 constexpr int BASIS_NT = 128;      // threads a block, by measurement (PERF.md)
 constexpr int BASIS_LANES = 8;
+constexpr int COUNT_LANES = 8;
 static_assert(R == 4, "a row is one float4");
 
 __device__ __forceinline__ float4 sub4(float4 a, float4 b) {
@@ -1738,27 +1733,69 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-template <int WL>
+template <int WL, bool CNT>
 __global__ void __launch_bounds__(BASIS_NT)
 basis_merge_kernel(const float4* u0, const float4* __restrict__ exacts,
-                   float4* out, int W, int n) {
+                   float4* out, int W, int n,
+                   const int4* __restrict__ partials,
+                   int4* __restrict__ counts, int nsh, int E) {
   const int i = blockIdx.x * BASIS_NT + threadIdx.x;
-  if (i >= n) return;
-  const float4 u = u0[i];
-  constexpr int L = WL > 0 ? WL : BASIS_LANES;
-  const int lanes = WL > 0 ? WL : W;
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int w0 = 0; w0 < lanes; w0 += L) {
-    float4 e[L];
+  const bool cnt = CNT && i < W * E;
+  int4 q[COUNT_LANES];
+  const int4* p = partials;
+  if constexpr (CNT) {
+    if (cnt) {
+      const int w = i / E, e = i - w * E;
+      p = partials + (size_t)w * nsh * E + e;
 #pragma unroll
-    for (int k = 0; k < L; ++k)
-      if (w0 + k < lanes) e[k] = exacts[(size_t)(w0 + k) * n + i];
-#pragma unroll
-    for (int k = 0; k < L; ++k)
-      if (w0 + k < lanes) acc = w0 + k == 0 ? sub4(e[k], u)
-                                            : add4(acc, sub4(e[k], u));
+      for (int k = 0; k < COUNT_LANES; ++k)
+        if (k < nsh) q[k] = p[(size_t)k * E];
+    }
   }
-  out[i] = add4(u, acc);
+  if (i < n) {
+    const float4 u = u0[i];
+    constexpr int L = WL > 0 ? WL : BASIS_LANES;
+    const int lanes = WL > 0 ? WL : W;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int w0 = 0; w0 < lanes; w0 += L) {
+      float4 ex[L];
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        if (w0 + k < lanes) ex[k] = exacts[(size_t)(w0 + k) * n + i];
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        if (w0 + k < lanes) acc = w0 + k == 0 ? sub4(ex[k], u)
+                                              : add4(acc, sub4(ex[k], u));
+    }
+    out[i] = add4(u, acc);
+  }
+  if (CNT && cnt) {
+    int ne = 0, nx = 0;
+#pragma unroll
+    for (int k = 0; k < COUNT_LANES; ++k)
+      if (k < nsh) {
+        ne += q[k].y;
+        nx += q[k].z;
+      }
+    for (int s = COUNT_LANES; s < nsh; ++s) {
+      const int4 r = p[(size_t)s * E];
+      ne += r.y;
+      nx += r.z;
+    }
+    counts[i] = make_int4(q[0].x, ne, nx, q[0].w);
+  }
+}
+
+template <int WL>
+void merge_launch(int blocks, cudaStream_t st, const float4* u,
+                  const float4* e, float4* o, int W, int n, const int4* p,
+                  int4* c, int nsh, int E) {
+  if (p)
+    basis_merge_kernel<WL, true><<<blocks, BASIS_NT, 0, st>>>(
+        u, e, o, W, n, p, c, nsh, E);
+  else
+    basis_merge_kernel<WL, false><<<blocks, BASIS_NT, 0, st>>>(
+        u, e, o, W, n, p, c, nsh, E);
 }
 
 // One K7c cluster (its size compiled into the kernel, so an ordinary
@@ -1880,33 +1917,29 @@ extern "C" int bulk_order_launch(const void* args, int e, const float* stats,
   return (int)cudaGetLastError();
 }
 
-extern "C" int bulk_counts_launch(const int* partials, int* out, int nsh,
-                                  int E, void* stream) {
-  if (E <= 0) return 0;
-  bulk_counts_kernel<<<(E + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      partials, out, nsh, E);
-  return (int)cudaGetLastError();
-}
-
-// K7g on one shard of n rows: u0, out f32[n, 4], exacts f32[W, n, 4],
-// each 16-byte aligned (the wrapper checks)
+// K7g on one shard of n rows: u0, out f32[n, 4], exacts f32[W, n, 4];
+// with partials i32[W, nsh, E, 4] (else null) also K7f's counts i32[W,
+// E, 4]; each 16-byte aligned (the wrapper checks)
 extern "C" int basis_merge_launch(const float* u0, const float* exacts,
-                                  float* out, int W, int n, void* stream) {
-  if (n <= 0) return 0;
-  if (W < 1) return (int)cudaErrorInvalidValue;
+                                  float* out, int W, int n,
+                                  const int* partials, int* counts, int nsh,
+                                  int E, void* stream) {
+  if (W < 1 || n < 0 || (partials && (nsh < 1 || E < 0 || !counts)))
+    return (int)cudaErrorInvalidValue;
+  const int threads = partials ? max(n, W * E) : n;
+  const int blocks = (threads + BASIS_NT - 1) / BASIS_NT;
+  if (blocks == 0) return 0;
   const float4* u = reinterpret_cast<const float4*>(u0);
   const float4* e = reinterpret_cast<const float4*>(exacts);
   float4* o = reinterpret_cast<float4*>(out);
-  const int blocks = (n + BASIS_NT - 1) / BASIS_NT;
+  const int4* p = reinterpret_cast<const int4*>(partials);
+  int4* c = reinterpret_cast<int4*>(counts);
   cudaStream_t st = (cudaStream_t)stream;
   switch (W) {
-    case 1: basis_merge_kernel<1><<<blocks, BASIS_NT, 0, st>>>(u, e, o, W, n);
-            break;
-    case 2: basis_merge_kernel<2><<<blocks, BASIS_NT, 0, st>>>(u, e, o, W, n);
-            break;
-    case 4: basis_merge_kernel<4><<<blocks, BASIS_NT, 0, st>>>(u, e, o, W, n);
-            break;
-    default: basis_merge_kernel<0><<<blocks, BASIS_NT, 0, st>>>(u, e, o, W, n);
+    case 1: merge_launch<1>(blocks, st, u, e, o, W, n, p, c, nsh, E); break;
+    case 2: merge_launch<2>(blocks, st, u, e, o, W, n, p, c, nsh, E); break;
+    case 4: merge_launch<4>(blocks, st, u, e, o, W, n, p, c, nsh, E); break;
+    default: merge_launch<0>(blocks, st, u, e, o, W, n, p, c, nsh, E);
   }
   return (int)cudaGetLastError();
 }

@@ -15,14 +15,16 @@
 //
 // What bounds them on this card, at the bench's shape (N = 10,000, M =
 // 16, R = 4): K8a-K8c are elementwise with an R-wide reduction, and
-// bound by bytes (K8a writes the f32[N, M, R] grid, 2.6 MB; K8b reads it
-// back).  K8a-K8c are one thread per (row, m) cell; K8a reads a row as
-// float4 and stores a cell's usage as one float4, so a warp's stores are
-// 512 contiguous bytes (a thread taking 4 cells of a row, its stores 64
-// bytes apart across lanes, measured slower: PERF.md).  K8e is one cluster
-// of PROBE_CLUSTER blocks over the greedy positions: one cluster scan of
-// run[order[k]] gives each position its prefix, and the thread of
-// position k writes row order[k] (a 16-byte usage row and its
+// bound by bytes (K8a writes the f32[N, M, R] grid, 2.6 MB; K8b reads its
+// cpu and mem columns back: 8 bytes of each 16-byte cell, but a 32-byte
+// sector brings all 16).  K8a-K8c are one thread per (row, m) cell; K8a
+// reads a row as float4 and stores a cell's usage as one float4, so a
+// warp's stores are 512 contiguous bytes (a thread taking 4 cells of a
+// row, its stores 64 bytes apart across lanes, measured slower:
+// PERF.md); K8b loads a cell's (cpu, mem) as one float2.  K8e is one
+// cluster of PROBE_CLUSTER blocks over the greedy positions: one
+// cluster scan of run[order[k]] gives each position its prefix, and the
+// thread of position k writes row order[k] (a 16-byte usage row and its
 // co-placements) directly; order is a permutation, so each row is
 // written once, and no pass over the rows follows.  K8d and K8f are
 // bound by latency: a top-2 over every row, then each row's run and its
@@ -65,6 +67,7 @@ constexpr int R = 4;              // resource dims (cpu, mem, disk, net)
 constexpr int PROBE_CLUSTER = 16;
 constexpr int RPT = 8;            // rows a K8e/K8f thread keeps in registers
 constexpr int FEAS_NT = 256;      // threads of a K8a block
+constexpr int FIT_NT = 256;       // threads of a K8b block
 
 // K8d's, K8e's and K8f's cluster exchange: the warps' parts, the block's
 // part the other blocks read, and the cluster's result for the block.
@@ -137,20 +140,23 @@ feasibility_kernel(const float4* __restrict__ cap,
   fits_m[c] = (f && feasible[i] != 0) ? 1 : 0;
 }
 
-// K8b: fit_m f32[N, M] = score_fit(cap, util_m, binpack) / 18
-__global__ void fit_kernel(const float* __restrict__ cap,
-                           const float* __restrict__ util_m, int n, int M,
-                           float* __restrict__ fit_m) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= (long long)n * M) return;
-  const int i = (int)(c / M);
-  float u[R], cp[R];
-#pragma unroll
-  for (int d = 0; d < R; ++d) {
-    u[d] = util_m[c * R + d];
-    cp[d] = cap[(size_t)i * R + d];
-  }
-  fit_m[c] = score_fit(cp, u, 0) * (1.0f / 18.0f);
+// K8b: fit_m f32[N, M] = score_fit(cap, util_m, binpack) / 18.  A thread
+// a cell in 32-bit arithmetic (the launch keeps N * M below 2^31), so a
+// warp's 32 consecutive cells coalesce (a thread taking adjacent cells
+// spreads a warp's accesses apart: a K8a draft so made measured slower,
+// PERF.md).  The fit reads only cpu and mem: one 8-byte load of the
+// cell's (cpu, mem) usage and one of its row's capacity (the wrapper
+// refuses rows that are not 16-byte aligned), and a 4-byte store.
+__global__ void __launch_bounds__(FIT_NT)
+fit_kernel(const float2* __restrict__ cap, const float2* __restrict__ util_m,
+           unsigned cells, unsigned M, float* __restrict__ fit_m) {
+  const unsigned c = blockIdx.x * FIT_NT + threadIdx.x;
+  if (c >= cells) return;
+  static_assert(RES_CPU == 0 && RES_MEM == 1, "(cpu, mem) lead a row");
+  const float2 u = util_m[(size_t)c * (R / 2)];
+  const float2 cp = cap[(size_t)(c / M) * (R / 2)];
+  const float uu[2] = {u.x, u.y}, cc[2] = {cp.x, cp.y};
+  fit_m[c] = score_fit(cc, uu, 0) * (1.0f / 18.0f);
 }
 
 // K8c: score_m f32[N, M]
@@ -590,8 +596,13 @@ extern "C" int feasibility_launch(const float* cap, const float* used,
 
 extern "C" int fit_launch(const float* cap, const float* util_m, int n, int M,
                           float* fit_m, void* stream) {
-  fit_kernel<<<cells_grid(n, M), 256, 0, (cudaStream_t)stream>>>(
-      cap, util_m, n, M, fit_m);
+  const long long cells = (long long)n * M;
+  if (n < 1 || M < 1 || cells >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const unsigned c = (unsigned)cells;
+  fit_kernel<<<(c + FIT_NT - 1) / FIT_NT, FIT_NT, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float2*>(cap),
+      reinterpret_cast<const float2*>(util_m), c, (unsigned)M, fit_m);
   return (int)cudaGetLastError();
 }
 

@@ -81,8 +81,8 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
         "sharded_set_jitter": [_I, _P],
         "bulk_run_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _P],
         "bulk_order_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _P],
-        "bulk_counts_launch": [_P, _P, _I, _I, _P],
-        "basis_merge_launch": [_P, _P, _P, _I, _I, _P],
+        # K7g, and K7f's counts in node shard 0's launch (else nulls)
+        "basis_merge_launch": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
     },
 }
 

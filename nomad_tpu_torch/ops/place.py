@@ -298,8 +298,28 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+def _stream(dev) -> int:
+    """The handle of the current stream on a card (its index, as
+    `Tensor.get_device()` gives it, or its torch.device), as
+    torch.cuda.current_stream(dev).cuda_stream gives it, without building
+    a Stream object (6 us of host time a launch on the H100, PERF.md)."""
+    idx = dev if isinstance(dev, int) else dev.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if idx is None else idx)
+
+
+def _on_card(idx: int, entry, *args) -> int:
+    """`entry(*args)`, a kernel's C entry point, with card `idx` (as
+    `Tensor.get_device()` gives it) current for the call, the caller's
+    card current again after it.  The mesh's wrappers launch for shards
+    on every card: a launch into another card's stream with card 0
+    current faulted on a four-card H100 machine (an illegal address,
+    PERF.md)."""
+    prev = torch.cuda._exchange_device(idx)
+    try:
+        return entry(*args)
+    finally:
+        torch.cuda._maybe_exchange_device(prev)
 
 
 def _check(name: str, t: torch.Tensor, dev: torch.device, dtype,
@@ -1351,6 +1371,51 @@ def scan_model_cases(seed: int = 0) -> list:
         deltas.append([(-1, v), (-n, 2 * v), (-n - 1, v), (n, v),
                        (n - 1, -v), (r - n, v), (r, 3 * v)])
     add("deltas: negative rows", evals, deltas)
+
+    # scores of NaN and -inf on fitting rows.  Each touches group 0 only
+    # and the slots alternate groups 0 and 1, so group 1's slots place:
+    # where a fitting row of the slot's group scores NaN, jnp.argmax picks
+    # it and `masked[sel] > -inf` places nothing; a NaN ranks in the
+    # top-5 by its sign (lax.top_k: +NaN first, -NaN last).  On the card
+    # every NaN the arithmetic gives is +NaN.
+    def nan_group0(f, row=None):
+        f["slot_tg"][:] = [0, 1] * 12
+        if row is not None:
+            f["feasible"][0, row] = True
+            f["feasible"][1, row] = False
+            f["place_cap"][0, row] = -1
+        return f
+
+    # +inf capacity and usage on one row: 1 - inf / inf
+    icap, iused, r_inf = cap.copy(), used.copy(), 17
+    icap[r_inf, 0] = iused[r_inf, 0] = np.inf
+    add("a fitting row scoring NaN (+inf capacity and usage)",
+        [nan_group0(one_spread(new(icap, iused)), r_inf)] * 2)
+
+    # every fitting row of group 0 at an affinity of -inf: the top score
+    # is -inf, as are the rows that do not fit (every fifth row full)
+    full = used.copy()
+    full[::5] = cap[::5]
+    f = nan_group0(one_spread(new(cap, full)))
+    f["affinity"][0] = -np.inf
+    f["has_affinity"][0] = True
+    add("every fitting row scoring -inf beside rows that do not fit",
+        [f, f])
+
+    # an affinity of +NaN on one row (the CPU's add keeps its sign): a
+    # NaN ranked first in the top-5, finite fitting rows after it
+    nan_bits = lambda b: np.array([b], np.uint32).view(np.float32)[0]  # noqa
+    f = nan_group0(one_spread(new()), 40)
+    f["affinity"][0, 40] = nan_bits(0x7FC00000)
+    f["has_affinity"][0] = True
+    add("a NaN row in the top-5 beside finite fitting rows", [f, f])
+
+    # an affinity of -NaN on one row: the score is -NaN on the CPU (last
+    # in lax.top_k's order, still jnp.argmax's pick), +NaN on the card
+    f = nan_group0(one_spread(new()), 9)
+    f["affinity"][0, 9] = nan_bits(0xFFC00000)
+    f["has_affinity"][0] = True
+    add("a row scoring -NaN", [f, f])
     return cases
 
 

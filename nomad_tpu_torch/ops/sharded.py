@@ -36,7 +36,8 @@ kernels write (parallel/sharded.py sequences them).
   deltas backed out) when the stop test ends the eval.  The kernel
   selects the order's first min(remaining, |wave|) rows instead of
   sorting the wave (no global scratch).
-- K7f `bulk_counts`: the psum of the shards' n_eval/n_exh partials.
+- K7f `bulk_counts`: the psum of the shards' n_eval/n_exh partials.  It
+  has no launch of its own: node shard 0's K7g launch carries it.
 - K7g `basis_merge`: `used_tot = u0 + psum_wave(exact - u0)` on one shard.
 
 Each has a plain PyTorch version here, which the wrapper takes for CPU
@@ -68,6 +69,8 @@ from nomad_tpu_torch.ops.place import (
     _lax_top_k,
     _partial_scores,
     _spread_boost,
+    _on_card,
+    _stream,
     bulk_run_lengths,
     bulk_wave_grid,
 )
@@ -93,8 +96,7 @@ SCAN_CACHE_META = 8
 F_FEAS, F_FITS = 1, 2               # flag word bits; the scorer count << 2
 
 launches = {"scan_local": 0, "scan_apply": 0, "bulk_stats": 0,
-            "bulk_run": 0, "bulk_order": 0, "bulk_counts": 0,
-            "basis_merge": 0}
+            "bulk_run": 0, "bulk_order": 0, "basis_merge": 0}
 
 
 def _f(t: torch.Tensor) -> torch.Tensor:
@@ -105,13 +107,6 @@ def _f(t: torch.Tensor) -> torch.Tensor:
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """A tensor's address for a c_void_p argument (None: NULL)."""
     return None if t is None else t.data_ptr()
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The handle of the current stream on t's card, as
-    torch.cuda.current_stream(dev).cuda_stream gives it, without building
-    a Stream object (6 us of host time a launch on the H100, PERF.md)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _packed(cls, values) -> tuple:
@@ -491,11 +486,13 @@ def scan_local(sh: ScanShard, s: int, init: bool,
         return scan_local_plain(sh, s, init, used_in, delta_rows, delta_vals,
                                 recs, shard, spread_algorithm)
     lib = _build.load("sharded")
-    rc = lib.scan_local_launch(
+    dev = sh.used.get_device()
+    rc = _on_card(
+        dev, lib.scan_local_launch,
         _scan_args(sh), _ptr(used_in), _ptr(delta_rows), _ptr(delta_vals),
         0 if delta_rows is None else delta_rows.shape[0], int(s),
         int(bool(init)), _ptr(recs), int(shard), int(bool(spread_algorithm)),
-        _stream(sh.used))
+        _stream(dev))
     _launched("scan_local", rc)
 
 
@@ -643,9 +640,9 @@ def scan_apply(sh: ScanShard, s: int, recs: torch.Tensor,
     if _kind(sh.used, "scan_apply") == "cpu":
         return scan_apply_plain(sh, s, recs, out)
     lib = _build.load("sharded")
-    rc = lib.scan_apply_launch(_scan_args(sh), int(s), _ptr(recs),
-                               recs.shape[0], _ptr(out),
-                               _stream(sh.used))
+    dev = sh.used.get_device()
+    rc = _on_card(dev, lib.scan_apply_launch, _scan_args(sh), int(s),
+                  _ptr(recs), recs.shape[0], _ptr(out), _stream(dev))
     _launched("scan_apply", rc)
 
 
@@ -936,10 +933,10 @@ def bulk_stats(sh: BulkShard, e: int, begin: bool, stats: torch.Tensor,
         return bulk_stats_plain(sh, e, begin, stats, cur_g, shard, spread,
                                 max_waves)
     lib = _build.load("sharded")
-    rc = lib.bulk_stats_launch(_bulk_args(sh), int(e), int(bool(begin)),
-                               _ptr(stats), _ptr(cur_g), int(shard),
-                               int(bool(spread)), int(max_waves),
-                               _stream(sh.used))
+    dev = sh.used.get_device()
+    rc = _on_card(dev, lib.bulk_stats_launch, _bulk_args(sh), int(e),
+                  int(bool(begin)), _ptr(stats), _ptr(cur_g), int(shard),
+                  int(bool(spread)), int(max_waves), _stream(dev))
     _launched("bulk_stats", rc)
 
 
@@ -954,10 +951,10 @@ def bulk_run(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
     if _kind(sh.used, "bulk_run") == "cpu":
         return bulk_run_plain(sh, e, stats, cur_g, base_g, spread, fill_grid)
     lib = _build.load("sharded")
-    rc = lib.bulk_run_launch(_bulk_args(sh), int(e), _ptr(stats),
-                             stats.shape[0], _ptr(cur_g), _ptr(base_g),
-                             int(bool(spread)), int(fill_grid),
-                             _stream(sh.used))
+    dev = sh.used.get_device()
+    rc = _on_card(dev, lib.bulk_run_launch, _bulk_args(sh), int(e),
+                  _ptr(stats), stats.shape[0], _ptr(cur_g), _ptr(base_g),
+                  int(bool(spread)), int(fill_grid), _stream(dev))
     _launched("bulk_run", rc)
 
 
@@ -971,55 +968,52 @@ def bulk_order(sh: BulkShard, e: int, stats: torch.Tensor, cur_g: torch.Tensor,
         raise ValueError("bulk_order: the kernel reads the gathered vectors "
                          "16 bytes at a time")
     lib = _build.load("sharded")
-    rc = lib.bulk_order_launch(_bulk_args(sh), int(e), _ptr(stats),
-                               stats.shape[0], _ptr(cur_g), _ptr(base_g),
-                               int(bool(spread)), int(max_waves),
-                               _stream(sh.used))
+    dev = sh.used.get_device()
+    rc = _on_card(dev, lib.bulk_order_launch, _bulk_args(sh), int(e),
+                  _ptr(stats), stats.shape[0], _ptr(cur_g), _ptr(base_g),
+                  int(bool(spread)), int(max_waves), _stream(dev))
     _launched("bulk_order", rc)
 
 
 def bulk_counts_plain(partials: torch.Tensor, out: torch.Tensor) -> None:
-    """Plain version of K7f: out[e] = (placed, psum n_eval, psum n_exh,
-    waves) from the shards' partials i32[n_shard, E, 4] (placed and
-    waves are the same on every shard)."""
-    out[:, 0] = partials[0, :, 0]
-    out[:, 1] = torch.sum(partials[:, :, 1], dim=0).to(torch.int32)
-    out[:, 2] = torch.sum(partials[:, :, 2], dim=0).to(torch.int32)
-    out[:, 3] = partials[0, :, 3]
-
-
-def bulk_counts(partials: torch.Tensor, out: torch.Tensor) -> None:
-    """K7f wrapper (see bulk_counts_plain)."""
-    if _kind(out, "bulk_counts") == "cpu":
-        return bulk_counts_plain(partials, out)
-    if partials.device != out.device or not partials.is_contiguous() \
-            or not out.is_contiguous():
-        raise ValueError("bulk_counts: contiguous operands on one device")
-    lib = _build.load("sharded")
-    n_shard, E, _ = partials.shape
-    rc = lib.bulk_counts_launch(_ptr(partials), _ptr(out), n_shard, E,
-                                _stream(out))
-    _launched("bulk_counts", rc)
+    """Plain version of K7f: out[..., e, :] = (placed, psum n_eval, psum
+    n_exh, waves) from the shards' partials i32[..., n_shard, E, 4]
+    (placed and waves are the same on every shard); the leading axes,
+    where there are any, are the lanes."""
+    out[..., 0] = partials[..., 0, :, 0]
+    out[..., 1] = torch.sum(partials[..., 1], dim=-2).to(torch.int32)
+    out[..., 2] = torch.sum(partials[..., 2], dim=-2).to(torch.int32)
+    out[..., 3] = partials[..., 0, :, 3]
 
 
 def basis_merge_plain(u0: torch.Tensor, exacts: torch.Tensor,
-                      out: torch.Tensor) -> None:
+                      out: torch.Tensor,
+                      partials: Optional[torch.Tensor] = None,
+                      counts: Optional[torch.Tensor] = None) -> None:
     """Plain version of K7g: out = u0 + psum_w(exacts[w] - u0), the lanes'
     deltas summed in lane order (line 636).  `out` may be `u0` itself
-    (the donated basis)."""
+    (the donated basis).  With `partials` i32[W, n_shard, E, 4] (node
+    shard 0's call, where the kernel's launch carries K7f) it then
+    writes `bulk_counts_plain(partials, counts)`, counts i32[W, E, 4]."""
     acc = exacts[0] - u0
     for w in range(1, exacts.shape[0]):
         acc = acc + (exacts[w] - u0)
     out.copy_(u0 + acc)
+    if partials is not None:
+        bulk_counts_plain(partials, counts)
 
 
-def basis_merge(u0: torch.Tensor, exacts: torch.Tensor,
-                out: torch.Tensor) -> None:
-    """K7g wrapper (see basis_merge_plain).  The kernel reads a row's 4
-    floats as one 16-byte load, so it refuses unaligned operands."""
+def basis_merge(u0: torch.Tensor, exacts: torch.Tensor, out: torch.Tensor,
+                partials: Optional[torch.Tensor] = None,
+                counts: Optional[torch.Tensor] = None) -> None:
+    """K7g wrapper (see basis_merge_plain); with `partials` the same
+    launch also writes K7f's counts (thread j its counts[j]).  The
+    kernel reads a row's 4 floats, and a count record's 4 ints, as one
+    16-byte load, so it refuses unaligned operands."""
     if _kind(out, "basis_merge") == "cpu":
-        return basis_merge_plain(u0, exacts, out)
+        return basis_merge_plain(u0, exacts, out, partials, counts)
     n, R = u0.shape
+    W = exacts.shape[0]
     f32 = torch.float32
     if R != 4 or exacts.shape[1:] != (n, R) or out.shape != (n, R) or \
             not (u0.dtype == exacts.dtype == out.dtype == f32) or \
@@ -1028,10 +1022,26 @@ def basis_merge(u0: torch.Tensor, exacts: torch.Tensor,
                     and out.is_contiguous()):
         raise ValueError("basis_merge: f32[n, 4], f32[W, n, 4], f32[n, 4] "
                          "contiguous on one card")
-    if (u0.data_ptr() | exacts.data_ptr() | out.data_ptr()) % 16:
+    ops = [u0, exacts, out]
+    nsh = E = 0
+    if partials is not None:
+        _, nsh, E, _ = partials.shape
+        if partials.shape != (W, nsh, E, COUNTS_W) or counts is None or \
+                counts.shape != (W, E, COUNTS_W) or \
+                not (partials.dtype == counts.dtype == torch.int32) or \
+                not (partials.get_device() == counts.get_device()
+                     == out.get_device()) or \
+                not (partials.is_contiguous() and counts.is_contiguous()):
+            raise ValueError("basis_merge: partials i32[W, n_shard, E, 4] "
+                             "and counts i32[W, E, 4] contiguous on the "
+                             "card of the basis")
+        ops += [partials, counts]
+    if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("basis_merge: the kernel reads rows 16 bytes at a "
                          "time; an operand is not 16-byte aligned")
     lib = _build.load("sharded")
-    rc = lib.basis_merge_launch(_ptr(u0), _ptr(exacts), _ptr(out),
-                                exacts.shape[0], n, _stream(out))
+    dev = out.get_device()
+    rc = _on_card(dev, lib.basis_merge_launch, _ptr(u0), _ptr(exacts),
+                  _ptr(out), W, n, _ptr(partials), _ptr(counts), nsh, E,
+                  _stream(dev))
     _launched("basis_merge", rc)

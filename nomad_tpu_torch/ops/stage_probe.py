@@ -300,6 +300,7 @@ def fit(capacity, util_m):
     _check_r("stage_fit", R)
     _check("fit.capacity", capacity, dev, _F32, (N, R))
     _check("fit.util_m", util_m, dev, _F32, (N, M, R))
+    _check_rows16("stage_fit", capacity, util_m)
     fit_m = torch.empty((N, M), dtype=_F32, device=dev)
     rc = _build.load("stage_probe").fit_launch(
         _ptr(capacity), _ptr(util_m), N, M, _ptr(fit_m), _stream(dev))

@@ -861,8 +861,9 @@ def place_bulk_batch_sharded_staged(mesh: Mesh, capacity, used0, feasible,
     """`place_bulk_batch_sharded` over the shard-local kernels: a round
     launches one wave of every unfinished lane (K7c on each shard, one
     gather of the statistics, K7d, one gather of the [N] score and run
-    vectors, K7e), then reads the lanes' done flags once; K7f sums the
-    lanes' counts and K7g merges the basis at the end.  Evals with a
+    vectors, K7e), then reads the lanes' done flags once; K7g merges the
+    basis at the end, and node shard 0's K7g launch also sums the lanes'
+    counts (K7f, no launch of its own).  Evals with a
     count of 0 (lane pads) start and end inside one K7c launch without a
     round of their own."""
     f32, i32 = torch.float32, torch.int32
@@ -892,12 +893,17 @@ def place_bulk_batch_sharded_staged(mesh: Mesh, capacity, used0, feasible,
             states.setdefault(d, torch.zeros((W, NS, _k7.STATE_W), dtype=i32,
                                              device=d))
     lane0 = [mesh.device(0, w) for w in range(W)]
-    partials = [torch.zeros((NS, E, _k7.COUNTS_W), dtype=i32, device=lane0[w])
-                for w in range(W)]
+    # every lane's shards' counts, summed by node shard 0's K7g launch
+    # (on home[0], which is out_dev); a lane whose shard 0 is on another
+    # card gathers its shards' counts there and copies them over once
+    partials = torch.zeros((W, NS, E, _k7.COUNTS_W), dtype=i32,
+                           device=out_dev)
     ctx: List[List[_k7.BulkShard]] = []
     copies = []                     # (local output, its destination)
     for w in range(W):
         devs = mesh.column(w)
+        gather = partials[w] if lane0[w] == out_dev else torch.zeros(
+            (NS, E, _k7.COUNTS_W), dtype=i32, device=lane0[w])
         row = []
         for i in range(NS):
             d = devs[i]
@@ -912,10 +918,10 @@ def place_bulk_batch_sharded_staged(mesh: Mesh, capacity, used0, feasible,
                 s_v = torch.zeros((E, n), dtype=f32, device=d)
                 copies += [(a_v, assign_o[w, :, sl]), (s_v, scores_o[w, :, sl])]
             if d == lane0[w]:
-                p_v = partials[w][i]
+                p_v = gather[i]
             else:
                 p_v = torch.zeros((E, _k7.COUNTS_W), dtype=i32, device=d)
-                copies.append((p_v, partials[w][i]))
+                copies.append((p_v, gather[i]))
             if d != home[i]:
                 copies.append((exact, exacts[i][w]))
             L = {k: v[w][i] for k, v in lanes.items()}
@@ -932,6 +938,8 @@ def place_bulk_batch_sharded_staged(mesh: Mesh, capacity, used0, feasible,
                 assign=a_v, scores=s_v, partial=p_v,
                 state=states[d][w, i],
             ).check())
+        if lane0[w] != out_dev:
+            copies.append((gather, partials[w]))
         ctx.append(row)
     slots1 = [(i, i + 1) for i in range(NS)]
     slotsn = [(offs[i], offs[i] + n) for i in range(NS)]
@@ -984,16 +992,13 @@ def place_bulk_batch_sharded_staged(mesh: Mesh, capacity, used0, feasible,
         live = nxt
     for src, dst in copies:
         dst.copy_(src)
-    for w in range(W):
-        dst = counts_o[w] if lane0[w] == out_dev else torch.empty(
-            (E, _k7.COUNTS_W), dtype=i32, device=lane0[w])
-        _k7.bulk_counts(partials[w], dst)
-        if dst.data_ptr() != counts_o[w].data_ptr():
-            counts_o[w].copy_(dst)
     used_tot = []
     for i in range(NS):
         out = u0[i] if donate else torch.empty_like(u0[i])
-        _k7.basis_merge(u0[i], exacts[i], out)
+        if i == 0:
+            _k7.basis_merge(u0[i], exacts[i], out, partials, counts_o)
+        else:
+            _k7.basis_merge(u0[i], exacts[i], out)
         used_tot.append(out)
     return (assign_o, scores_o, counts_o[..., 0], counts_o[..., 1],
             counts_o[..., 2], counts_o[..., 3], used_tot)

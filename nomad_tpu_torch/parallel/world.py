@@ -47,6 +47,7 @@ import torch
 from nomad_tpu_torch import native as _native
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.ops import _build
+from nomad_tpu_torch.ops.place import _on_card, _stream
 
 # dirty-row buckets of the row scatter
 ROW_BUCKETS = (64, 512, 4096)
@@ -214,14 +215,11 @@ def scatter_segments(name: str, segs) -> None:
         lib = _build.load("world_scatter")
         _entries[:] = [lib.set_rows_launch, lib.add_rank1_launch]
     fn = _entries[add]
-    # the current stream's handle, as torch.cuda.current_stream(dev)
-    # .cuda_stream gives it, without building a Stream object (which
-    # takes more host time than the launch itself)
-    stream = torch._C._cuda_getCurrentRawStream(dev)
+    stream = _stream(dev)
     for k in range(0, len(recs), MAX_SEGMENTS):
         part = recs[k:k + MAX_SEGMENTS]
-        rc = fn(part[0] if len(part) == 1 else b"".join(part), len(part),
-                stream)
+        rc = _on_card(dev, fn, part[0] if len(part) == 1 else
+                      b"".join(part), len(part), stream)
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
         launches[name] += 1

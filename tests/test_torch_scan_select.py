@@ -130,6 +130,31 @@ def test_cases_cover_what_they_name():
     assert all(any(r >= 61 for r, _ in d) for d in deltas)
     assert all(len({r for r, _ in d}) < len(d) for d in deltas)
 
+    # NaN and -inf scores on group 0's slots (the even ones): none places,
+    # every group-1 slot does
+    def nan_slots(label):
+        inp, out = plain(label)
+        assert (out[0][0::2] == -1).all() and (out[0][1::2] >= 0).all()
+        return inp, out
+    inp, out = nan_slots("a fitting row scoring NaN (+inf capacity and usage)")
+    r = 17
+    assert bool(inp.feasible[0, r]) and np.isinf(inp.capacity[r, 0].item())
+    fit = tp.score_fit(inp.capacity[r], inp.used[r] + inp.demand[0], False)
+    # the CPU's inf / inf is -NaN, so the row ranks last, out of the top-5
+    assert fit.numpy().view(np.uint32) == 0xFFC00000
+    assert r not in out[5][0]
+    _, out = nan_slots("every fitting row scoring -inf beside rows that do "
+                       "not fit")
+    assert (out[6][0] == -np.inf).all() and out[5][0].tolist() == [0, 1, 2,
+                                                                   3, 4]
+    assert out[3][0] > out[4][0] > 0        # rows that do not fit
+    _, out = nan_slots("a NaN row in the top-5 beside finite fitting rows")
+    assert out[5][0, 0] == 40 and np.isnan(out[6][0, 0])
+    assert np.isfinite(out[6][0, 1:]).all()
+    inp, out = nan_slots("a row scoring -NaN")
+    assert inp.affinity[0, 9].numpy().view(np.uint32) == 0xFFC00000
+    assert 9 not in out[5][0] and np.isfinite(out[6][0]).all()
+
 
 @SPREAD
 @CASE
