@@ -50,11 +50,19 @@ Phases, all run in this order:
            rows, a count above every run), K8d/K8e/K8f also under
            three seeds of the delays at their cluster exchanges (K8a
            rerun under them too; K8a and K8b have no delay site);
-           each K8 wrapper's host time with the raw stream read and
-           with a Stream object, in turns; and, where a parent tree is
-           unpacked under smoke_archive/parent, K8b timed in turns
-           against the parent's (parent, new, new, parent), its library
-           built and bound by its own ops/_build.py.
+           each K8 wrapper's host time with and without `_on_card`
+           (the launch with the operands' card current), in turns; K8c
+           bit for bit on its own cases (tests/_stage_cases.py
+           score_inputs: M = 1, 3, 7, 16 and 64, affinities of -0.0,
+           NaN and +-inf, NaN penalties, desired counts of 0, 0.5 and
+           NaN, collisions past 2^24) and K8f and K1 on the wave grid's
+           score cases (wave_score_inputs); and, where a parent tree is
+           unpacked under smoke_archive/parent, K8c timed in turns
+           against the parent's (parent, new, new, parent: the kernel
+           alone at every STAGE_SHAPES shape, the wrapper's host time a
+           call at the bench's), its library built and bound by its own
+           ops/_build.py, and the parent's K8c held to this tree's plain
+           version on the cases where it departed from the reference.
   slice    the engine-off path (NOMAD_TPU_ENGINE=0): the scheduler's
            eval-to-commit path through the entry points a user calls
            (Harness(device="cuda") -> GenericScheduler -> DenseStack ->
@@ -119,10 +127,9 @@ Phases, all run in this order:
            hand-set records on 1, 2, 4 and 8 shards, ties, +0.0/-0.0,
            -inf tails, NaN, K = 1 and 64) and K7g at 32,768 rows a shard
            with W = 1, 2 and 4 lanes (out a fresh tensor and the donated
-           basis), each bit-equal to its plain version; K7g and the
-           parent's K7g and K7f timed in turns (k7_turns, where a parent
-           tree is unpacked), and the staged path on meshes over several
-           cards where there are several (check_fold_cards); K7e's
+           basis), each bit-equal to its plain version; the staged path
+           on meshes over several cards where there are several
+           (check_fold_cards); K7e's
            selection cases (tests/_sharded_cases.py, at N =
            16,384, and count-512 evals at 131,072), every K7c-K7g call
            checked (K7g's with the counts it writes), each case again
@@ -136,8 +143,7 @@ Phases, all run in this order:
            10,000-node stream on a (4, 2)
            engine (the main path: K7's counts are read there; K7f has
            none of its own, node shard 0's K7g launch writing its
-           counts; the parent tree's counts on the same stream, from a
-           process of its own) with
+           counts) with
            per-job row maps equal to the single-device engine's, a
            donation-off run (K5' add_rank1_local), bench_e2e_spine's
            shape on (8, 1) with one worker against the single-device
@@ -1845,26 +1851,26 @@ def check_stage_probe():
         p_ms = time_cuda(plain)
         bound, by = _bound(nbytes[name], ops[name])
         alone = kernel_device_ms(kern, STAGE_KERNELS[name])
-        # the wrapper's host time, and with the stream read as a Stream
-        # object (the parent's ops/place.py _stream), in turns
+        # the wrapper's host time, and without _on_card (its share), in
+        # turns
         host = {}
-        for turn in ("object", "raw", "raw", "object"):
-            with _stream_object(sp) if turn == "object" else \
+        for turn in ("bare", "on_card", "on_card", "bare"):
+            with _without_on_card(sp) if turn == "bare" else \
                     contextlib.nullcontext():
                 host.setdefault(turn, []).append(host_us(kern, n=500))
         log(f"kernels: {name} N={n} M={M}: integers equal, floats "
             f"{'bit-equal' if bits else f'max |err| {err:.3g}'}; kernel "
             f"{k_ms:.4f} ms (alone {alone:.4f} ms, wrapper's host time "
-            f"{'/'.join(f'{h:.2f}' for h in host['raw'])} us a call, "
-            f"{'/'.join(f'{h:.2f}' for h in host['object'])} with the "
-            f"stream read as a Stream object), plain {p_ms:.4f} ms, bound "
-            f"{bound:.6f} ms ({by})")
+            f"{'/'.join(f'{h:.2f}' for h in host['on_card'])} us a call, "
+            f"{'/'.join(f'{h:.2f}' for h in host['bare'])} without "
+            f"_on_card), plain {p_ms:.4f} ms, bound {bound:.6f} ms ({by})")
         jax_fn, replaces = STAGE_UNITS[name]
         entries[name] = dict(
             name=name, route="cuda",
             source="nomad_tpu_torch/csrc/stage_probe.cu", replaces=replaces,
             jax_function=jax_fn, launches=0, max_abs_err=err, ms=k_ms,
-            plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None)
+            plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            device_ms=alone, host_us=statistics.median(host["on_card"]))
     # the fused wave against the chain of the five unit kernels
     k_util, k_fits = sp.feasibility(cap, used, dem, feas, ms_)
     k_fit = sp.fit(cap, k_util)
@@ -1881,24 +1887,56 @@ def check_stage_probe():
         f"({int(fused[2])} of {x['count']}) equal to the K8a->K8e kernel "
         f"chain")
     check_stage_cases()
+    check_score_cases()
     stage_turns()
     return entries
 
 
+def score_host_us(kinds):
+    """The K8c wrapper's host time a call (us, 500 calls back to back)
+    at the bench's shape (N = 10,000, M = 16), of the nomad_tpu_torch
+    first on sys.path, for each of `kinds` in turn: "new" the wrapper as
+    it is, "bare" without `_on_card`."""
+    from nomad_tpu_torch.ops import stage_probe as sp
+    from nomad_tpu_torch.parallel import stage_probe as psp
+    args = _score_args(psp.probe_inputs(N_NODES, fill_grid=16,
+                                        device="cuda"))
+    out = []
+    for kind in kinds:
+        with _without_on_card(sp) if kind == "bare" else \
+                contextlib.nullcontext():
+            out.append(host_us(lambda: sp.score(*args), n=500))
+    return out
+
+
+def _host_turn(tree, kinds):
+    """score_host_us(kinds) in a process of its own with the package of
+    `tree` (a checkout's root) first on the path; the kernels of a
+    parent tree are built inside it by its own ops/_build.py."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import json, sys; sys.path[:0] = [{tree!r}, {root!r}]; "
+            f"import chip_smoke as c; "
+            f"print('HOST', json.dumps(c.score_host_us({tuple(kinds)!r})))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=root)
+    if r.returncode != 0:
+        raise AssertionError(f"host time turn in {tree}: rc {r.returncode}"
+                             f": {r.stderr[-3000:]}")
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("HOST ")]
+    return json.loads(line[-1][len("HOST "):])
+
+
 @contextlib.contextmanager
-def _stream_object(module):
-    """`module`'s wrappers reading the current stream through a
-    torch.cuda.current_stream(dev) Stream object, as before ops/place.py
-    read the raw handle, while the block runs."""
-    import ctypes
-    import torch
-    raw = module._stream
-    module._stream = lambda dev: ctypes.c_void_p(
-        torch.cuda.current_stream(dev).cuda_stream)
+def _without_on_card(module):
+    """`module`'s wrappers calling their C entry points directly, with
+    whatever card is current (the parent tree's form), while the block
+    runs: what ops/place.py `_on_card` costs a call."""
+    on_card = module._on_card
+    module._on_card = lambda idx, entry, *args: entry(*args)
     try:
         yield
     finally:
-        module._stream = raw
+        module._on_card = on_card
 
 
 # the kernel's name in the profiler, per K8 wrapper
@@ -2036,6 +2074,67 @@ def check_stage_cases():
             f"row order")
 
 
+def _score_args(x, dev="cuda"):
+    """K8c's arguments (fit_m, coll, ms, desired_f, penalty, affinity,
+    has_affinity) on `dev`: from score_inputs' numpy dict, or from the
+    probe's inputs (fit_m from the plain K8a->K8b chain)."""
+    import torch
+    from nomad_tpu_torch.ops import stage_probe as sp
+    t = lambda v: (torch.from_numpy(v).to(dev)  # noqa: E731
+                   if isinstance(v, np.ndarray) else v)
+    x = {k: t(v) for k, v in x.items()}
+    if "fit_m" not in x:
+        util_m, _ = sp.feasibility_plain(x["capacity"], x["used"],
+                                         x["demand"], x["feasible"], x["ms"])
+        x["fit_m"] = sp.fit_plain(x["capacity"], util_m)
+    return tuple(x[k] for k in ("fit_m", "coll", "ms", "desired_f",
+                                "penalty", "affinity", "has_affinity"))
+
+
+def check_score_cases():
+    """K8c bit-equal to its plain version (NaN against NaN) on its own
+    cases (tests/_stage_cases.py score_inputs: each of SCORE_KINDS at
+    each fill grid of SCORE_GRIDS, M = 1, 3, 7, 16 and 64) at 33 rows
+    (a warp's lanes past the last cell) and 10,000; then K8f and K1,
+    whose score stack is K8c's, bit-equal to theirs on the wave grid's
+    score cases (wave_score_inputs: a desired count of 0, 0.5 and NaN,
+    collisions past 2^24; K1 takes an integer desired count) at 10,000
+    rows."""
+    import torch
+    from nomad_tpu_torch.ops import place as tp
+    from nomad_tpu_torch.ops import stage_probe as sp
+    stc = _cases("_stage_cases")
+    cases = 0
+    for n in (33, N_NODES):
+        for kind in stc.SCORE_KINDS:
+            for M in stc.SCORE_GRIDS:
+                args = _score_args(stc.score_inputs(kind, n, M, seed=n + M))
+                got, want = sp.score(*args), sp.score_plain(*args)
+                torch.cuda.synchronize()
+                _same(f"K8c {kind}, N={n}, M={M}", got.cpu().numpy(),
+                      want.cpu().numpy())
+                cases += 1
+    for kind in stc.WAVE_SCORE_KINDS:
+        x = stc.wave_score_inputs(kind, N_NODES, 16, "cuda")
+        args = _fused_args(x)
+        for k, (g, w) in enumerate(zip(sp.fused_wave(*args),
+                                       sp.fused_wave_plain(*args))):
+            _same(f"K8f {kind} output {k}", g.cpu().numpy(),
+                  w.cpu().numpy())
+        if kind != "desired NaN":
+            k1 = (x["capacity"], x["used"], x["feasible"], x["affinity"],
+                  True, int(x["desired_f"]), x["penalty"] > 0, x["coll"],
+                  x["demand"], x["count"], False, 64, 16)
+            _same(f"K1 {kind}", tp.place_bulk(*k1).cpu().numpy(),
+                  tp.place_bulk_plain(*k1).cpu().numpy())
+    log(f"kernels: K8c bit-equal to its plain version on {cases} cases "
+        f"({', '.join(stc.SCORE_KINDS)}; M = "
+        f"{', '.join(map(str, stc.SCORE_GRIDS))}; N = 33 and {N_NODES}); "
+        f"K8f and K1 bit-equal to theirs on the wave grid's score cases "
+        f"({', '.join(stc.WAVE_SCORE_KINDS)}; K1 not on a NaN desired "
+        f"count)")
+
+
 # where a tree of the parent commit may be unpacked (`git archive`) to
 # time its stage-probe kernels beside this tree's in the same run
 PARENT_TREE = "smoke_archive/parent"
@@ -2071,15 +2170,21 @@ def _kernels_from(kernel, lib):
 
 
 def stage_turns():
-    """K8b against the parent tree's (PARENT_TREE) in turns (parent,
+    """K8c against the parent tree's (PARENT_TREE) in turns (parent,
     new, new, parent) on the probe's inputs at every shape of
     STAGE_SHAPES: outputs equal, the CUDA-event time of the wrapper call
-    and the kernel alone (profiler), ms, beside the unit's bound (and
-    the bound with every 16-byte cell read whole, as its 32-byte sectors
-    bring it).  The parent's library is built and bound by the parent's
-    own ops/_build.py, and this tree's wrapper launches on it where its
-    fit_launch takes this tree's arguments.  Logs that it skipped where
-    PARENT_TREE holds no tree or the arguments differ."""
+    and the kernel alone (profiler), ms, beside the unit's bound.  Then
+    the wrapper's host time a call at the bench's shape (score_host_us),
+    each package's own wrapper in a process of its own, in turns
+    (parent, new, new, parent), this tree's also without `_on_card`
+    (that call's share).  Then the parent's K8c against this tree's
+    plain version on the two
+    cases where it departed from the reference (a NaN desired count,
+    collisions past 2^24).  The parent's library is built and bound by
+    the parent's own ops/_build.py, and this tree's wrapper launches on
+    it where its score_launch takes this tree's arguments.  Logs that
+    it skipped where PARENT_TREE holds no tree or the arguments
+    differ."""
     import torch
     from nomad_tpu_torch.ops import _build
     from nomad_tpu_torch.ops import stage_probe as sp
@@ -2089,26 +2194,63 @@ def stage_turns():
         log(f"kernels: stage probe turns against the parent skipped (no "
             f"tree under {PARENT_TREE})")
         return
-    entry = "fit_launch"
+    entry = "score_launch"
     if pb._ARGTYPES["stage_probe"].get(entry) != \
             _build._ARGTYPES["stage_probe"][entry]:
-        log(f"kernels: turns stage_fit against the parent skipped (its "
+        log(f"kernels: turns stage_score against the parent skipped (its "
             f"{entry} takes other arguments)")
         return
     lib = pb.load("stage_probe")
+    on_parent = lambda: _kernels_from("stage_probe", lib)  # noqa: E731
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
     for n, M in STAGE_SHAPES:
-        x = psp.probe_inputs(n, fill_grid=M, device="cuda")
-        util_m, _ = sp.feasibility(x["capacity"], x["used"], x["demand"],
-                                   x["feasible"], x["ms"])
+        args = _score_args(psp.probe_inputs(n, fill_grid=M, device="cuda"))
+        call = lambda args=args: sp.score(*args)  # noqa: E731
         nbytes, ops = _stage_work(n, M, torch.zeros(n, dtype=torch.int32))
-        bound, by = _bound(nbytes["stage_fit"], ops["stage_fit"])
-        whole = _bound(nbytes["stage_fit"] + n * M * 8, ops["stage_fit"])[0]
-        _turns(f"stage_fit N={n} M={M}",
-               lambda: sp.fit(x["capacity"], util_m),
-               STAGE_KERNELS["stage_fit"],
-               lambda: _kernels_from("stage_probe", lib),
-               bound=f"; bound {bound:.6f} ms ({by}), {whole:.6f} with "
-                     f"the whole 16-byte cells read")
+        bound, by = _bound(nbytes["stage_score"], ops["stage_score"])
+        _, alone = _turns(f"stage_score N={n} M={M}", call,
+                          STAGE_KERNELS["stage_score"], on_parent,
+                          bound=f"; bound {bound:.6f} ms ({by})")
+        log(f"kernels: turns stage_score N={n} M={M}: alone new/parent "
+            f"{mean(alone['new']) / mean(alone['parent']):.3f}, new "
+            f"{mean(alone['new']) / bound:.2f}x its bound, parent "
+            f"{mean(alone['parent']) / bound:.2f}x")
+    # the wrapper's host time: each package's own wrapper in a process of
+    # its own, in turns
+    root = os.path.dirname(os.path.abspath(__file__))
+    parent_tree = os.path.join(root, PARENT_TREE)
+    host = {}
+    for tree in (parent_tree, root, root, parent_tree):
+        kinds = ("new", "bare", "bare", "new") if tree == root else \
+            ("new", "new")
+        for kind, us in zip(kinds, _host_turn(tree, kinds)):
+            host.setdefault("parent" if tree != root else kind,
+                            []).append(us)
+    fmt = lambda v: "/".join(f"{t:.2f}" for t in v)  # noqa: E731
+    med = {k: statistics.median(v) for k, v in host.items()}
+    log(f"kernels: turns stage_score N={N_NODES} M=16: the wrapper's host "
+        f"time a call (500 calls back to back, each package's own wrapper "
+        f"in a process of its own, parent, new, new, parent) parent "
+        f"{fmt(host['parent'])} new {fmt(host['new'])} new without "
+        f"_on_card {fmt(host['bare'])} us; medians new/parent "
+        f"{med['new'] / med['parent']:.3f}, _on_card's share "
+        f"{(med['new'] - med['bare']) / med['new'] * 100:.1f}%")
+    stc = _cases("_stage_cases")
+    for kind in ("desired NaN", "coll at and past 2^24"):
+        args = _score_args(stc.score_inputs(kind, N_NODES, 16, seed=1))
+        want = sp.score_plain(*args).cpu().numpy()
+        with on_parent():
+            old = sp.score(*args).cpu().numpy()
+        new = sp.score(*args).cpu().numpy()
+        _same(f"K8c {kind}", new, want)
+        nan = np.isnan(want)
+        bad = (np.isnan(old) != nan) | (~nan & (np.where(
+            nan, 0, old).view(np.uint32) != np.where(
+            nan, 0, want).view(np.uint32)))
+        log(f"kernels: the parent's K8c on {kind} (N={N_NODES}, M=16): "
+            f"{int(bad.sum())} of {bad.size} cells differ from this tree's "
+            f"plain version (the reference's result); this tree's kernel "
+            f"bit-equal")
 
 
 # --------------------------------------------------------------- the slice
@@ -4135,126 +4277,6 @@ def check_fold_cards():
         f"{'; '.join(ran)}: every output bit-equal to the plain form")
 
 
-def k7_turns(shape=(4, 2), E=8):
-    """K7g and K7f against the parent tree's (PARENT_TREE) in turns
-    (parent, new, new, parent), at n = 4,096 rows a shard (N_ROWS over
-    the mesh's node shards: the engine stream's) and 32,768, W = lanes
-    of `shape`: this tree's K7g without the counts (node shards past 0)
-    and node shard 0's with them (partials i32[W, n_shard, E, 4]) against
-    the parent's K7g, and the parent's own K7f launch (one a lane) alone.
-    Outputs equal (the counts to bulk_counts_plain); kernel alone
-    (profiler) and CUDA events, ms.  The parent's entry points are
-    called through the parent's own ops/_build.py.  Logs that it
-    skipped where there is no parent tree, or where the parent's
-    entry points are not those of a tree with K7f's own launch
-    (_PARENT_K7)."""
-    import ctypes
-    import torch
-    from nomad_tpu_torch.ops import sharded as k7
-    pb = _parent_build()
-    if pb is None:
-        log(f"sharded: K7f/K7g turns against the parent skipped (no tree "
-            f"under {PARENT_TREE})")
-        return
-    if not _parent_has_k7f(pb):
-        log("sharded: K7f/K7g turns against the parent skipped (its "
-            "K7f/K7g entry points take other arguments)")
-        return
-    lib = pb.load("sharded")
-    NS, W = shape
-    vp = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    st = lambda: ctypes.c_void_p(  # noqa: E731
-        torch.cuda.current_stream().cuda_stream)
-    rng = np.random.default_rng(48)
-    for n in (N_ROWS // NS, 32768):
-        u0 = torch.from_numpy((rng.integers(0, 64, (n, 4)) * 12.5)
-                              .astype(np.float32)).cuda()
-        exacts = u0[None] + torch.from_numpy(
-            (rng.random((W, n, 4)) * 70).astype(np.float32)).cuda()
-        partials = torch.from_numpy(rng.integers(
-            0, 4096, (W, NS, E, 4)).astype(np.int32)).cuda()
-        out = torch.empty_like(u0)
-        counts = torch.empty((W, E, 4), dtype=torch.int32, device="cuda")
-
-        def parent_merge():
-            if lib.basis_merge_launch(vp(u0), vp(exacts), vp(out), W, n,
-                                      st()):
-                raise RuntimeError("parent basis_merge launch failed")
-            return out
-
-        def parent_counts():
-            for w in range(W):
-                if lib.bulk_counts_launch(vp(partials[w]), vp(counts[w]),
-                                          NS, E, st()):
-                    raise RuntimeError("parent bulk_counts launch failed")
-            return counts
-
-        def bare():
-            k7.basis_merge(u0, exacts, out)
-            return out
-
-        def fused():
-            k7.basis_merge(u0, exacts, out, partials, counts)
-            return out, counts
-
-        want = torch.empty_like(counts)
-        k7.bulk_counts_plain(partials, want)
-        _bitwise(f"K7g n={n} counts vs bulk_counts_plain",
-                 fused()[1].cpu().numpy(), want.cpu().numpy())
-        _bitwise(f"parent K7f n={n} counts vs bulk_counts_plain",
-                 parent_counts().cpu().numpy(), want.cpu().numpy())
-        _turns(f"K7g n={n} W={W} without the counts", bare,
-               "basis_merge_kernel", old=parent_merge)
-        _turns(f"K7g n={n} W={W} with K7f's counts (E={E}, node shard 0's "
-               f"launch) against the parent's K7g", lambda: fused()[0],
-               "basis_merge_kernel", old=parent_merge)
-        alone = kernel_device_ms(parent_counts, "bulk_counts_kernel")
-        log(f"sharded: parent K7f alone {alone:.5f} ms a launch ({W} "
-            f"launches a bulk call on {shape}, E={E})")
-
-
-# the K7f and K7g entry points of a parent tree where K7f still has a
-# launch of its own (bulk_counts_launch), as k7_turns calls them
-_PARENT_K7 = {"bulk_counts_launch": ["P", "P", "I", "I", "P"],
-              "basis_merge_launch": ["P", "P", "P", "I", "I", "P"]}
-
-
-def _parent_has_k7f(pb) -> bool:
-    """Whether the parent's ops/_build.py `pb` binds K7f and K7g as
-    _PARENT_K7 has them."""
-    import ctypes
-    code = {"P": ctypes.c_void_p, "I": ctypes.c_int}
-    got = pb._ARGTYPES.get("sharded", {})
-    return all(got.get(k) == [code[c] for c in v]
-               for k, v in _PARENT_K7.items())
-
-
-def parent_stream_launches(shape=(4, 2)):
-    """The parent tree's launches by kernel on the engine stream over
-    `shape` (shard_stream), run in a process of its own with the
-    parent's package first on the path (its kernels built inside the
-    parent tree), to hold K7f's launches there against none here; None
-    where there is no parent tree or its K7f has no launch of its own
-    (_parent_has_k7f)."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    tree = os.path.join(root, PARENT_TREE)
-    pb = _parent_build()
-    if pb is None or not _parent_has_k7f(pb):
-        return None
-    code = (f"import json, sys; sys.path[:0] = [{tree!r}, {root!r}]; "
-            f"import chip_smoke as c; "
-            f"from nomad_tpu_torch.ops import _build; _build.build_all(); "
-            f"_, n, _, _ = c.shard_stream({tuple(shape)!r}); "
-            f"print('LAUNCHES', json.dumps(n))")
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=900, cwd=root)
-    if r.returncode != 0:
-        raise AssertionError(f"parent stream on {shape}: rc {r.returncode}"
-                             f": {r.stderr[-3000:]}")
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("LAUNCHES ")]
-    return json.loads(line[-1][len("LAUNCHES "):])
-
-
 def check_run_cases():
     """K7d on its run cases (tests/_sharded_cases.py bulk_run_cases: a run
     cap of 1, fill grids of 16 and 64, m = 1 forced, rows that fit one
@@ -4531,7 +4553,6 @@ def phase_sharded():
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             library_ms=None, device_ms=dev_ms, host_us=h_us)
     entries["bulk_counts"] = bulk_counts_entry(kept)
-    k7_turns()
     check_fold_cards()
 
     k7c_kinds((4, 2))
@@ -4553,13 +4574,8 @@ def phase_sharded():
         raise AssertionError(f"sharded stream: never launched {missing}; "
                              f"sharded_evals {st['sharded_evals']}")
     # K7f runs inside node shard 0's K7g launch, none of its own
-    parent = parent_stream_launches((4, 2))
-    theirs = (f"skipped (no tree under {PARENT_TREE}, or its K7f has no "
-              f"launch of its own)") if parent is None else \
-        {k: parent.get(k, 0) for k in ("bulk_counts", *K7_UNITS)}
     log(f"sharded: K7 launches on the (4, 2) engine stream: "
-        f"{ {k: k7c[k] for k in K7_UNITS} }, K7f inside basis_merge; the "
-        f"parent tree's on the same stream: {theirs}")
+        f"{ {k: k7c[k] for k in K7_UNITS} }, K7f inside basis_merge")
     if launches["place_bulk_batch"] or launches["place_batch"]:
         raise AssertionError(f"sharded stream: unsharded kernels ran "
                              f"{launches}")

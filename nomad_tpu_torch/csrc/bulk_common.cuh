@@ -67,10 +67,13 @@ __device__ __forceinline__ void grid_cell(const BulkRow& r, const float* dem,
     f = f && (u[d] <= r.cap[d]);
   }
   float fit = score_fit(r.cap, u, spread) * (1.0f / 18.0f);
-  float coll_m = (r.coll + m) - 1.0f;
+  // the reference's -(coll_m + 1) / div as XLA compiles it: (x - 1) + 1
+  // folded to x, which differs once coll + m passes 2^24
+  float coll_1 = r.coll + m;
+  float coll_m = coll_1 - 1.0f;
   float total = fit;
   float n = 1.0f;
-  float anti = -(coll_m + 1.0f) / desired_div;
+  float anti = -coll_1 / desired_div;
   bool hc = coll_m > 0.0f;
   total = total + (hc ? anti : 0.0f);
   n = n + (hc ? 1.0f : 0.0f);

@@ -17,12 +17,13 @@
 // 16, R = 4): K8a-K8c are elementwise with an R-wide reduction, and
 // bound by bytes (K8a writes the f32[N, M, R] grid, 2.6 MB; K8b reads its
 // cpu and mem columns back: 8 bytes of each 16-byte cell, but a 32-byte
-// sector brings all 16).  K8a-K8c are one thread per (row, m) cell; K8a
-// reads a row as float4 and stores a cell's usage as one float4, so a
-// warp's stores are 512 contiguous bytes (a thread taking 4 cells of a
-// row, its stores 64 bytes apart across lanes, measured slower:
-// PERF.md); K8b loads a cell's (cpu, mem) as one float2.  K8e is one
-// cluster of PROBE_CLUSTER blocks over the greedy positions: one
+// sector brings all 16; K8c reads the fit and writes the score, 8 bytes a
+// cell).  K8a-K8c are one thread per (row, m) cell in 32-bit index
+// arithmetic; K8a reads a row as float4 and stores a cell's usage as one
+// float4, so a warp's stores are 512 contiguous bytes (a thread taking 4
+// cells of a row, its stores 64 bytes apart across lanes, measured
+// slower: PERF.md); K8b loads a cell's (cpu, mem) as one float2.  K8e
+// is one cluster of PROBE_CLUSTER blocks over the greedy positions: one
 // cluster scan of run[order[k]] gives each position its prefix, and the
 // thread of position k writes row order[k] (a 16-byte usage row and its
 // co-placements) directly; order is a permutation, so each row is
@@ -68,6 +69,7 @@ constexpr int PROBE_CLUSTER = 16;
 constexpr int RPT = 8;            // rows a K8e/K8f thread keeps in registers
 constexpr int FEAS_NT = 256;      // threads of a K8a block
 constexpr int FIT_NT = 256;       // threads of a K8b block
+constexpr int SCORE_NT = 256;     // threads of a K8c block
 
 // K8d's, K8e's and K8f's cluster exchange: the warps' parts, the block's
 // part the other blocks read, and the cluster's result for the block.
@@ -80,14 +82,23 @@ struct PartShared {
   int gpre[2], gall[2];           // the lower blocks' totals, all blocks'
 };
 
+// The anti-affinity divisor: the reference's jnp.maximum(desired_f, 1),
+// which keeps a NaN (fmaxf alone gives 1 for one).
+__host__ __device__ __forceinline__ float desired_div(float desired_f) {
+  return desired_f != desired_f ? desired_f : fmaxf(desired_f, 1.0f);
+}
+
 // The score stack of one cell from its fit (the reference's `score`).
 __device__ __forceinline__ float cell_score(float fit, int coll, float m,
-                                            float desired_div, float pen,
+                                            float div, float pen,
                                             bool aff_on, float aff) {
-  const float coll_m = ((float)coll + m) - 1.0f;
+  // -(coll_m + 1) / div as XLA compiles the reference: (x - 1) + 1
+  // folded to x, which differs once coll + m passes 2^24
+  const float coll_1 = (float)coll + m;
+  const float coll_m = coll_1 - 1.0f;
   float total = fit;
   float n_sc = 1.0f;
-  const float anti = -(coll_m + 1.0f) / desired_div;
+  const float anti = -coll_1 / div;
   const bool has_coll = coll_m > 0.0f;
   total = total + (has_coll ? anti : 0.0f);
   n_sc = n_sc + (has_coll ? 1.0f : 0.0f);
@@ -159,21 +170,27 @@ fit_kernel(const float2* __restrict__ cap, const float2* __restrict__ util_m,
   fit_m[c] = score_fit(cc, uu, 0) * (1.0f / 18.0f);
 }
 
-// K8c: score_m f32[N, M]
-__global__ void score_kernel(const float* __restrict__ fit_m,
-                             const int* __restrict__ coll,
-                             const float* __restrict__ ms, float desired_f,
-                             const float* __restrict__ penalty,
-                             const float* __restrict__ affinity,
-                             int has_affinity, int n, int M,
-                             float* __restrict__ score_m) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= (long long)n * M) return;
-  const int i = (int)(c / M), m = (int)(c % M);
+// K8c: score_m f32[N, M], a thread a cell c = i * M + m in 32-bit
+// arithmetic (the launch keeps N * M below 2^31), the row one 32-bit
+// division by M, so a warp's 32 consecutive cells read fit_m and write
+// score_m as 128 contiguous bytes.  The cells of a row in a warp load
+// its collisions, penalty and affinity at one address each, which the
+// card serves as one request a warp (a form with one lane a row loading
+// them and shuffles handing them out measured slower, as did 2 and 4
+// cells a thread at the bench's 10,000 x 16 and blocks of 128, 512 or
+// 1,024 threads: PERF.md).  `div` is the host's desired_div(desired_f).
+__global__ void __launch_bounds__(SCORE_NT)
+score_kernel(const float* __restrict__ fit_m, const int* __restrict__ coll,
+             const float* __restrict__ ms, float div,
+             const float* __restrict__ penalty,
+             const float* __restrict__ affinity, int has_affinity,
+             unsigned cells, unsigned M, float* __restrict__ score_m) {
+  const unsigned c = blockIdx.x * SCORE_NT + threadIdx.x;
+  if (c >= cells) return;
+  const unsigned i = c / M;
   const float aff = affinity[i];
-  const bool aff_on = has_affinity != 0 && aff != 0.0f;
-  score_m[c] = cell_score(fit_m[c], coll[i], ms[m], fmaxf(desired_f, 1.0f),
-                          penalty[i], aff_on, aff);
+  score_m[c] = cell_score(fit_m[c], coll[i], ms[c - i * M], div, penalty[i],
+                          has_affinity != 0 && aff != 0.0f, aff);
 }
 
 // ------------------------------------- K8d, K8e and K8f: the cluster
@@ -455,7 +472,7 @@ fused_wave_kernel(const float* __restrict__ cap,
   int lo, hi;
   thread_rows(n, cl, &lo, &hi);
   const int cnt = hi - lo;
-  const float desired_div = fmaxf(desired_f, 1.0f);
+  const float div = desired_div(desired_f);
   float dem[R];
 #pragma unroll
   for (int d = 0; d < R; ++d) dem[d] = demand[d];
@@ -468,7 +485,7 @@ fused_wave_kernel(const float* __restrict__ cap,
                    feasible[i] != 0;
     const float fit = score_fit(cp, u, 0) * (1.0f / 18.0f);
     const float aff = affinity[i];
-    *score = cell_score(fit, coll[i], m, desired_div, penalty[i],
+    *score = cell_score(fit, coll[i], m, div, penalty[i],
                         has_affinity != 0 && aff != 0.0f, aff);
     return f;
   };
@@ -565,10 +582,6 @@ fused_wave_kernel(const float* __restrict__ cap,
   cluster_wait();                 // no block reads this one's totals now
 }
 
-int cells_grid(int n, int M) {
-  return (int)(((long long)n * M + 255) / 256);
-}
-
 // K8d's, K8e's and K8f's cluster: PROBE_CLUSTER blocks of the fewest whole
 // warps that give each thread one row (at most NT)
 int probe_threads(int n) {
@@ -611,9 +624,14 @@ extern "C" int score_launch(const float* fit_m, const int* coll,
                             const float* penalty, const float* affinity,
                             int has_affinity, int n, int M, float* score_m,
                             void* stream) {
-  score_kernel<<<cells_grid(n, M), 256, 0, (cudaStream_t)stream>>>(
-      fit_m, coll, ms, desired_f, penalty, affinity, has_affinity, n, M,
-      score_m);
+  const long long cells = (long long)n * M;
+  if (n < 1 || M < 1 || cells >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const unsigned c = (unsigned)cells;
+  score_kernel<<<(c + SCORE_NT - 1) / SCORE_NT, SCORE_NT, 0,
+                 (cudaStream_t)stream>>>(
+      fit_m, coll, ms, desired_div(desired_f), penalty, affinity,
+      has_affinity, c, (unsigned)M, score_m);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,6 @@ bulk wave set is ordered by a stable argsort (score desc, row asc).
 """
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass, fields
 from typing import Optional, Tuple
 
@@ -294,8 +293,11 @@ def unpack_outputs(packed: np.ndarray):
     return node, score, fit_s, n_eval, n_exh, top_n, top_s
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor) -> int:
+    """A tensor's address for a C entry point: ctypes converts the int by
+    the entry point's c_void_p argtype, without a c_void_p object a
+    pointer (the K7 wrappers pass ints too)."""
+    return t.data_ptr()
 
 
 def _stream(dev) -> int:
@@ -310,11 +312,12 @@ def _stream(dev) -> int:
 
 def _on_card(idx: int, entry, *args) -> int:
     """`entry(*args)`, a kernel's C entry point, with card `idx` (as
-    `Tensor.get_device()` gives it) current for the call, the caller's
-    card current again after it.  The mesh's wrappers launch for shards
-    on every card: a launch into another card's stream with card 0
-    current faulted on a four-card H100 machine (an illegal address,
-    PERF.md)."""
+    `Tensor.get_device()` or `torch.device.index` gives it) current for
+    the call, the caller's card current again after it.  Every wrapper
+    launches through it, for its operands' card: a launch into another
+    card's stream with card 0 current faulted on a four-card H100
+    machine (an illegal address, PERF.md), and a cluster launch sets its
+    size attribute for the current card only."""
     prev = torch.cuda._exchange_device(idx)
     try:
         return entry(*args)
@@ -392,7 +395,8 @@ def place_eval_packed(inp: PlaceInputs, spread_algorithm: bool = False
     packed = torch.empty((S, PACKED_WIDTH), dtype=torch.float32, device=dev)
     used = torch.empty((N, R), dtype=torch.float32, device=dev)
     tg_count, place_cap, spread, rows = _scan_scratch(lib, G, N, K, Vp1, dev)
-    rc = lib.place_scan_launch(
+    rc = _on_card(
+        dev.index, lib.place_scan_launch,
         _ptr(inp.capacity), _ptr(inp.used), _ptr(inp.feasible),
         _ptr(inp.affinity), _ptr(inp.has_affinity), _ptr(inp.desired_count),
         _ptr(inp.penalty), _ptr(inp.tg_count), _ptr(inp.spread_vidx),
@@ -437,13 +441,16 @@ def bulk_wave_grid(capacity, used, demand, feasible, affinity, has_affinity,
     fits_m = (torch.all(util_m <= capacity[:, None, :], dim=-1)
               & feasible[:, None])
     fit_m = score_fit(capacity[:, None, :], util_m, spread_algorithm) * FIT_NORM
-    coll_m = coll[:, None].to(f32) + ms[None, :] - 1.0
+    coll_1 = coll[:, None].to(f32) + ms[None, :]
+    coll_m = coll_1 - 1.0
     total_m = fit_m
     n_sc = torch.ones_like(fit_m)
     # a tensor divisor keeps this a true division on every device (CUDA
     # PyTorch turns division by a host scalar into a reciprocal multiply)
     div = torch.tensor(max(desired_f, 1.0), dtype=f32, device=capacity.device)
-    anti_m = -(coll_m + 1.0) / div
+    # the reference's -(coll_m + 1.0) / div as XLA compiles it: it folds
+    # (x - 1) + 1 to x, which differs once coll + m passes 2^24
+    anti_m = -coll_1 / div
     has_coll_m = coll_m > 0.0
     total_m = total_m + torch.where(has_coll_m, anti_m, torch.zeros_like(anti_m))
     n_sc = n_sc + has_coll_m.to(f32)
@@ -678,7 +685,8 @@ def place_bulk(capacity, used0, feasible, affinity, has_affinity: bool,
     lib = _build.load("place_bulk")
     out = torch.empty((N, R + 3), dtype=f32, device=dev)
     scratch = torch.empty((2, N), dtype=i32, device=dev)
-    rc = lib.place_bulk_launch(
+    rc = _on_card(
+        dev.index, lib.place_bulk_launch,
         _ptr(capacity), _ptr(used0), _ptr(feasible), _ptr(affinity),
         int(bool(has_affinity)), int(desired), _ptr(penalty), _ptr(coll0),
         _ptr(demand), int(count), int(bool(spread_algorithm)),
@@ -980,7 +988,8 @@ def place_batch_packed(capacity: torch.Tensor, used0: torch.Tensor,
     packed = torch.empty((E, S, PACKED_WIDTH), dtype=f32, device=dev)
     used = torch.empty((N, R), dtype=f32, device=dev)
     tg_count, place_cap, spread, rows = _scan_scratch(lib, G, N, K, Vp1, dev)
-    rc = lib.place_batch_launch(
+    rc = _on_card(
+        dev.index, lib.place_batch_launch,
         _ptr(capacity), _ptr(used0), _ptr(heavy), _ptr(dyn), E, G, N, K,
         Vp1, S, D, int(bool(spread_algorithm)), _ptr(packed), _ptr(used),
         _ptr(tg_count), _ptr(place_cap), _ptr(spread), _ptr(rows),
@@ -1543,7 +1552,8 @@ def place_bulk_batch(capacity: torch.Tensor, used0: torch.Tensor,
     packed = torch.empty((E, width), dtype=f32, device=dev)
     used = torch.empty((N, R), dtype=f32, device=dev)
     scratch = torch.empty((2, N), dtype=torch.int32, device=dev)
-    rc = lib.place_bulk_batch_launch(
+    rc = _on_card(
+        dev.index, lib.place_bulk_batch_launch,
         _ptr(capacity), _ptr(used0), _ptr(heavy), _ptr(dyn), E, N, int(D),
         int(bool(sparse_out)), int(bool(spread_algorithm)), int(max_waves),
         int(fill_grid), int(bool(exact_out)), _ptr(used), _ptr(packed),

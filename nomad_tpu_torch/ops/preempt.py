@@ -30,7 +30,7 @@ import math
 import torch
 
 from nomad_tpu_torch.ops import _build
-from nomad_tpu_torch.ops.place import _check, _ptr, _stream
+from nomad_tpu_torch.ops.place import _check, _on_card, _ptr, _stream
 
 BIG = 3.4e38
 INT32_MAX = 2**31 - 1
@@ -106,7 +106,8 @@ def preempt_for_task_group(cand_res, cand_prio, cand_valid, remaining, ask,
                            max_steps: int = 16):
     """K6 wrapper, same arguments and outputs as
     `preempt_for_task_group_plain`.  CUDA tensors launch csrc/preempt.cu
-    on the current stream; CPU tensors take the plain version."""
+    on their card's current stream, with that card current; CPU tensors
+    take the plain version."""
     dev = cand_res.device
     if dev.type == "cpu":
         return preempt_for_task_group_plain(cand_res, cand_prio, cand_valid,
@@ -133,7 +134,8 @@ def preempt_for_task_group(cand_res, cand_prio, cand_valid, remaining, ask,
     met = torch.empty((N,), dtype=torch.bool, device=dev)
     picked = torch.empty((N, A), dtype=torch.bool, device=dev)
     avail = torch.empty((N, R), dtype=f32, device=dev)
-    rc = lib.preempt_launch(
+    rc = _on_card(
+        dev.index, lib.preempt_launch,
         _ptr(cand_res), _ptr(cand_prio), _ptr(cand_valid), _ptr(remaining),
         _ptr(ask), N, A, R, int(max_steps), _ptr(met), _ptr(picked),
         _ptr(avail), _stream(dev))

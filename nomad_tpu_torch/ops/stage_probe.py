@@ -9,8 +9,9 @@ Torch port of the reference's parallel/stage_probe.py `_stage_fns`
   for step: the specification, the CPU path, and what the CUDA kernel is
   held against on the card;
 * a wrapper that launches the hand-written kernel (csrc/stage_probe.cu)
-  for CUDA tensors, takes the plain version for CPU tensors, and raises
-  for anything else.  `launches` counts kernel launches only.
+  for CUDA tensors, on their card's current stream with that card
+  current (`_on_card`), takes the plain version for CPU tensors, and
+  raises for anything else.  `launches` counts kernel launches only.
 
 K8d and K8f sort nothing: their order is a stable partition of the rows
 (the wave rows, then the others, each in row order), which
@@ -34,7 +35,7 @@ from nomad_tpu_torch.encode.matrixizer import NUM_RESOURCE_DIMS
 from nomad_tpu_torch.ops import _build
 from nomad_tpu_torch.ops.fit import score_fit
 from nomad_tpu_torch.ops.place import (
-    FIT_NORM, _check, _device_of, _ptr, _stream, bulk_run_lengths,
+    FIT_NORM, _check, _device_of, _on_card, _ptr, _stream, bulk_run_lengths,
     _lax_top_k, bulk_wave_grid)
 
 # kernel launches per wrapper (the plain versions never count)
@@ -64,14 +65,18 @@ def score_plain(fit_m, coll, ms, desired_f: float, penalty, affinity,
                 has_affinity: bool):
     """f32[N, M]: the scoring stack (anti-affinity, penalty, affinity)
     normalized by the number of scorers."""
-    coll_m = coll[:, None].to(_F32) + ms[None, :] - 1.0
+    coll_1 = coll[:, None].to(_F32) + ms[None, :]
+    coll_m = coll_1 - 1.0
     total_m = fit_m
     n_sc = torch.ones_like(fit_m)
     # a tensor divisor keeps this a true division on every device (CUDA
-    # PyTorch turns division by a host scalar into a reciprocal multiply)
+    # PyTorch turns division by a host scalar into a reciprocal multiply);
+    # Python's max keeps a NaN desired_f, as the reference's jnp.maximum
     div = torch.tensor(max(float(desired_f), 1.0), dtype=_F32,
                        device=fit_m.device)
-    anti_m = -(coll_m + 1.0) / div
+    # the reference's -(coll_m + 1.0) / div as XLA compiles it: it folds
+    # (x - 1) + 1 to x, which differs once coll + m passes 2^24
+    anti_m = -coll_1 / div
     has_coll_m = coll_m > 0.0
     total_m = total_m + torch.where(has_coll_m, anti_m,
                                     torch.zeros_like(anti_m))
@@ -284,7 +289,8 @@ def feasibility(capacity, used, demand, feasible, ms):
     _check_rows16("stage_feasibility", capacity, used)
     util_m = torch.empty((N, M, R), dtype=_F32, device=dev)
     fits_m = torch.empty((N, M), dtype=torch.bool, device=dev)
-    rc = _build.load("stage_probe").feasibility_launch(
+    rc = _on_card(
+        dev.index, _build.load("stage_probe").feasibility_launch,
         _ptr(capacity), _ptr(used), _ptr(demand), _ptr(feasible), _ptr(ms),
         N, M, _ptr(util_m), _ptr(fits_m), _stream(dev))
     _launch("stage_feasibility", rc)
@@ -302,7 +308,8 @@ def fit(capacity, util_m):
     _check("fit.util_m", util_m, dev, _F32, (N, M, R))
     _check_rows16("stage_fit", capacity, util_m)
     fit_m = torch.empty((N, M), dtype=_F32, device=dev)
-    rc = _build.load("stage_probe").fit_launch(
+    rc = _on_card(
+        dev.index, _build.load("stage_probe").fit_launch,
         _ptr(capacity), _ptr(util_m), N, M, _ptr(fit_m), _stream(dev))
     _launch("stage_fit", rc)
     return fit_m
@@ -322,7 +329,8 @@ def score(fit_m, coll, ms, desired_f: float, penalty, affinity,
     _check("score.penalty", penalty, dev, _F32, (N,))
     _check("score.affinity", affinity, dev, _F32, (N,))
     score_m = torch.empty((N, M), dtype=_F32, device=dev)
-    rc = _build.load("stage_probe").score_launch(
+    rc = _on_card(
+        dev.index, _build.load("stage_probe").score_launch,
         _ptr(fit_m), _ptr(coll), _ptr(ms), float(desired_f), _ptr(penalty),
         _ptr(affinity), int(bool(has_affinity)), N, M, _ptr(score_m),
         _stream(dev))
@@ -343,7 +351,8 @@ def argmax(fits_m, score_m, ms):
     _check("argmax.ms", ms, dev, _F32, (M,))
     run = torch.empty(N, dtype=_I32, device=dev)
     order = torch.empty(N, dtype=_I32, device=dev)
-    rc = _build.load("stage_probe").argmax_launch(
+    rc = _on_card(
+        dev.index, _build.load("stage_probe").argmax_launch,
         _ptr(fits_m), _ptr(score_m), _ptr(ms), N, M, _ptr(run), _ptr(order),
         _stream(dev))
     _launch("stage_argmax", rc)
@@ -369,7 +378,8 @@ def scatter(run, order, count: int, used, demand, coll):
     used2 = torch.empty((N, R), dtype=_F32, device=dev)
     coll2 = torch.empty(N, dtype=_I32, device=dev)
     placed = torch.empty((), dtype=_I32, device=dev)
-    rc = _build.load("stage_probe").scatter_launch(
+    rc = _on_card(
+        dev.index, _build.load("stage_probe").scatter_launch,
         _ptr(run), _ptr(order), int(count), _ptr(used), _ptr(demand),
         _ptr(coll), N, _ptr(used2), _ptr(coll2), _ptr(placed),
         _stream(dev))
@@ -401,7 +411,8 @@ def fused_wave(capacity, used, demand, feasible, affinity,
     used2 = torch.empty((N, R), dtype=_F32, device=dev)
     coll2 = torch.empty(N, dtype=_I32, device=dev)
     placed = torch.empty((), dtype=_I32, device=dev)
-    rc = _build.load("stage_probe").fused_wave_launch(
+    rc = _on_card(
+        dev.index, _build.load("stage_probe").fused_wave_launch,
         _ptr(capacity), _ptr(used), _ptr(demand), _ptr(feasible),
         _ptr(affinity), int(bool(has_affinity)), float(desired_f),
         _ptr(penalty), _ptr(coll), int(count), int(fill_grid), N,

@@ -1144,6 +1144,7 @@ class StateStore:
                 a.job = existing.job
             self._insert_alloc(index, a)
             touched.append(a)
+        dropped = set()                     # placements this apply drops
         for a in result.allocs_to_place:    # placements
             # live-name guard: racing plans for one redelivered eval can
             # both pass the submit-time token gate (the lease expires
@@ -1162,10 +1163,12 @@ class StateStore:
                     per_node = a.job is not None and \
                         a.job.type in ("system", "sysbatch")
                     if not per_node:
+                        dropped.add(a.id)
                         continue
                     if any(o is not None and o.node_id == a.node_id
                            for o in (self._allocs.get(i)
                                      for i in holders)):
+                        dropped.add(a.id)
                         continue
                 # quota guard: the authoritative, replica-deterministic
                 # admission check.  The applier already checked at propose
@@ -1180,11 +1183,19 @@ class StateStore:
                     # pre-quota pickles lack the attr; drop silently then
                     getattr(result, "quota_dropped", []).append(
                         (a.id, quota_name))
+                    dropped.add(a.id)
                     continue
             self._insert_alloc(index, a)
             self._take_csi_claims_for_alloc(index, a)
             touched.append(a)
         for a in result.allocs_preempted:
+            # a victim is evicted only with the placement that preempts
+            # it, as the applier drops a rejected node's preemptions: a
+            # racer's or an over-quota placement dropped above keeps its
+            # victims running.  The JAX package evicts them (ROADMAP.md
+            # queue C).
+            if a.preempted_by_allocation in dropped:
+                continue
             existing = self._allocs.get(a.id)
             if existing is not None and a.job is None:
                 a.job = existing.job

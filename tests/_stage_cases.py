@@ -1,7 +1,9 @@
 """The stage probe's edge cases, built with numpy from the probe's seeded
 inputs, for tests/test_torch_stage_partition.py,
 tests/test_torch_stage_probe.py and chip_smoke.py's stage-probe check:
-the rows that reach each edge of K8d's and K8f's greedy order."""
+the rows that reach each edge of K8d's and K8f's greedy order; and the
+score unit's (K8c's) own cases (`score_inputs`), for
+tests/test_torch_stage_score.py and chip_smoke.py's K8c check."""
 import numpy as np
 import torch
 
@@ -59,6 +61,83 @@ def probe_edge_inputs(kind: str, n_nodes: int, fill_grid: int,
         x["affinity"][:] = 0.0
     elif kind == "count above every run":
         x["count"] = 10 ** 6
+    dev = resolve_device(device)
+    return {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                else v) for k, v in x.items()}
+
+
+# K8c's cases (score_inputs), each at every fill grid of SCORE_GRIDS: M =
+# 1, odd M, and the probe's two grids
+SCORE_KINDS = ("seeded", "has_affinity off", "affinity -0.0, NaN and +-inf",
+               "NaN penalty", "desired 0", "desired 0.5", "desired NaN",
+               "coll at and past 2^24")
+SCORE_GRIDS = (1, 3, 7, 16, 64)
+# collision counts where (float)coll + m rounds (f32 holds integers
+# exactly only up to 2^24)
+BIG_COLL = np.array([2 ** 24 - 2, 2 ** 24 - 1, 2 ** 24, 2 ** 24 + 1,
+                     2 ** 24 + 2, 2 ** 24 + 3, 2 ** 25 + 1, 2 ** 25 + 3,
+                     2 ** 30 + 5], np.int32)
+
+
+def score_inputs(kind: str, n: int, M: int, seed: int = 0) -> dict:
+    """numpy inputs of the score unit (fit_m f32[n, M], coll i32[n], ms
+    f32[M], desired_f, penalty f32[n], affinity f32[n], has_affinity),
+    `kind` one of SCORE_KINDS: seeded fits in [0, 1), collisions 0..3,
+    ms 1..M, a penalty of 1 on about 5% of the rows, affinities in
+    [-1, 1), desired_f 8, has_affinity on; then
+
+    * has_affinity off;
+    * affinity -0.0, NaN and +-inf: rows 0, 4, 8, ... an affinity of
+      -0.0 (off: it equals 0), rows 1, 5, ... NaN, 2, 6, ... +inf, 3, 7,
+      ... -inf;
+    * NaN penalty: every fifth row;
+    * desired 0, 0.5 (both divide by 1) and NaN (the reference's
+      jnp.maximum keeps it: every cell with a collision scores NaN);
+    * coll at and past 2^24: collisions drawn from BIG_COLL, where
+      (float)coll + m rounds."""
+    if kind not in SCORE_KINDS:
+        raise ValueError(f"score_inputs: unknown kind {kind!r}")
+    rng = np.random.default_rng(seed)
+    x = dict(fit_m=rng.random((n, M), dtype=np.float32),
+             coll=rng.integers(0, 4, n).astype(np.int32),
+             ms=np.arange(1, M + 1, dtype=np.float32), desired_f=8.0,
+             penalty=(rng.random(n) < 0.05).astype(np.float32),
+             affinity=rng.uniform(-1.0, 1.0, n).astype(np.float32),
+             has_affinity=True)
+    if kind == "has_affinity off":
+        x["has_affinity"] = False
+    elif kind == "affinity -0.0, NaN and +-inf":
+        for k, v in enumerate((-0.0, np.nan, np.inf, -np.inf)):
+            x["affinity"][k::4] = v
+    elif kind == "NaN penalty":
+        x["penalty"][::5] = np.nan
+    elif kind.startswith("desired "):
+        x["desired_f"] = float(kind.split()[1].replace("NaN", "nan"))
+    elif kind == "coll at and past 2^24":
+        x["coll"] = rng.choice(BIG_COLL, n)
+    return x
+
+
+# the score cases of the wave grid (ops/place.py bulk_wave_grid), the
+# score stack of K1, K4, K7 and K8f (wave_score_inputs)
+WAVE_SCORE_KINDS = ("desired 0", "desired 0.5", "desired NaN",
+                    "coll at and past 2^24")
+
+
+def wave_score_inputs(kind: str, n_nodes: int, fill_grid: int,
+                      device=None) -> dict:
+    """The probe's inputs (probe_inputs) with a desired count of 0, 0.5
+    or NaN, or collision counts drawn from BIG_COLL; `kind` one of
+    WAVE_SCORE_KINDS."""
+    if kind not in WAVE_SCORE_KINDS:
+        raise ValueError(f"wave_score_inputs: unknown kind {kind!r}")
+    x = {k: (v.cpu().numpy().copy() if isinstance(v, torch.Tensor) else v)
+         for k, v in probe_inputs(n_nodes, fill_grid=fill_grid,
+                                  device="cpu").items()}
+    if kind.startswith("desired "):
+        x["desired_f"] = float(kind.split()[1].replace("NaN", "nan"))
+    else:
+        x["coll"] = np.random.default_rng(5).choice(BIG_COLL, n_nodes)
     dev = resolve_device(device)
     return {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
                 else v) for k, v in x.items()}
