@@ -7,7 +7,13 @@ Phases, all run in this order:
   build    compile every CUDA kernel from nomad_tpu_torch/csrc (one nvcc
            per source, all started together), print nvcc's register
            and spill report (K6's as one line, failing on a stack frame)
-           and K1/K4's cluster size
+           and K1/K4's cluster size; build the native host library
+           (csrc/nomad_native.cpp) with g++
+  native   the host library on this machine's CPU: every entry point
+           bit-equal to its plain numpy spec at the bench's shape
+           (10,000 node rows, C2M's 10 groups x count 10, a plan of 64
+           groups; score_fit within the stated tolerance), then each
+           one's host time a call beside the spec's, in turns
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the main path gives it (N = 16,384 node rows, the
            bucket of a 10,000-node cluster): integer outputs equal, float
@@ -51,18 +57,12 @@ Phases, all run in this order:
            three seeds of the delays at their cluster exchanges (K8a
            rerun under them too; K8a and K8b have no delay site);
            each K8 wrapper's host time with and without `_on_card`
-           (the launch with the operands' card current), in turns; K8c
-           bit for bit on its own cases (tests/_stage_cases.py
+           (the launch with the operands' card current), in turns; and
+           K8c bit for bit on its own cases (tests/_stage_cases.py
            score_inputs: M = 1, 3, 7, 16 and 64, affinities of -0.0,
            NaN and +-inf, NaN penalties, desired counts of 0, 0.5 and
            NaN, collisions past 2^24) and K8f and K1 on the wave grid's
-           score cases (wave_score_inputs); and, where a parent tree is
-           unpacked under smoke_archive/parent, K8c timed in turns
-           against the parent's (parent, new, new, parent: the kernel
-           alone at every STAGE_SHAPES shape, the wrapper's host time a
-           call at the bench's), its library built and bound by its own
-           ops/_build.py, and the parent's K8c held to this tree's plain
-           version on the cases where it departed from the reference.
+           score cases (wave_score_inputs).
   slice    the engine-off path (NOMAD_TPU_ENGINE=0): the scheduler's
            eval-to-commit path through the entry points a user calls
            (Harness(device="cuda") -> GenericScheduler -> DenseStack ->
@@ -89,7 +89,12 @@ Phases, all run in this order:
   spine    the dev-mode Server (core/server.py: broker, wave feeder,
            workers, plan queue, pipelined applier) on the card: bench.py
            bench_e2e_spine's shape (1,000 nodes, 50 batch jobs of count
-           100, 8 workers; all 5,000 allocs committed), then
+           100, 8 workers; all 5,000 allocs committed) and its snapshot
+           (Server.save_snapshot), restored into a fresh server
+           (Server.restore_snapshot) that saves to the same bytes and
+           places 10 C2M jobs more (every alloc committed, usage equal
+           to the allocs' sum, the device basis equal to the host
+           snapshot), then
            bench_preemption_heavy's at full size (10,000 nodes filled to
            ~95% by 90,000 priority 20/30/40 batch allocs, then 10
            priority-90 service jobs of count 50 that land only by
@@ -107,7 +112,12 @@ Phases, all run in this order:
   bench    the port's bench entry point (nomad_tpu_torch/bench.py) on
            the card: bench_c2m_1m at 10,000 nodes with 1,000 jobs
            (100,000 allocs, 48 workers), whose stage probe launches
-           K8a-K8f; bench_scan_spread at full size (10,000 nodes, 60
+           K8a-K8f, in turns against the parent tree's numpy native
+           functions where a tree is unpacked under smoke_archive/parent
+           (parent, new, new, parent: resolve_s, put_s, the window,
+           allocs/s, and the count and host time of scatter_add_rank1
+           in the engine's resolve and elsewhere, and of expand_pairs);
+           bench_scan_spread at full size (10,000 nodes, 60
            spread service jobs of count 100, K3, each launch's chain
            length E logged); and
            bench_kernel_100k_nodes (K4 over 131,072 rows).  Every alloc
@@ -411,6 +421,11 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    from nomad_tpu_torch import native
+    t0 = time.time()
+    native._native()
+    log(f"build: the native host library (csrc/nomad_native.cpp) in "
+        f"{time.time() - t0:.1f} s (g++ {' '.join(_build.GXX_FLAGS)})")
     log(f"build: K1/K4 launch one cluster of "
         f"{_build.load('place_bulk').place_bulk_cluster_size()} blocks, "
         f"K2/K3 one of "
@@ -418,6 +433,160 @@ def phase_build():
         f"x 1024 threads; K7c one of "
         f"{_build.load('sharded').bulk_stats_cluster_size()} blocks, K8d/K8f "
         f"one of {_build.load('stage_probe').stage_probe_cluster_size()}")
+
+
+# ------------------------------------------------------ the host library
+
+NATIVE_PLAN_GROUPS = 64   # node groups of one plan the applier validates
+# score_fit's library against its plain spec: glibc's powf against
+# numpy's float32 power (tests/test_torch_native.py states the bound)
+NATIVE_SCORE_ATOL = 4.3e-7
+
+
+def native_inputs(seed: int = 11) -> dict:
+    """The host library's inputs at the bench's shape: 10,000 node rows
+    (a ClusterMatrix's dims and port words, some ports taken), C2M's 10
+    groups x count 10 as one eval resolves them (each group's rows and
+    counts, its triples to expand), and a plan of NATIVE_PLAN_GROUPS
+    node groups with ports and freed resources."""
+    from nomad_tpu_torch.encode.matrixizer import NUM_RESOURCE_DIMS, \
+        _PORT_WORDS
+    rng = np.random.default_rng(seed)
+    cap = rng.integers(2000, 8000, (N_NODES, NUM_RESOURCE_DIMS)) \
+        .astype(np.float32)
+    used = (cap * rng.uniform(0, 0.9, cap.shape)).astype(np.float32)
+    pw = np.zeros((N_NODES, _PORT_WORDS), np.uint32)
+    taken = rng.integers(20000, 32000, (N_NODES, 4))
+    for row in range(N_NODES):
+        for p in taken[row]:
+            pw[row, p >> 5] |= np.uint32(1 << (p & 31))
+    demand = np.array([30, 60, 0, 0], np.float32)
+    groups = []
+    for _ in range(10):
+        rows = np.sort(rng.choice(N_NODES, 10, replace=False)) \
+            .astype(np.int32)
+        counts = rng.multinomial(10, [0.1] * 10).astype(np.int32)
+        groups.append((rows, counts, rng.uniform(0, 18, 10)
+                       .astype(np.float32)))
+    g = NATIVE_PLAN_GROUPS
+    plan_rows = rng.choice(N_NODES, g, replace=False).astype(np.int32)
+    plan_rows[::16] = -1
+    plan_demand = (rng.integers(1, 11, (g, 1)) * demand).astype(np.float32)
+    freed = np.zeros((g, NUM_RESOURCE_DIMS), np.float32)
+    freed[::3] = demand
+    ports = [[int(taken[r, 0])] if k % 5 == 0 and r >= 0 else
+             [int(40000 + k)] for k, r in enumerate(plan_rows)]
+    freed_ports = [[int(taken[r, 0])] if k % 10 == 0 and r >= 0 else []
+                   for k, r in enumerate(plan_rows)]
+    return dict(cap=cap, used=used, pw=pw, demand=demand, groups=groups,
+                plan=(cap, used, pw, plan_rows, plan_demand, freed, ports,
+                      freed_ports),
+                row=int(plan_rows[1]), ports=[int(taken[plan_rows[1], 0]),
+                                              45000, 45001],
+                freed=[int(taken[plan_rows[1], 0])])
+
+
+def cpu_us(fn, n: int = 2000, reps: int = 5) -> float:
+    """Median over `reps` of the host time of n calls of fn(), in
+    microseconds a call (no device work)."""
+    for _ in range(50):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    return statistics.median(times)
+
+
+def phase_native() -> None:
+    """The native host library (nomad_tpu_torch/native.py over
+    csrc/nomad_native.cpp, built with g++ in phase_build) on this
+    machine's CPU: every entry point bit-equal to its plain numpy spec
+    at the bench's shape (native_inputs; score_fit within
+    NATIVE_SCORE_ATOL), then each one's host time a call beside the
+    plain spec's, in turns (library, plain, plain, library)."""
+    from nomad_tpu_torch import native
+    x = native_inputs()
+    cap, used, demand, pw = x["cap"], x["used"], x["demand"], x["pw"]
+    rows0, counts0, scores0 = x["groups"][0]
+
+    def both(name, *args):
+        return (getattr(native, name)(*args),
+                getattr(native, f"{name}_plain")(*args))
+
+    got, want = both("allocs_fit", cap, used, demand)
+    _bitwise("native allocs_fit", got, want)
+    err = 0.0
+    for spread in (False, True):
+        got, want = both("score_fit", cap, used, demand, spread)
+        _bitwise("native score_fit NaN cells", np.isnan(got), np.isnan(want))
+        err = max(err, float(np.nanmax(np.abs(got - want))))
+    if err > NATIVE_SCORE_ATOL:
+        raise AssertionError(f"native score_fit: {err} past "
+                             f"{NATIVE_SCORE_ATOL}")
+    got, want = both("ports_check", pw, x["row"], x["ports"], x["freed"])
+    if got != want:
+        raise AssertionError(f"native ports_check: {got} against {want}")
+    a, b = pw.copy(), pw.copy()
+    native.ports_set(a, x["row"], x["ports"], True)
+    native.ports_set_plain(b, x["row"], x["ports"], True)
+    _bitwise("native ports_set", a, b)
+    a, b = used.copy(), used.copy()
+    for rows, counts, _ in x["groups"]:
+        native.scatter_add_rank1(a, rows, counts, demand)
+        native.scatter_add_rank1_plain(b, rows, counts, demand)
+    _bitwise("native scatter_add_rank1 (10 groups)", a, b)
+    deltas = np.outer(np.arange(1, 11, dtype=np.float32), demand)
+    a, b = used.copy(), used.copy()
+    native.scatter_add(a, rows0, deltas)
+    native.scatter_add_plain(b, rows0, deltas)
+    _bitwise("native scatter_add", a, b)
+    got, want = both("validate_plan", *x["plan"])
+    _bitwise("native validate_plan", got, want)
+    for rows, counts, scores in x["groups"]:
+        for g, w in zip(*both("expand_pairs", rows, counts, scores)):
+            _bitwise("native expand_pairs", g, w)
+    rnd = np.random.default_rng(5).integers(0, 256, 1600, dtype=np.uint8) \
+        .tobytes()
+    urandom = os.urandom
+    os.urandom = lambda k: rnd[:k]
+    try:
+        got, want = both("format_uuids", 100)
+    finally:
+        os.urandom = urandom
+    if got != want:
+        raise AssertionError("native format_uuids differs from its spec")
+    log(f"native: every entry point bit-equal to its plain spec at "
+        f"{N_NODES} rows, 10 groups x count 10 and a plan of "
+        f"{NATIVE_PLAN_GROUPS} groups (score_fit within "
+        f"{NATIVE_SCORE_ATOL}: max {err:.3g})")
+
+    u = used.copy()
+    calls = {
+        "allocs_fit": (lambda f: f(cap, used, demand), 200),
+        "score_fit": (lambda f: f(cap, used, demand), 200),
+        "ports_check": (lambda f: f(pw, x["row"], x["ports"], x["freed"]),
+                        2000),
+        "ports_set": (lambda f: f(pw, x["row"], [45002], True), 2000),
+        "scatter_add": (lambda f: f(u, rows0, deltas), 2000),
+        "scatter_add_rank1": (lambda f: f(u, rows0, counts0, demand), 2000),
+        "validate_plan": (lambda f: f(*x["plan"]), 500),
+        "expand_pairs": (lambda f: f(rows0, counts0, scores0), 2000),
+        "format_uuids": (lambda f: f(100), 500),
+    }
+    for name, (call, n) in calls.items():
+        lib, plain = getattr(native, name), getattr(native, f"{name}_plain")
+        t = {"library": [], "plain": []}
+        for turn in ("library", "plain", "plain", "library"):
+            f = lib if turn == "library" else plain
+            t[turn].append(cpu_us(lambda: call(f), n=n))
+        fmt = lambda v: "/".join(f"{v_:.2f}" for v_ in v)  # noqa: E731
+        log(f"native: {name} host us a call (library, plain, plain, "
+            f"library): library {fmt(t['library'])}, plain "
+            f"{fmt(t['plain'])}; plain/library "
+            f"{statistics.mean(t['plain']) / statistics.mean(t['library']):.2f}")
 
 
 def preempt_ptxas(text):
@@ -1134,33 +1303,6 @@ def check_bulk_select():
             "E=17 C2M chain with deltas and a count-0 pad, sparse, exact "
             "carry", batch_bulk_inputs(45, 16, n_rows, n_nodes), True, True,
             fg, jitter=True)
-
-
-def _turns(label, new, kname, on_parent=contextlib.nullcontext, old=None,
-           bound=""):
-    """new() against the parent's in turns (parent, new, new, parent):
-    the parent's call is old() (default new()) inside `on_parent()`.
-    Outputs equal, then the CUDA-event time of the call and the kernel
-    alone (profiler, kernels whose name holds `kname`), ms, logged beside
-    `bound`.  Returns (events, alone): {turn: [ms, ms]}."""
-    old = old or new
-    host = lambda r: [t.cpu().numpy() for t in (  # noqa: E731
-        r if isinstance(r, tuple) else (r,))]
-    with on_parent():
-        want = host(old())
-    for k, (a, b) in enumerate(zip(want, host(new()))):
-        _same(f"turns {label} output {k} (parent vs new)", a, b)
-    ev, alone = {}, {}
-    for turn in ("parent", "new", "new", "parent"):
-        fn = old if turn == "parent" else new
-        with on_parent() if turn == "parent" else contextlib.nullcontext():
-            ev.setdefault(turn, []).append(time_cuda(fn))
-            alone.setdefault(turn, []).append(kernel_device_ms(fn, kname))
-    fmt = lambda v: "/".join(f"{t:.5f}" for t in v)  # noqa: E731
-    log(f"kernels: turns {label}: events parent {fmt(ev['parent'])} new "
-        f"{fmt(ev['new'])} ms; alone parent {fmt(alone['parent'])} new "
-        f"{fmt(alone['new'])} ms{bound}")
-    return ev, alone
 
 
 # the longest chain the bench's spine gives one K4 launch: the engine's
@@ -1888,42 +2030,7 @@ def check_stage_probe():
         f"chain")
     check_stage_cases()
     check_score_cases()
-    stage_turns()
     return entries
-
-
-def score_host_us(kinds):
-    """The K8c wrapper's host time a call (us, 500 calls back to back)
-    at the bench's shape (N = 10,000, M = 16), of the nomad_tpu_torch
-    first on sys.path, for each of `kinds` in turn: "new" the wrapper as
-    it is, "bare" without `_on_card`."""
-    from nomad_tpu_torch.ops import stage_probe as sp
-    from nomad_tpu_torch.parallel import stage_probe as psp
-    args = _score_args(psp.probe_inputs(N_NODES, fill_grid=16,
-                                        device="cuda"))
-    out = []
-    for kind in kinds:
-        with _without_on_card(sp) if kind == "bare" else \
-                contextlib.nullcontext():
-            out.append(host_us(lambda: sp.score(*args), n=500))
-    return out
-
-
-def _host_turn(tree, kinds):
-    """score_host_us(kinds) in a process of its own with the package of
-    `tree` (a checkout's root) first on the path; the kernels of a
-    parent tree are built inside it by its own ops/_build.py."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    code = (f"import json, sys; sys.path[:0] = [{tree!r}, {root!r}]; "
-            f"import chip_smoke as c; "
-            f"print('HOST', json.dumps(c.score_host_us({tuple(kinds)!r})))")
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=600, cwd=root)
-    if r.returncode != 0:
-        raise AssertionError(f"host time turn in {tree}: rc {r.returncode}"
-                             f": {r.stderr[-3000:]}")
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("HOST ")]
-    return json.loads(line[-1][len("HOST "):])
 
 
 @contextlib.contextmanager
@@ -2138,119 +2245,6 @@ def check_score_cases():
 # where a tree of the parent commit may be unpacked (`git archive`) to
 # time its stage-probe kernels beside this tree's in the same run
 PARENT_TREE = "smoke_archive/parent"
-
-
-def _parent_build():
-    """The parent tree's ops/_build.py (PARENT_TREE) as a module of its
-    own: its load() builds the parent's kernel sources with the parent's
-    flags inside the parent tree and binds each C entry point with the
-    parent's own argument types.  None where there is no parent tree."""
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        PARENT_TREE, "nomad_tpu_torch", "ops", "_build.py")
-    if not os.path.exists(path):
-        return None
-    spec = importlib.util.spec_from_file_location("parent_build", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-@contextlib.contextmanager
-def _kernels_from(kernel, lib):
-    """This tree's wrappers of kernel source `kernel` launching on `lib`
-    while the block runs (they look up `_build.load` at every launch)."""
-    from nomad_tpu_torch.ops import _build
-    load = _build.load
-    _build.load = lambda name: lib if name == kernel else load(name)
-    try:
-        yield
-    finally:
-        _build.load = load
-
-
-def stage_turns():
-    """K8c against the parent tree's (PARENT_TREE) in turns (parent,
-    new, new, parent) on the probe's inputs at every shape of
-    STAGE_SHAPES: outputs equal, the CUDA-event time of the wrapper call
-    and the kernel alone (profiler), ms, beside the unit's bound.  Then
-    the wrapper's host time a call at the bench's shape (score_host_us),
-    each package's own wrapper in a process of its own, in turns
-    (parent, new, new, parent), this tree's also without `_on_card`
-    (that call's share).  Then the parent's K8c against this tree's
-    plain version on the two
-    cases where it departed from the reference (a NaN desired count,
-    collisions past 2^24).  The parent's library is built and bound by
-    the parent's own ops/_build.py, and this tree's wrapper launches on
-    it where its score_launch takes this tree's arguments.  Logs that
-    it skipped where PARENT_TREE holds no tree or the arguments
-    differ."""
-    import torch
-    from nomad_tpu_torch.ops import _build
-    from nomad_tpu_torch.ops import stage_probe as sp
-    from nomad_tpu_torch.parallel import stage_probe as psp
-    pb = _parent_build()
-    if pb is None:
-        log(f"kernels: stage probe turns against the parent skipped (no "
-            f"tree under {PARENT_TREE})")
-        return
-    entry = "score_launch"
-    if pb._ARGTYPES["stage_probe"].get(entry) != \
-            _build._ARGTYPES["stage_probe"][entry]:
-        log(f"kernels: turns stage_score against the parent skipped (its "
-            f"{entry} takes other arguments)")
-        return
-    lib = pb.load("stage_probe")
-    on_parent = lambda: _kernels_from("stage_probe", lib)  # noqa: E731
-    mean = lambda v: sum(v) / len(v)  # noqa: E731
-    for n, M in STAGE_SHAPES:
-        args = _score_args(psp.probe_inputs(n, fill_grid=M, device="cuda"))
-        call = lambda args=args: sp.score(*args)  # noqa: E731
-        nbytes, ops = _stage_work(n, M, torch.zeros(n, dtype=torch.int32))
-        bound, by = _bound(nbytes["stage_score"], ops["stage_score"])
-        _, alone = _turns(f"stage_score N={n} M={M}", call,
-                          STAGE_KERNELS["stage_score"], on_parent,
-                          bound=f"; bound {bound:.6f} ms ({by})")
-        log(f"kernels: turns stage_score N={n} M={M}: alone new/parent "
-            f"{mean(alone['new']) / mean(alone['parent']):.3f}, new "
-            f"{mean(alone['new']) / bound:.2f}x its bound, parent "
-            f"{mean(alone['parent']) / bound:.2f}x")
-    # the wrapper's host time: each package's own wrapper in a process of
-    # its own, in turns
-    root = os.path.dirname(os.path.abspath(__file__))
-    parent_tree = os.path.join(root, PARENT_TREE)
-    host = {}
-    for tree in (parent_tree, root, root, parent_tree):
-        kinds = ("new", "bare", "bare", "new") if tree == root else \
-            ("new", "new")
-        for kind, us in zip(kinds, _host_turn(tree, kinds)):
-            host.setdefault("parent" if tree != root else kind,
-                            []).append(us)
-    fmt = lambda v: "/".join(f"{t:.2f}" for t in v)  # noqa: E731
-    med = {k: statistics.median(v) for k, v in host.items()}
-    log(f"kernels: turns stage_score N={N_NODES} M=16: the wrapper's host "
-        f"time a call (500 calls back to back, each package's own wrapper "
-        f"in a process of its own, parent, new, new, parent) parent "
-        f"{fmt(host['parent'])} new {fmt(host['new'])} new without "
-        f"_on_card {fmt(host['bare'])} us; medians new/parent "
-        f"{med['new'] / med['parent']:.3f}, _on_card's share "
-        f"{(med['new'] - med['bare']) / med['new'] * 100:.1f}%")
-    stc = _cases("_stage_cases")
-    for kind in ("desired NaN", "coll at and past 2^24"):
-        args = _score_args(stc.score_inputs(kind, N_NODES, 16, seed=1))
-        want = sp.score_plain(*args).cpu().numpy()
-        with on_parent():
-            old = sp.score(*args).cpu().numpy()
-        new = sp.score(*args).cpu().numpy()
-        _same(f"K8c {kind}", new, want)
-        nan = np.isnan(want)
-        bad = (np.isnan(old) != nan) | (~nan & (np.where(
-            nan, 0, old).view(np.uint32) != np.where(
-            nan, 0, want).view(np.uint32)))
-        log(f"kernels: the parent's K8c on {kind} (N={N_NODES}, M=16): "
-            f"{int(bad.sum())} of {bad.size} cells differ from this tree's "
-            f"plain version (the reference's result); this tree's kernel "
-            f"bit-equal")
 
 
 # --------------------------------------------------------------- the slice
@@ -2931,9 +2925,11 @@ def _check_failures(label, causes):
         raise AssertionError(f"{label}: evals failed for {other}")
 
 
-def spine_e2e():
+def spine_e2e(snapshot_path):
     """bench.py bench_e2e_spine's shape: 1,000 mock nodes, 50 batch jobs
-    of count 100, registered through Server.register_job."""
+    of count 100, registered through Server.register_job; at the end
+    the operator's snapshot save (Server.save_snapshot) to
+    `snapshot_path`."""
     from nomad_tpu_torch import mock
     s = _server(8)
     try:
@@ -2966,6 +2962,77 @@ def spine_e2e():
             f"({evals} evals acked); evals failed by cause "
             f"{dict(causes)}; usage equals the allocs' sum, device basis "
             f"equals host snapshot")
+        t0 = time.perf_counter()
+        s.save_snapshot(snapshot_path)
+        log(f"spine e2e: save_snapshot in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+            f"{os.path.getsize(snapshot_path)} bytes "
+            f"({len(s.store.allocs())} allocs, index "
+            f"{s.store.latest_index})")
+    finally:
+        s.stop()
+
+
+SNAPSHOT_C2M_JOBS = 10   # C2M jobs the restored server places
+
+
+def spine_snapshot(path):
+    """The operator's restore (Server.restore_snapshot) of the e2e
+    spine's snapshot into a fresh server on the card: the restored
+    store saves to the same bytes, holds every alloc with committed
+    usage equal to their sum, then places SNAPSHOT_C2M_JOBS C2M jobs
+    (10 groups x count 10) with every alloc committed, usage equal to
+    the live allocs' sum and the engine's resident basis bit-equal to
+    the world's host snapshot."""
+    import pickle
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.core.server import Server, ServerConfig
+    from nomad_tpu_torch.state import digest
+    s = Server(ServerConfig(num_schedulers=8, heartbeat_ttl=3600.0,
+                            gc_interval=3600.0), device="cuda")
+    t0 = time.perf_counter()
+    s.restore_snapshot(path)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    again = path + ".again"
+    s.save_snapshot(again)
+    with open(path, "rb") as fh:
+        first = pickle.load(fh)
+    with open(again, "rb") as fh:
+        second = pickle.load(fh)
+    if second != first:
+        raise AssertionError("snapshot: the restored store saves to other "
+                             "bytes")
+    if digest.blob_digests(second["data"]) != digest.tables_digests(
+            s.fsm.snapshot_tables()):
+        raise AssertionError("snapshot: the restored tables' digests "
+                             "differ from the snapshot's")
+    restored = len(_running(s.store, s.store.jobs()))
+    s.start()
+    try:
+        acked0 = s.broker.stats["acked"]
+        jobs = [_c2m_job(mock) for _ in range(SNAPSHOT_C2M_JOBS)]
+        want = SNAPSHOT_C2M_JOBS * 100
+        t0 = time.perf_counter()
+        for j in jobs:
+            s.register_job(j)
+        _wait_for(lambda: len(_running(s.store, jobs)) >= want, 300,
+                  f"{want} allocs after the restore")
+        wall = time.perf_counter() - t0
+        if not s.wait_for_idle(60):
+            raise AssertionError("snapshot: evals still in flight")
+        placed = len(_running(s.store, jobs))
+        if placed != want:
+            raise AssertionError(f"snapshot: {placed} of {want} committed")
+        _check_spine(s, s._engine, "snapshot")
+        _check_failures("snapshot", _failures(s.workers))
+        log(f"spine snapshot: restore_snapshot in {restore_ms:.1f} ms "
+            f"({restored} running allocs restored, index "
+            f"{first['index']}), re-saved to the same bytes and digests; "
+            f"the restored server placed {placed} of {want} C2M allocs "
+            f"({SNAPSHOT_C2M_JOBS} jobs x 10 groups x count 10) in "
+            f"{wall:.3f} s ({s.broker.stats['acked'] - acked0} evals "
+            f"acked); usage equals the allocs' sum, device basis equals "
+            f"host snapshot")
     finally:
         s.stop()
 
@@ -3207,59 +3274,195 @@ def spine_preemption():
 
 
 def phase_spine():
-    """The dev-mode server spine (core/server.py) on the card."""
-    spine_e2e()
+    """The dev-mode server spine (core/server.py) on the card: the e2e
+    shape and its snapshot saved, restored into a fresh server that
+    places more jobs, then the preemption shape."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snapshot")
+    try:
+        path = os.path.join(tmp, "spine.snap")
+        spine_e2e(path)
+        spine_snapshot(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return spine_preemption()
 
 
 # --------------------------------------------------------------- the bench
+
+# the native module's functions the parent tree also has, swapped for
+# the parent's own in its turns
+PARENT_NATIVE = ("ports_check", "ports_set", "validate_plan",
+                 "expand_pairs", "format_uuids", "scatter_add_rank1")
+# the calls whose count and host time the C2M turns split
+CLOCKED = ("scatter_add_rank1", "expand_pairs")
+
+
+def _parent_native():
+    """The parent tree's nomad_tpu_torch/native.py (PARENT_TREE) as a
+    module of its own, or None where there is no parent tree."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        PARENT_TREE, "nomad_tpu_torch", "native.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location("parent_native", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class NativeClock:
+    """While installed, nomad_tpu_torch.native's PARENT_NATIVE functions
+    are `impl`'s (the parent's, or this tree's own), and each CLOCKED
+    call is counted and timed on the host clock, split by thread: the
+    engine's dispatcher ("placement-engine", whose resolve is the
+    engine's resolve_s) and every other thread (workers, applier)."""
+
+    def __init__(self, impl):
+        import threading
+        self.impl = impl
+        self.lock = threading.Lock()
+        self.stats = {}             # (name, "resolve" | "other") -> [n, s]
+
+    def _clocked(self, name, fn):
+        import threading
+
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                where = ("resolve" if threading.current_thread().name ==
+                         "placement-engine" else "other")
+                with self.lock:
+                    st = self.stats.setdefault((name, where), [0, 0.0])
+                    st[0] += 1
+                    st[1] += dt
+        return call
+
+    @contextlib.contextmanager
+    def installed(self):
+        from nomad_tpu_torch import native
+        saved = {n: getattr(native, n) for n in PARENT_NATIVE}
+        try:
+            for n in PARENT_NATIVE:
+                fn = getattr(self.impl, n)
+                setattr(native, n, self._clocked(n, fn) if n in CLOCKED
+                        else fn)
+            yield self
+        finally:
+            for n, fn in saved.items():
+                setattr(native, n, fn)
+
+    def split(self) -> str:
+        return ", ".join(
+            f"{n} {where} {c} calls {t:.3f} s ({t / c * 1e6:.1f} us a call)"
+            for (n, where), (c, t) in sorted(self.stats.items()) if c)
+
+
+def c2m_turn(turn, impl, main):
+    """bench_c2m_1m at 10,000 nodes with 1,000 jobs (C2M-100K) with the
+    native functions of `impl` (NativeClock): every alloc committed,
+    device_stages there, the steady-state and fused checks clean, the
+    device basis equal to its host snapshot.  The main turn's kernel
+    counts are set to 0 just before it and read just after.  Returns
+    (launches or None, the turn's record of resolve_s, put_s, the
+    window, allocs/s and the clocked calls)."""
+    from nomad_tpu_torch import bench
+    rec = bench.Record()
+    clock = NativeClock(impl)
+    if main:
+        _reset_counts()
+    t0 = time.perf_counter()
+    with clock.installed():
+        rate, placed, want = bench.bench_c2m_1m(
+            n_jobs=1000, deadline_s=300.0, device="cuda", rec=rec)
+    wall = time.perf_counter() - t0
+    launches = _counts() if main else None
+    if placed != want:
+        raise AssertionError(f"bench c2m ({turn}): {placed} of {want} "
+                             f"committed")
+    ds = rec.device_stages.get("c2m_1m")
+    if ds is None:
+        raise AssertionError(f"bench c2m ({turn}): no device_stages")
+    steady = rec.steady_state["c2m_1m"]
+    fused = bench.fused_check(rec, "c2m_1m")
+    if rec.basis_matches_host.get("c2m_1m") is not True:
+        raise AssertionError(f"bench c2m ({turn}): the device basis differs "
+                             f"from the world's host snapshot after the "
+                             f"window")
+    if steady["violations"] or fused["violations"]:
+        raise AssertionError(f"bench c2m ({turn}): {steady['violations']} "
+                             f"{fused['violations']}")
+    eng = rec.engine_snap["c2m_1m"]
+    res = {"resolve_s": eng["resolve_s"], "put_s": eng["put_s"],
+           "window_s": placed / rate, "allocs_s": rate,
+           "clock": dict(clock.stats)}
+    plan = rec.plan_stats["c2m_1m"]["submit_ms"]
+    log(f"bench c2m_1m turn {turn} (10,000 nodes, 1,000 jobs x 10 groups x "
+        f"count 10, 48 workers): {placed} of {want} allocs committed at "
+        f"{rate:.1f} allocs/s, window {res['window_s']:.1f} s (scenario "
+        f"{wall:.1f} s with world build, warmup and probe); resolve_s "
+        f"{res['resolve_s']:.3f}, put_s {res['put_s']:.3f}; plan.submit p50 "
+        f"{plan['p50']} ms p99 {plan['p99']} ms (n={plan['count']}); "
+        f"steady state {steady['steady_reuploads']} re-uploads, "
+        f"{steady['donated_carries']} donated carries; fused "
+        f"{fused['bulk_parts']} parts for {fused['bulk_groups']} groups; "
+        f"native calls: {clock.split()}")
+    if main:
+        log(f"bench c2m_1m device_stages: {json.dumps(ds)}")
+    return launches, res
+
 
 def phase_bench():
     """The port's bench entry point (nomad_tpu_torch/bench.py) on the
     card: C2M at 10,000 nodes with 1,000 jobs (100,000 allocs: BASELINE
     configs[2]'s C2M size, 10% of C2M-1M's jobs so the script keeps
     within its time limit) through the spine with 48 workers, then the
-    stage probe (K8); the scan-spread shape at full size (K3); and the
-    100,000-node kernel scenario (K4 at 131,072 rows).  Every alloc must
-    commit, device_stages must be there, the steady-state and fused
-    checks must hold, and each path's kernels must launch.  Returns the
-    launch counts of the C2M run (K8's are its probe's)."""
+    stage probe (K8), in turns against the parent tree's native
+    functions where PARENT_TREE holds one (parent, new, new, parent;
+    the first new turn is the main path's); the scan-spread shape at
+    full size (K3); and the 100,000-node kernel scenario (K4 at 131,072
+    rows).  Every alloc must commit, device_stages must be there, the
+    steady-state and fused checks must hold, and each path's kernels
+    must launch.  Returns the launch counts of the main C2M turn (K8's
+    are its probe's)."""
     from nomad_tpu_torch import bench
+    from nomad_tpu_torch import native
     rec = bench.Record()
 
-    _reset_counts()
-    t0 = time.perf_counter()
-    rate, placed, want = bench.bench_c2m_1m(n_jobs=1000, deadline_s=300.0,
-                                            device="cuda", rec=rec)
-    wall = time.perf_counter() - t0
-    launches = _counts()
-    if placed != want:
-        raise AssertionError(f"bench c2m: {placed} of {want} committed")
-    ds = rec.device_stages.get("c2m_1m")
-    if ds is None:
-        raise AssertionError("bench c2m: no device_stages")
-    steady = rec.steady_state["c2m_1m"]
-    fused = bench.fused_check(rec, "c2m_1m")
-    if rec.basis_matches_host.get("c2m_1m") is not True:
-        raise AssertionError("bench c2m: the device basis differs from the "
-                             "world's host snapshot after the window")
-    if steady["violations"] or fused["violations"]:
-        raise AssertionError(f"bench c2m: {steady['violations']} "
-                             f"{fused['violations']}")
+    parent = _parent_native()
+    if parent is None:
+        log(f"bench c2m_1m: turns against the parent's native functions "
+            f"skipped (no tree under {PARENT_TREE})")
+    turns = ("parent", "new", "new", "parent") if parent else ("new",)
+    launches, results = None, {}
+    for turn in turns:
+        main = turn == "new" and launches is None
+        got, res = c2m_turn(turn, parent if turn == "parent" else native,
+                            main)
+        launches = got if main else launches
+        results.setdefault(turn, []).append(res)
     need = ["place_bulk_batch"] + list(STAGE_UNITS)
     if not all(launches[k] > 0 for k in need):
         raise AssertionError(f"bench c2m: a kernel of the path never "
                              f"launched: {launches}")
-    plan = rec.plan_stats["c2m_1m"]["submit_ms"]
-    log(f"bench c2m_1m (10,000 nodes, 1,000 jobs x 10 groups x count 10, 48 "
-        f"workers): {placed} of {want} allocs committed at {rate:.1f} "
-        f"allocs/s (scenario {wall:.1f} s with world build and warmup); "
-        f"plan.submit p50 {plan['p50']} ms p99 {plan['p99']} ms "
-        f"(n={plan['count']}); steady state {steady['steady_reuploads']} "
-        f"re-uploads, {steady['donated_carries']} donated carries; fused "
-        f"{fused['bulk_parts']} parts for {fused['bulk_groups']} groups; "
-        f"launches {launches}")
-    log(f"bench c2m_1m device_stages: {json.dumps(ds)}")
+    log(f"bench c2m_1m main turn launches {launches}")
+    for key in ("resolve_s", "put_s", "window_s", "allocs_s"):
+        log(f"bench c2m_1m turns {key}: " + "; ".join(
+            f"{turn} " + "/".join(f"{r[key]:.3f}" for r in rs)
+            for turn, rs in results.items()))
+    for turn, rs in results.items():
+        for r in rs:
+            calls = r["clock"].get(("scatter_add_rank1", "resolve"), [0, 0.0])
+            log(f"bench c2m_1m turn {turn}: scatter_add_rank1 in the "
+                f"engine's resolve {calls[0]} calls, {calls[1]:.3f} s = "
+                f"{calls[1] / max(r['resolve_s'], 1e-9) * 100:.2f}% of "
+                f"resolve_s "
+                f"{r['resolve_s']:.3f}")
 
     # each K3 launch's chain length (E) and dims, from the engine's call
     from nomad_tpu_torch.parallel import engine as engine_mod
@@ -4656,31 +4859,41 @@ def main() -> int:
     log(smi.stdout.strip())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
-    phase_build()
-    entries = phase_kernels()
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    timed("native", phase_native)
+    entries = timed("kernels", phase_kernels)
     # the engine-off path (K1, K2), then the default engine-on path (K3,
     # K4, K5); each reads its kernels' counts, set to 0 just before it
     os.environ["NOMAD_TPU_ENGINE"] = "0"
     try:
-        slice_launches = phase_slice()
+        slice_launches = timed("slice", phase_slice)
     finally:
         os.environ.pop("NOMAD_TPU_ENGINE", None)
     for name in ("place_bulk", "place_scan"):
         entries[name]["launches"] = slice_launches[name]
-    for name, n in phase_engine().items():
+    for name, n in timed("engine", phase_engine).items():
         entries[name]["launches"] = n
     # the server spine, the preemption path last: K6's count is read on
     # its window, set to 0 just before it
-    entries["preempt"]["launches"] = phase_spine()["preempt"]
-    # the bench entry point: K8's counts are read on the C2M run's probe
-    bench_launches = phase_bench()
+    entries["preempt"]["launches"] = timed("spine", phase_spine)["preempt"]
+    # the bench entry point: K8's counts are read on the main C2M run's
+    # probe
+    bench_launches = timed("bench", phase_bench)
     for name in STAGE_UNITS:
         entries[name]["launches"] = bench_launches[name]
     # the sharded serving path on meshes of the card repeated: K7's and
     # K5''s counts are read on its engine stream (K5' add_rank1_local on
     # its donation-off run)
-    entries.update(phase_sharded())
+    entries.update(timed("sharded", phase_sharded))
+    log(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

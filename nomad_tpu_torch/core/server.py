@@ -6,6 +6,9 @@ loop and N scheduler workers.  Writes apply straight through the NomadFSM
 under a lock (the reference's '-dev agent' in-memory Raft); the server
 is its own leader from `start` to `stop`.
 
+`save_snapshot`/`restore_snapshot` write and read the FSM's snapshot
+(raft/fsm.py) to and from a file, the operator's save and restore.
+
 `device` (default "cuda") is where every scheduler the workers build
 runs its kernels, where the placement engine and the preemption kernel
 run, and whose engine the plan applier releases tickets on.  Without a
@@ -19,6 +22,7 @@ brownout, the read gate and ACLs.
 """
 from __future__ import annotations
 
+import pickle
 import threading
 import time as _time
 from typing import List, Optional
@@ -236,6 +240,26 @@ class Server:
             self._engine.on_drain = None
             self._engine.stop()
             self._engine = None
+
+    # ------------------------------------------------------------- snapshots
+
+    def save_snapshot(self, path: str) -> None:
+        """Operator snapshot save (reference `nomad operator snapshot save`,
+        helper/snapshot/): the FSM's snapshot and the store's index."""
+        blob = self.fsm.snapshot()
+        with open(path, "wb") as fh:
+            pickle.dump({"index": self.store.latest_index,
+                         "data": blob}, fh)
+
+    def restore_snapshot(self, path: str) -> None:
+        """Operator snapshot restore: replace state wholesale.  The
+        reference refuses it on a clustered server (its peers would
+        diverge); the port's server runs in dev mode only, so it always
+        restores.  Restore before `start()`, whose leadership re-enqueues
+        the restored evals."""
+        with open(path, "rb") as fh:
+            rec = pickle.load(fh)
+        self.fsm.restore(rec["data"])
 
     def _restore_evals(self) -> None:
         """On leadership: re-enqueue non-terminal evals (leader.go:572)."""

@@ -10,6 +10,14 @@ ctypes.  `build_all()` starts one nvcc per source at once.
 Flags: -O3, no fast math, and -fmad=false, so that every multiply and
 add rounds on its own exactly as the plain PyTorch versions' separate
 elementwise operations do (see PERF.md for the comparison on the card).
+
+The native host library (csrc/nomad_native.cpp, plain C, run on the
+CPU) is built the same way with g++ (`load_host`): at first use, into
+nomad_tpu_torch/build/, named by a hash of its source and GXX_FLAGS.
+-ffp-contract=off and no -march=native keep every multiply and add
+rounding on its own, as numpy's do.  It is loaded with ctypes.PyDLL,
+so a call holds the interpreter lock.  A missing compiler, a failed
+build or load, or a library of another ABI raises.
 """
 from __future__ import annotations
 
@@ -84,6 +92,25 @@ _ARGTYPES: Dict[str, Dict[str, List]] = {
         # K7g, and K7f's counts in node shard 0's launch (else nulls)
         "basis_merge_launch": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
     },
+}
+
+# the native host library (csrc/HOST_LIB.cpp): g++ flags, the ABI
+# version its bindings need, and its C entry points (restype first, then
+# the argument types)
+HOST_LIB = "nomad_native"
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
+HOST_ABI = 2
+_HOST_ENTRIES: Dict[str, List] = {
+    "allocs_fit_dense": [None, _P, _P, _P, _I, _I, _P],
+    "score_fit_dense": [None, _P, _P, _P, _I, _I, _I, _P],
+    "ports_check": [ctypes.c_int32, _P, _I, _I, _P, _I, _P, _I],
+    "ports_set": [None, _P, _I, _I, _P, _I, _I],
+    "scatter_add": [None, _P, _I, _P, _P, _I],
+    "validate_plan": [None, _P, _P, _P, _I, _I] + [_P] * 7 + [_I, _P],
+    "expand_pairs": [ctypes.c_int32, _P, _P, _P, _I, _P, _P,
+                     ctypes.c_int32],
+    "format_uuids": [None, ctypes.c_char_p, _I, ctypes.c_char_p],
+    "scatter_add_rank1": [None, _P, _I, _P, _P, _P, _I],
 }
 
 _lock = threading.Lock()
@@ -168,4 +195,71 @@ def load(name: str) -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _libs[name] = lib
+    return lib
+
+
+def gxx_path() -> str:
+    """g++ from PATH; raises when there is none."""
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("nomad_tpu_torch: g++ not found on PATH; the native "
+                       "host library (csrc/nomad_native.cpp) builds with "
+                       "g++")
+
+
+def _host_lib_path() -> str:
+    """The host library's path, named by a hash of its source and the
+    flags."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(os.path.join(SRC_DIR, f"{HOST_LIB}.cpp"), "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{HOST_LIB}-{h.hexdigest()[:16]}.so")
+
+
+def _build_host() -> str:
+    """Compile the host library unless it is built; -> its path.  Each
+    process compiles into a file of its own and renames it into place,
+    so processes that build at once do not collide."""
+    out = _host_lib_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [gxx_path(), *GXX_FLAGS, "-o", tmp,
+           os.path.join(SRC_DIR, f"{HOST_LIB}.cpp")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {HOST_LIB}.cpp "
+                           f"(rc {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded native host library, built on first use; its ABI
+    version checked and every entry point typed."""
+    lib = _libs.get(HOST_LIB)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(HOST_LIB)
+        if lib is None:
+            path = _build_host()
+            # PyDLL: each call keeps the interpreter lock.  The calls
+            # take microseconds; CDLL releases the lock around each, and
+            # with the server's ~50 threads the caller then waits up to
+            # a switch interval to get it back (PERF.md)
+            lib = ctypes.PyDLL(path)
+            abi = lib.nomad_native_abi_version
+            abi.argtypes, abi.restype = [], ctypes.c_int32
+            if abi() != HOST_ABI:
+                raise RuntimeError(
+                    f"{HOST_LIB} ABI mismatch: {path} reports version "
+                    f"{abi()}, the bindings need {HOST_ABI}; delete {path} "
+                    f"to rebuild it")
+            for entry, (restype, *argtypes) in _HOST_ENTRIES.items():
+                fn = getattr(lib, entry)
+                fn.restype, fn.argtypes = restype, argtypes
+            _libs[HOST_LIB] = lib
     return lib

@@ -37,6 +37,7 @@ from nomad_tpu_torch.structs.namespace import (
     Namespace, QuotaSpec, alloc_quota_usage, usage_add)
 from nomad_tpu_torch.structs.node import NodeStatus, compute_node_class
 from nomad_tpu_torch.structs.plan import Plan, PlanResult
+from nomad_tpu_torch.structs.service import ServiceRegistration
 
 
 class JobSummary:
@@ -183,7 +184,7 @@ class StateStore:
         self._scaling_events: Dict[Tuple[str, str, str], List[object]] = {}
         # nomad-native service registrations, keyed by registration id
         # (reference schema.go service_registrations)
-        self._services: Dict[str, object] = {}
+        self._services: Dict[str, ServiceRegistration] = {}
         self._services_by_alloc: Dict[str, Set[str]] = defaultdict(set)
         self.matrix = ClusterMatrix()
         # readers outside the store (the placement engine's basis copies)
@@ -594,7 +595,8 @@ class StateStore:
 
     # ----------------------------------------------- service registrations
 
-    def upsert_service_registrations(self, index: int, services) -> None:
+    def upsert_service_registrations(
+            self, index: int, services: List[ServiceRegistration]) -> None:
         """services: [ServiceRegistration] (reference
         state_store_service_registration.go UpsertServiceRegistrations)."""
         with self._lock:
