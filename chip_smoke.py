@@ -109,6 +109,29 @@ Phases, all run in this order:
            stopped), committed usage equals the live allocs' sum within
            capacity and the engine's device basis equals its host
            snapshot.
+  lifecycle  the dev-mode Server's control loops on the card at fleet
+           size (NOMAD_TPU_FLEET_AGENTS, 10,000 nodes; 16 workers; the
+           default 10 s heartbeat TTL): a FleetDriver thread keeps the
+           nodes alive through Server.node_heartbeats (chunks of 1,000
+           every 0.5 s; its largest gap between passes logged) under
+           100 C2M batch jobs (K4) and 20 rack-spread service jobs of
+           count 50 (K3), one with a canary, auto-promote, auto-revert
+           update strategy; then expiry (100 nodes stop heartbeating:
+           all down through fewer than 100 NODE_HEARTBEAT_BATCH entries,
+           every lost alloc replaced), drain (100 other nodes, 30 s
+           deadline: each empty, ineligible, strategy cleared), a
+           rolling deploy (health reported through ALLOC_CLIENT_UPDATE:
+           SUCCESSFUL, v1 stable), scale (50 -> 80 -> 40, agreeing with
+           job_scale_status), periodic (two children through
+           dispatch_due, placed), force-gc (the down nodes, terminal
+           evals and jobs collected), one event subscription seeing
+           every step with none dropped; each step's seconds logged.  It
+           fails if a node the driver kept alive went down, usage is not
+           the live allocs' sum within capacity, an alloc landed on a
+           node down or ineligible when it was placed, the device basis
+           differs from the host snapshot, K3, K4 or K5 did not launch in
+           it, an eval failed but at the attempt limit, a loop logged an
+           ERROR, or a loop thread outlived stop().
   bench    the port's bench entry point (nomad_tpu_torch/bench.py) on
            the card: bench_c2m_1m at 10,000 nodes with 1,000 jobs
            (100,000 allocs, 48 workers), whose stage probe launches
@@ -175,10 +198,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3289,6 +3314,478 @@ def phase_spine():
     return spine_preemption()
 
 
+# --------------------------------------------------------------- the lifecycle
+
+# the loops' threads and the spine's: none may outlive Server.stop()
+LOOP_THREADS = ("heartbeat", "heartbeat-batch", "deploy-watcher",
+                "volume-watcher", "drainer", "periodic", "core-gc",
+                "worker-", "plan-apply", "plan-commit", "eval-reaper",
+                "dup-blocked-reaper")
+LIFECYCLE_WORKERS = 16
+LIFECYCLE_LOST = 100       # nodes the driver stops heartbeating
+LIFECYCLE_DRAINED = 100    # nodes drained with a 30 s deadline
+
+
+class FleetDriver(threading.Thread):
+    """Keeps the registered nodes alive through Server.node_heartbeats,
+    in chunks of 1,000 every 0.5 s (the reference's fleet driver,
+    scenarios.py FleetDriver), and records the largest gap between the
+    starts of two passes.  Nodes in `stopped` are left to expire."""
+
+    def __init__(self, server, interval=0.5, chunk=1000):
+        super().__init__(name="fleet-driver", daemon=True)
+        self.server = server
+        self.interval = interval
+        self.chunk = chunk
+        self.ids = []
+        self.stopped = set()
+        self.lock = threading.Lock()
+        self.halt = threading.Event()
+        self.passes = 0
+        self.max_gap = 0.0
+        self.last_start = None
+        self.gen = 0              # bumped by every stop_nodes
+        self.gen_end = {}         # gen -> end of the last pass under it
+        self.errors = []
+
+    def run(self):
+        while not self.halt.is_set():
+            t0 = time.monotonic()
+            if self.last_start is not None:
+                self.max_gap = max(self.max_gap, t0 - self.last_start)
+            self.last_start = t0
+            with self.lock:
+                gen = self.gen
+                ids = [i for i in self.ids if i not in self.stopped]
+            try:
+                for k in range(0, len(ids), self.chunk):
+                    self.server.node_heartbeats(ids[k:k + self.chunk])
+            except Exception as e:      # noqa: BLE001
+                self.errors.append(repr(e))
+            self.gen_end[gen] = time.time()
+            self.passes += 1
+            self.halt.wait(self.interval)
+
+    def stop_nodes(self, ids):
+        """Stop heartbeating `ids`; returns the wall-clock time of the
+        end of the last pass that still included them."""
+        with self.lock:
+            self.stopped.update(ids)
+            self.gen += 1
+            gen = self.gen
+        while gen not in self.gen_end:
+            time.sleep(0.01)
+        return self.gen_end[gen - 1]
+
+
+class EventTap(threading.Thread):
+    """One subscription to every topic, drained on its own thread: per
+    step the (topic, type) counts, and the largest backlog seen."""
+
+    def __init__(self, broker):
+        super().__init__(name="event-tap", daemon=True)
+        self.sub = broker.subscribe({"*": ["*"]}, max_queue=1 << 22)
+        self.broker = broker
+        self.step = "setup"
+        self.seen = {}
+        self.halt = threading.Event()
+        self.max_backlog = 0
+        self.down_seen = set()
+
+    def run(self):
+        while not self.halt.is_set():
+            ev = self.sub.next(timeout=0.2)
+            if ev is None:
+                continue
+            self.max_backlog = max(self.max_backlog, len(self.sub.queue))
+            per = self.seen.setdefault(self.step, {})
+            key = (ev.topic, ev.type)
+            per[key] = per.get(key, 0) + 1
+            if ev.topic == "Node" and getattr(ev.payload, "status", "") \
+                    == "down":
+                self.down_seen.add(ev.key)
+
+    def finish(self):
+        deadline = time.time() + 30
+        while self.sub.queue and time.time() < deadline:
+            time.sleep(0.05)
+        self.halt.set()
+        self.join(5)
+        return self.broker.stats()["subs"][0]
+
+
+# the loggers of the control loops (a worker's failed eval is read from
+# Worker.failures instead, by cause)
+LOOP_LOGGERS = tuple(f"nomad_tpu_torch.core.{m}" for m in (
+    "heartbeat", "drainer", "deployments", "volumes", "periodic",
+    "core_gc", "events", "server"))
+
+
+class ErrorRecords(logging.Handler):
+    """ERROR records of the control loops' loggers (a loop that catches
+    and logs must not hide a failure while the run exits 0)."""
+
+    def __init__(self):
+        super().__init__(level=logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        exc = record.exc_info[1] if record.exc_info else None
+        self.records.append(f"{record.name}: {record.getMessage()}"
+                            + (f": {exc!r}" if exc is not None else ""))
+
+
+def _lifecycle_state(s, jobs, driver, errors):
+    """A failed wait's context: the broker, blocked evals, the applier,
+    the evals not terminal, and every thread's stack (on stderr)."""
+    import faulthandler
+    from collections import Counter
+    live = Counter(e.status + "/" + e.triggered_by
+                   for e in s.store.evals() if not e.terminal())
+    log(f"lifecycle state: running {len(_running(s.store, jobs))}; broker "
+        f"ready {s.broker.ready_count()} unacked "
+        f"{s.broker.unacked_count()} stats {dict(s.broker.stats)}; "
+        f"blocked {s.blocked_evals.blocked_count()}; plan queue "
+        f"{s.plan_queue.depth()}; applier {dict(s.applier.stats)}; evals "
+        f"not terminal {dict(live)}; failures "
+        f"{dict(_failures(s.workers))}; driver passes {driver.passes}, "
+        f"largest gap {driver.max_gap:.3f} s; nodes "
+        f"{Counter(n.status for n in s.store.nodes())}; ERROR records "
+        f"{errors.records[:3]}")
+    faulthandler.dump_traceback(sys.stderr, all_threads=True)
+
+
+def _live_on(store, node_id):
+    return [a for a in store.allocs_by_node(node_id)
+            if not a.terminal_status()]
+
+
+def _report_healthy(s, allocs):
+    from nomad_tpu_torch.raft import MessageType
+    updates = []
+    for a in allocs:
+        u = a.copy()
+        u.client_status = "running"
+        u.deployment_status = {"healthy": True}
+        updates.append(u)
+    if updates:
+        s.apply(MessageType.ALLOC_CLIENT_UPDATE, {"allocs": updates})
+
+
+def phase_lifecycle():
+    """The dev-mode server's control loops on the card at fleet size:
+    Server(device="cuda") with 16 workers and the default 10 s
+    heartbeat TTL, NOMAD_TPU_FLEET_AGENTS (10,000) nodes kept alive by a
+    FleetDriver thread, 100 C2M batch jobs (K4), 20 rack-spread service
+    jobs of count 50 (K3), one of them with a canary, auto-promote,
+    auto-revert update strategy; then expiry, drain, a rolling deploy,
+    scale, periodic, core GC and the event stream.  Returns the K3, K4
+    and K5 launch counts of the phase."""
+    from nomad_tpu_torch import knobs, mock
+    from nomad_tpu_torch.core.periodic import next_cron_after
+    from nomad_tpu_torch.core.server import Server, ServerConfig
+    from nomad_tpu_torch.raft import MessageType
+    from nomad_tpu_torch.structs.job import (PeriodicConfig, Spread,
+                                             UpdateStrategy)
+    n_nodes = knobs.get_int("NOMAD_TPU_FLEET_AGENTS")
+    errors = ErrorRecords()
+    for name in LOOP_LOGGERS:
+        logging.getLogger(name).addHandler(errors)
+    before = set(threading.enumerate())
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+        log(f"lifecycle: step {name}: {steps[name]:.3f} s")
+
+    _reset_counts()
+    # an eval that fails at the scheduler's attempt limit (a node went
+    # down or was drained under an in-flight plan) is retried after 2 s
+    # instead of the default 60 s, so the phase fits its budget
+    s = Server(ServerConfig(num_schedulers=LIFECYCLE_WORKERS,
+                            failed_eval_followup_delay=2.0),
+               device="cuda")
+    batches = []
+    apply = s.apply
+
+    def counting(msg_type, payload):
+        if msg_type == MessageType.NODE_HEARTBEAT_BATCH:
+            batches.append([(u["node_id"], u["status"])
+                            for u in payload["updates"]])
+        return apply(msg_type, payload)
+    s.apply = counting
+    s.start()
+    tap = EventTap(s.event_broker)
+    tap.start()
+    driver = FleetDriver(s)
+    driver.start()
+    workers = list(s.workers)
+    failures0 = _failures(workers)
+    state_jobs = []
+    try:
+        # ---- setup: the fleet, then the load
+        t0 = time.perf_counter()
+        for i in range(n_nodes):
+            node = mock.node()
+            node.attributes["rack"] = f"r{i % RACKS}"
+            s.register_node(node)
+            with driver.lock:
+                driver.ids.append(node.id)
+        log(f"lifecycle: {n_nodes} nodes registered in "
+            f"{time.perf_counter() - t0:.3f} s")
+        c2m = [_c2m_job(mock) for _ in range(100)]
+        spread = []
+        for k in range(20):
+            j = mock.job()
+            j.task_groups[0].count = 50
+            j.task_groups[0].spreads = [Spread("${attr.rack}", 100, ())]
+            if k == 0:
+                j.update = UpdateStrategy(max_parallel=5, canary=1,
+                                          auto_promote=True,
+                                          auto_revert=True)
+                j.task_groups[0].update = None
+            else:
+                j.update = None
+                j.task_groups[0].update = None
+            spread.append(j)
+        rolling, scaled = spread[0], spread[1]
+        jobs = c2m + spread
+        state_jobs[:] = jobs
+        for j in jobs:
+            s.register_job(j)
+        _wait_for(lambda: len(_running(s.store, jobs)) >= 11000, 300,
+                  "the 11,000 allocs of the load")
+        if not s.wait_for_idle(120):
+            raise AssertionError("lifecycle: the load still in flight")
+        # v0 of the rolling job healthy and stable: its rollback target
+        _report_healthy(s, _running(s.store, [rolling]))
+        _wait_for(lambda: s.store.job_by_id("default", rolling.id).stable,
+                  60, "v0 of the rolling job stable")
+        step("setup", t0)
+
+        # ---- 1. expiry
+        t0 = time.perf_counter()
+        tap.step = "expiry"
+        held = sorted({a.node_id for a in _running(s.store, jobs)})
+        victims = held[:: max(1, len(held) // LIFECYCLE_LOST)][
+            :LIFECYCLE_LOST]
+        on_victims = {a.id for v in victims for a in _live_on(s.store, v)}
+        nb0 = len(batches)
+        last_hb = driver.stop_nodes(victims)
+        _wait_for(lambda: all(s.store.node_by_id(v).status == "down"
+                              for v in victims), 60,
+                  f"the {len(victims)} stopped nodes to go down")
+        down_at = {v: s.store.node_by_id(v).modify_index for v in victims}
+        down_entries = sum(1 for b in batches[nb0:]
+                           if any(st == "down" for _, st in b))
+        _wait_for(lambda: all(s.store.alloc_by_id(i).client_status == "lost"
+                              for i in on_victims)
+                  and len(_running(s.store, jobs)) >= 11000
+                  and s.wait_for_idle(1.0), 120,
+                  "the down nodes' allocs lost and replaced")
+        last_commit = time.time()
+        lost = [s.store.alloc_by_id(i) for i in on_victims]
+        log(f"lifecycle: expiry: {len(victims)} nodes down through "
+            f"{down_entries} NODE_HEARTBEAT_BATCH entries carrying down "
+            f"transitions ({len(batches) - nb0} batch entries in the "
+            f"step), {len(lost)} allocs lost and replaced (11,000 "
+            f"live again); "
+            f"{last_commit - last_hb:.3f} s from the last heartbeat to "
+            f"the last replacement committed")
+        if down_entries >= len(victims):
+            raise AssertionError(f"lifecycle: {down_entries} batch entries "
+                                 f"for {len(victims)} expiries")
+        step("expiry", t0)
+
+        # ---- 2. drain
+        t0 = time.perf_counter()
+        tap.step = "drain"
+        others = [n for n in held if n not in set(victims)]
+        drained = others[:: max(1, len(others) // LIFECYCLE_DRAINED)][
+            :LIFECYCLE_DRAINED]
+        drain_at = {}
+        for n in drained:
+            s.drainer.drain_node(n, deadline_s=30.0)
+            drain_at[n] = s.store.latest_index
+
+        def drained_done():
+            for n in drained:
+                node = s.store.node_by_id(n)
+                if node.drain_strategy is not None \
+                        or node.scheduling_eligibility != "ineligible" \
+                        or _live_on(s.store, n):
+                    return False
+            return True
+        _wait_for(drained_done, 120, "the drained nodes to empty")
+        _wait_for(lambda: s.wait_for_idle(1.0)
+                  and len(_running(s.store, jobs)) >= 11000, 120,
+                  "the migrated allocs")
+        forced = sum(1 for n in drained for a in s.store.allocs_by_node(n)
+                     if "drain deadline" in (a.desired_description or ""))
+        log(f"lifecycle: drain: {len(drained)} nodes empty, ineligible, "
+            f"strategy cleared; {forced} allocs force-stopped at the "
+            f"deadline")
+        step("drain", t0)
+
+        # ---- 3. rolling deploy
+        t0 = time.perf_counter()
+        tap.step = "deploy"
+        v1 = s.store.job_by_id("default", rolling.id).copy()
+        v1.task_groups[0].tasks[0].config = {"command": "/bin/v1"}
+        s.register_job(v1)
+        version = s.store.job_by_id("default", rolling.id).version
+        statuses = []
+
+        def deployed():
+            d = s.store.latest_deployment_by_job_id("default", rolling.id)
+            if d is None or d.job_version != version:
+                return False
+            if not statuses or statuses[-1] != d.status:
+                statuses.append(d.status)
+            if d.status == "successful":
+                return True
+            if d.status in ("failed", "cancelled"):
+                raise AssertionError(f"lifecycle: the deployment ended "
+                                     f"{d.status}: {d.status_description}")
+            _report_healthy(s, [a for a in s.store.allocs_by_job(
+                "default", rolling.id) if a.deployment_id == d.id
+                and not a.terminal_status() and not a.is_healthy()])
+            return False
+        _wait_for(deployed, 120, "the rolling deployment")
+        _wait_for(lambda: s.store.job_by_id("default", rolling.id).stable,
+                  30, "v1 stable")
+        if not s.wait_for_idle(60):
+            raise AssertionError("lifecycle: deploy evals in flight")
+        live_v1 = [a for a in _running(s.store, [rolling])
+                   if a.job.version == version]
+        log(f"lifecycle: deploy: v{version} SUCCESSFUL and stable, "
+            f"statuses {statuses}, {len(live_v1)} of 50 live allocs on "
+            f"v{version}")
+        if len(live_v1) != 50:
+            raise AssertionError(f"lifecycle: {len(live_v1)} of 50 allocs "
+                                 f"on v{version}")
+        step("deploy", t0)
+
+        # ---- 4. scale
+        t0 = time.perf_counter()
+        tap.step = "scale"
+        group = scaled.task_groups[0].name
+        for count in (80, 40):
+            s.scale_job("default", scaled.id, group, count,
+                        message=f"to {count}")
+            _wait_for(lambda: s.wait_for_idle(1.0) and len(
+                _running(s.store, [scaled])) == count, 60,
+                f"the scaled job at {count}")
+        st = s.job_scale_status("default", scaled.id)["task_groups"][group]
+        counts = [e.count for e in sorted(st["events"],
+                                          key=lambda e: e.time)]
+        if (st["desired"], st["placed"]) != (40, 40) \
+                or counts[-2:] != [80, 40]:
+            raise AssertionError(f"lifecycle: job_scale_status {st}")
+        step("scale", t0)
+
+        # ---- 5. periodic
+        t0 = time.perf_counter()
+        tap.step = "periodic"
+        p = mock.batch_job()
+        p.task_groups[0].count = 10
+        p.periodic = PeriodicConfig(spec="0 0 1 1 *")
+        s.register_job(p)
+        s.periodic.dispatch_due(time.time())        # arms the job
+        fire1 = next_cron_after(p.periodic.spec, time.time())
+        fire2 = next_cron_after(p.periodic.spec, fire1)
+        children = (s.periodic.dispatch_due(fire1)
+                    + s.periodic.dispatch_due(fire2))
+        if len(children) != 2:
+            raise AssertionError(f"lifecycle: periodic launched {children}")
+        kids = [s.store.job_by_id("default", c) for c in children]
+        _wait_for(lambda: s.wait_for_idle(1.0)
+                  and len(_running(s.store, kids)) == 20, 60,
+                  "both periodic children placed")
+        step("periodic", t0)
+
+        # ---- the state at a quiescent point
+        if not s.wait_for_idle(60):
+            raise AssertionError("lifecycle: evals in flight")
+        _check_spine(s, s._engine, "lifecycle")
+        launches = _counts()
+        went_down = sorted(n.id for n in s.store.nodes()
+                           if n.status != "ready" and n.id not in victims)
+        if went_down or (tap.down_seen - set(victims)):
+            raise AssertionError(f"lifecycle: nodes the driver kept alive "
+                                 f"went down: {went_down[:5]} "
+                                 f"{sorted(tap.down_seen - set(victims))[:5]}")
+        marks = dict(down_at)
+        marks.update(drain_at)
+        bad = [a.id for n, idx in marks.items()
+               for a in s.store.allocs_by_node(n) if a.create_index > idx]
+        if bad:
+            raise AssertionError(f"lifecycle: {len(bad)} allocs placed on "
+                                 f"a down or ineligible node")
+
+        # ---- 6. GC and events
+        t0 = time.perf_counter()
+        tap.step = "gc"
+        for j in c2m[:10] + kids:
+            s.deregister_job(j.namespace, j.id)
+        if not s.wait_for_idle(60):
+            raise AssertionError("lifecycle: deregistrations in flight")
+        gc = s.core_scheduler.process("force-gc", force=True)
+        left_down = [n.id for n in s.store.nodes() if n.status == "down"]
+        if left_down or gc["nodes"] != len(victims) or gc["jobs"] < 12 \
+                or gc["evals"] == 0:
+            raise AssertionError(f"lifecycle: force-gc {gc}, "
+                                 f"{len(left_down)} down nodes left")
+        step("gc", t0)
+    except Exception:
+        _lifecycle_state(s, state_jobs, driver, errors)
+        raise
+    finally:
+        driver.halt.set()
+        driver.join(10)
+        t0 = time.perf_counter()
+        s.stop()
+        stop_s = time.perf_counter() - t0
+        sub = tap.finish()
+        for name in LOOP_LOGGERS:
+            logging.getLogger(name).removeHandler(errors)
+    left = sorted(t.name for t in threading.enumerate()
+                  if t not in before and t.name.startswith(LOOP_THREADS))
+    if left:
+        raise AssertionError(f"lifecycle: threads outlived stop(): {left}")
+    causes = _failures(workers) - failures0
+    _check_failures("lifecycle", causes)
+    if errors.records:
+        raise AssertionError(f"lifecycle: ERROR records: "
+                             f"{errors.records[:5]}")
+    if driver.errors:
+        raise AssertionError(f"lifecycle: driver errors {driver.errors[:3]}")
+    if sub["dropped"] != 0:
+        raise AssertionError(f"lifecycle: the subscription dropped "
+                             f"{sub['dropped']} events")
+    silent = [k for k in steps if not tap.seen.get(k)]
+    if silent:
+        raise AssertionError(f"lifecycle: the subscription saw nothing in "
+                             f"{silent}")
+    for name in ("place_batch", "place_bulk_batch", "set_rows"):
+        if launches[name] == 0:
+            raise AssertionError(f"lifecycle: {name} never launched")
+    log(f"lifecycle: {n_nodes} nodes, {LIFECYCLE_WORKERS} workers: the "
+        f"driver's largest gap between passes {driver.max_gap:.3f} s over "
+        f"{driver.passes} passes; the subscription delivered "
+        f"{sub['delivered']} events, dropped {sub['dropped']}, largest "
+        f"backlog {tap.max_backlog}; per step "
+        f"{ {k: sum(v.values()) for k, v in tap.seen.items()} }; evals "
+        f"failed by cause {dict(causes)}; launches K3 "
+        f"{launches['place_batch']}, K4 {launches['place_bulk_batch']}, "
+        f"K5 set_rows {launches['set_rows']}; stopped in {stop_s:.1f} s; "
+        f"phase {time.perf_counter() - t_phase:.1f} s; usage equals the "
+        f"allocs' sum, device basis equals host snapshot, no thread left")
+    return {k: launches[k] for k in ("place_batch", "place_bulk_batch",
+                                     "set_rows")}
+
+
 # --------------------------------------------------------------- the bench
 
 # the native module's functions the parent tree also has, swapped for
@@ -4884,6 +5381,9 @@ def main() -> int:
     # the server spine, the preemption path last: K6's count is read on
     # its window, set to 0 just before it
     entries["preempt"]["launches"] = timed("spine", phase_spine)["preempt"]
+    # the control loops at fleet size: K3, K4 and K5 must launch in it
+    # (their kernels line keeps the engine phase's counts)
+    log(f"lifecycle launches: {timed('lifecycle', phase_lifecycle)}")
     # the bench entry point: K8's counts are read on the main C2M run's
     # probe
     bench_launches = timed("bench", phase_bench)

@@ -345,6 +345,15 @@ class EvalBroker:
                     return token
         return None
 
+    def outstanding_reset(self, eval_id: str, token: str) -> bool:
+        """Extend the lease (reference OutstandingReset for long scheds)."""
+        with self._lock:
+            lease = self._unack.get(token)
+            if lease is None or lease.eval.id != eval_id:
+                return False
+            lease.expires_at = _time.time() + self.nack_timeout
+            return True
+
     def unacked_count(self) -> int:
         with self._lock:
             return len(self._unack)
@@ -356,6 +365,25 @@ class EvalBroker:
                        for s, per_ns in self._ns_ready.items()
                        if s != FAILED_QUEUE
                        for q in per_ns.values())
+
+    def fair_stats(self) -> dict:
+        """broker.fair_* telemetry snapshot: per-namespace pass/weight
+        plus runnable namespace count.  `bypassed` counts picks that
+        skipped the stride order; only the reference's chaos hook makes
+        them, so it stays 0 here."""
+        with self._lock:
+            runnable = set()
+            for nss in self._ns_nonempty.values():
+                runnable |= nss
+            return {
+                "enabled": self._fair_enabled,
+                "runnable_namespaces": len(runnable),
+                "pass": dict(self._fair_pass),
+                "weights": dict(self._fair_weights),
+                "default_weight": self._fair_default_weight,
+                "picks": self.stats["fair_picks"],
+                "bypassed": self.stats["fair_bypassed"],
+            }
 
 
 class EvalWaveFeeder:

@@ -2,9 +2,17 @@
 
 Reference analog: nomad/server.go + leader.go establishLeadership — state
 store, eval broker, blocked evals, plan queue, the serialized plan-apply
-loop and N scheduler workers.  Writes apply straight through the NomadFSM
-under a lock (the reference's '-dev agent' in-memory Raft); the server
-is its own leader from `start` to `stop`.
+loop, N scheduler workers, heartbeats and their batcher, the drainer,
+the deployment, volume and periodic watchers, core GC and the event
+broker.  Writes apply straight through the NomadFSM under a lock (the
+reference's '-dev agent' in-memory Raft); the server is its own leader
+from `start` to `stop`, and `stop` joins every thread it started.
+
+The control loops write only from their own threads: the store's watch
+callbacks run inside the FSM write, under `_raft_lock`, so a callback
+(the event broker, the drainer's and the deployment watcher's
+`_on_change`, the volume watcher) only records or wakes, and never
+writes back through `apply`.
 
 `save_snapshot`/`restore_snapshot` write and read the FSM's snapshot
 (raft/fsm.py) to and from a file, the operator's save and restore.
@@ -15,22 +23,31 @@ run, and whose engine the plan applier releases tickets on.  Without a
 card, `Server()` raises; `device="cpu"` runs the plain PyTorch versions.
 
 Not in this port yet (the constructor raises for the first three):
-raft clusters, gossip membership, the WAN pool and federation;
-heartbeats, the deployment, volume and drain watchers, the periodic
-dispatcher, core GC, the event broker, RPC endpoints, admission and
-brownout, the read gate and ACLs.
+raft clusters and RPC endpoints (ROADMAP A4), gossip membership,
+admission and brownout and the read gate (A5), ACLs (A6), the WAN pool
+and federation (A7).
 """
 from __future__ import annotations
 
+import logging
 import pickle
 import threading
 import time as _time
 from typing import List, Optional
 
+from nomad_tpu_torch import knobs
 from nomad_tpu_torch.core.blocked import BlockedEvals
 from nomad_tpu_torch.core.broker import FAILED_QUEUE, EvalBroker, EvalWaveFeeder
+from nomad_tpu_torch.core.core_gc import CoreScheduler
+from nomad_tpu_torch.core.deployments import DeploymentWatcher
+from nomad_tpu_torch.core.drainer import NodeDrainer
+from nomad_tpu_torch.core.events import EventBroker
+from nomad_tpu_torch.core.heartbeat import HeartbeatBatcher, HeartbeatTracker
+from nomad_tpu_torch.core.periodic import PeriodicDispatcher
 from nomad_tpu_torch.core.plan_apply import PlanApplier
 from nomad_tpu_torch.core.plan_queue import PlanQueue, StaleEvalTokenError
+from nomad_tpu_torch.core.secrets import SecretsProvider
+from nomad_tpu_torch.core.volumes import VolumeWatcher
 from nomad_tpu_torch.core.worker import Worker
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.raft import MessageType, NomadFSM
@@ -44,14 +61,14 @@ from nomad_tpu_torch.structs import (
 )
 from nomad_tpu_torch.structs.evaluation import EvalTrigger
 
+log = logging.getLogger(__name__)
+
 
 class ServerConfig:
-    """`heartbeat_ttl` and `gc_interval` are kept for the heartbeat
-    tracker and core GC, which the port does not run yet."""
-
     def __init__(self, num_schedulers: int = 4,
                  enabled_schedulers: Optional[List[str]] = None,
                  heartbeat_ttl: float = 10.0,
+                 heartbeat_batch_interval: float = 0.05,
                  gc_interval: float = 300.0,
                  region: str = "global",
                  failed_eval_followup_delay: float = 60.0):
@@ -59,6 +76,12 @@ class ServerConfig:
         self.enabled_schedulers = enabled_schedulers or \
             ["service", "batch", "system", "sysbatch"]
         self.heartbeat_ttl = heartbeat_ttl
+        # flush cadence of the leader's heartbeat/node-status coalescer
+        # (one NodeHeartbeatBatch entry per flush);
+        # NOMAD_TPU_HEARTBEAT_BATCH_MS overrides
+        self.heartbeat_batch_interval = knobs.get_float(
+            "NOMAD_TPU_HEARTBEAT_BATCH_MS",
+            default=heartbeat_batch_interval * 1000.0) / 1000.0
         self.gc_interval = gc_interval
         self.region = region
         self.failed_eval_followup_delay = failed_eval_followup_delay
@@ -102,7 +125,20 @@ class Server:
         self._plan_thread: Optional[threading.Thread] = None
         self._threads: List[threading.Thread] = []
         self._engine = None
+        self.event_broker = EventBroker()
+        self.heartbeats = HeartbeatTracker(self, ttl=self.config.heartbeat_ttl)
+        self.heartbeat_batch = HeartbeatBatcher(
+            self, interval=self.config.heartbeat_batch_interval)
+        self.deployment_watcher = DeploymentWatcher(self)
+        self.volume_watcher = VolumeWatcher(self)
+        # Vault-shaped secrets (core/secrets.py): leases are leader-local
+        # like the reference's external-Vault client state, not raft state
+        self.secrets = SecretsProvider()
+        self.drainer = NodeDrainer(self)
+        self.periodic = PeriodicDispatcher(self)
+        self.core_scheduler = CoreScheduler(self)
         self.store.watch(self.blocked_evals.watch_state)
+        self.store.watch(self.event_broker.watch_state)
         self.store.watch(self._on_state_change)
         self.leader = False
         self._established = False
@@ -163,7 +199,9 @@ class Server:
         """establishLeadership (reference nomad/leader.go:277-357), the
         parts this port runs: broker, blocked evals, plan queue and its
         applier loop, the workers behind the wave feeder, the restored
-        evals and the two reapers."""
+        evals, the two reapers, then the heartbeat batcher and tracker
+        (every live node's TTL re-armed), the deployment and volume
+        watchers, the drainer, the periodic dispatcher and core GC."""
         with self._leader_lock:
             if self._established:
                 return
@@ -202,17 +240,40 @@ class Server:
                                      name=tname, daemon=True)
                 t.start()
                 self._threads.append(t)
+            self.heartbeat_batch.start()
+            self.heartbeats.start()
+            # initializeHeartbeatTimers (leader.go:347): nodes registered
+            # before this tenure (a restored snapshot) get timers, so a
+            # node that died meanwhile still expires
+            for node in self.store.nodes():
+                if not node.terminal_status():
+                    self.heartbeats.heartbeat(node.id)
+            self.deployment_watcher.start()
+            self.volume_watcher.start()
+            self.drainer.start()
+            self.periodic.start()
+            gc_t = threading.Thread(target=self._gc_loop, args=(stop,),
+                                    name="core-gc", daemon=True)
+            gc_t.start()
+            self._threads.append(gc_t)
 
     def _revoke_leadership(self) -> None:
         """revokeLeadership (reference nomad/leader.go:1099-1132): the
-        workers settle and exit while the applier still runs, then the
-        queues close and every leader thread is joined."""
+        control loops stop first, the workers settle and exit while the
+        applier still runs, then the queues close and every leader
+        thread is joined."""
         with self._leader_lock:
             if not self._established:
                 return
             self._established = False
             self.leader = False
             self._leader_stop.set()
+            self.heartbeats.stop()
+            self.heartbeat_batch.stop()
+            self.deployment_watcher.stop()
+            self.volume_watcher.stop()
+            self.drainer.stop()
+            self.periodic.stop()
             for w in self.workers:
                 w.stop()
             for w in self.workers:
@@ -308,6 +369,17 @@ class Server:
                 cancelled.status_description = \
                     "existing blocked evaluation exists for this job"
                 self.update_eval(cancelled)
+
+    def _gc_loop(self, stop: threading.Event) -> None:
+        """Leader periodic GC timers (reference leader.go:782-810 core-job
+        eval scheduling, here invoked directly)."""
+        while not stop.wait(self.config.gc_interval):
+            if self._stop.is_set():
+                return
+            try:
+                self.core_scheduler.process("force-gc")
+            except Exception:               # noqa: BLE001
+                log.exception("core gc")
 
     # ------------------------------------------------------------- watches
 
@@ -416,8 +488,83 @@ class Server:
         self.create_evals([ev])
         return ev
 
+    def scale_job(self, namespace: str, job_id: str, group: str,
+                  count: Optional[int] = None, message: str = "",
+                  error: bool = False, meta: Optional[dict] = None
+                  ) -> Optional[Evaluation]:
+        """Job.Scale (reference nomad/job_endpoint.go:967): adjust one
+        task group's count within its scaling-policy bounds by
+        registering the updated job (which creates the eval that
+        reschedules), and record a ScalingEvent either way (error=True
+        events are autoscaler annotations that never change counts)."""
+        from nomad_tpu_torch.structs.job import ScalingEvent
+        job = self.store.job_by_id(namespace, job_id)
+        if job is None:
+            raise ValueError(f"job {job_id!r} not found")
+        tg = job.lookup_task_group(group)
+        if tg is None:
+            raise ValueError(
+                f"task group {group!r} does not exist in job")
+        prev = tg.count
+        ev = None
+        if count is not None and not error:
+            if tg.scaling is not None and tg.scaling.enabled:
+                if count < tg.scaling.min:
+                    raise ValueError(
+                        f"group count was less than scaling policy "
+                        f"minimum: {count} < {tg.scaling.min}")
+                if tg.scaling.max and count > tg.scaling.max:
+                    raise ValueError(
+                        f"group count was greater than scaling policy "
+                        f"maximum: {count} > {tg.scaling.max}")
+            new_job = job.copy()
+            new_job.lookup_task_group(group).count = int(count)
+            ev = self.register_job(new_job)
+        event = ScalingEvent(
+            time=_time.time(), previous_count=prev, count=count,
+            message=message, error=error,
+            eval_id=ev.id if ev is not None else "", meta=meta or {})
+        self.apply(MessageType.SCALING_EVENT,
+                   {"namespace": namespace, "job_id": job_id,
+                    "group": group, "event": event})
+        return ev
+
+    def job_scale_status(self, namespace: str, job_id: str) -> Optional[dict]:
+        """Job.ScaleStatus (job_endpoint.go:2038): desired vs placed vs
+        healthy per group + the scaling-event log."""
+        job = self.store.job_by_id(namespace, job_id)
+        if job is None:
+            return None
+        allocs = self.store.allocs_by_job(namespace, job_id)
+        events = self.store.scaling_events_by_job(namespace, job_id)
+        groups = {}
+        for tg in job.task_groups:
+            live = [a for a in allocs if a.task_group == tg.name
+                    and not a.terminal_status()]
+            healthy = sum(1 for a in live if (a.deployment_status or {})
+                          .get("healthy") is True)
+            unhealthy = sum(1 for a in live if (a.deployment_status or {})
+                            .get("healthy") is False)
+            groups[tg.name] = {
+                "desired": tg.count, "placed": len(live),
+                "running": sum(1 for a in live
+                               if a.client_status == "running"),
+                "healthy": healthy, "unhealthy": unhealthy,
+                "events": events.get(tg.name, []),
+            }
+        return {"job_id": job_id, "namespace": namespace,
+                "job_modify_index": job.modify_index,
+                "job_stopped": job.stopped(), "task_groups": groups}
+
+    def set_job_stability(self, namespace: str, job_id: str, version: int,
+                          stable: bool) -> None:
+        self.apply(MessageType.JOB_STABILITY,
+                   {"namespace": namespace, "job_id": job_id,
+                    "version": version, "stable": stable})
+
     def register_node(self, node: Node) -> None:
-        """Node.Register (nomad/node_endpoint.go:79).  A re-registration
+        """Node.Register (nomad/node_endpoint.go:79).  The leader's FSM
+        hook starts the node's TTL timer.  A re-registration
         whose device fingerprint marks instances unhealthy migrates the
         allocations holding those instances."""
         prev = self.store.node_by_id(node.id)
@@ -474,6 +621,60 @@ class Server:
         if evs:
             self.create_evals(evs)
 
+    def node_heartbeat(self, node_id: str) -> float:
+        """Node.UpdateStatus heartbeat path: reset TTL; a down node
+        re-heartbeating is brought back to ready (init->ready handled by
+        client re-registration)."""
+        return self.node_heartbeats([node_id])
+
+    def node_heartbeats(self, node_ids: List[str]) -> float:
+        """Batched heartbeat for fleet-scale agent drivers: one call
+        re-arms many TTLs.  A down or disconnected node's revival rides
+        the heartbeat batch when it runs (one coalesced FSM entry per
+        flush tick, not one per node); a live node gets a liveness stamp
+        (rate-limited to half-TTL per node inside the batcher), so a
+        restored leader sees reasonably fresh status_updated_at values.
+        Unlike the reference, which runs the single-node path a node,
+        the chunk takes the store's, the batcher's and the wheel's locks
+        once each: a thread that takes a contended lock a node waits for
+        the interpreter lock at every one, and among the workers a
+        10,000-node pass then outlasts the TTL."""
+        nodes = self.store.nodes_by_ids(node_ids)
+        batching = self.heartbeat_batch.running
+        stamps = []
+        for nid, node in zip(node_ids, nodes):
+            if node is None:
+                continue
+            if node.status in ("down", "disconnected"):
+                if batching:
+                    self.heartbeat_batch.note(nid, "ready")
+                else:
+                    self.update_node_status(nid, "ready")
+            elif batching:
+                stamps.append((nid, node.status))
+        if stamps:
+            self.heartbeat_batch.stamp_many(stamps)
+        return self.heartbeats.heartbeat_many(node_ids)
+
+    def node_update_fingerprint(self, node_id: str, update: dict) -> dict:
+        """Node.UpdateFingerprint: a device/attribute re-fingerprint
+        DELTA from a registered client.  Rides the heartbeat batcher's
+        coalesced write path (one NodeFingerprintBatch entry per flush
+        tick) instead of a full Node.Register per change; an unknown
+        node returns known=False so the client falls back to a full
+        re-register."""
+        if self.store.node_by_id(node_id) is None:
+            return {"known": False}
+        payload = {k: v for k, v in update.items()
+                   if k in ("devices", "attributes")}
+        payload["node_id"] = node_id
+        if self.heartbeat_batch.running:
+            self.heartbeat_batch.note_fingerprint(node_id, payload)
+        else:
+            self.apply(MessageType.NODE_FINGERPRINT_BATCH,
+                       {"updates": [payload]})
+        return {"known": True}
+
     def update_node_status(self, node_id: str, status: str) -> List[Evaluation]:
         """Node.UpdateStatus: transition + evals for affected jobs."""
         self.apply(MessageType.NODE_UPDATE_STATUS,
@@ -509,6 +710,51 @@ class Server:
         if evals:
             self.create_evals(evals)
         return evals
+
+    # ------------------------------------------------------------- namespaces
+
+    def namespaces(self):
+        return self.store.namespaces()
+
+    def namespace(self, name: str):
+        return self.store.namespace(name)
+
+    def upsert_namespace(self, name: str, description: str = "",
+                         quota: str = "") -> None:
+        if quota and self.store.quota_spec(quota) is None:
+            raise ValueError(f"quota spec {quota!r} does not exist")
+        self.apply(MessageType.NAMESPACE_UPSERT,
+                   {"name": name, "description": description,
+                    "quota": quota})
+
+    def delete_namespace(self, name: str) -> None:
+        self.apply(MessageType.NAMESPACE_DELETE, {"name": name})
+
+    # ------------------------------------------------------------- quotas
+
+    def upsert_quota_spec(self, spec) -> None:
+        self.apply(MessageType.QUOTA_SPEC_UPSERT, {"spec": spec})
+
+    def delete_quota_spec(self, name: str) -> None:
+        # propose-time guard mirrors the FSM's authoritative check so the
+        # caller gets the error without burning a log entry
+        for ns in self.store.namespaces():
+            if ns.quota == name:
+                raise ValueError(
+                    f"quota {name!r} referenced by namespace {ns.name!r}")
+        self.apply(MessageType.QUOTA_SPEC_DELETE, {"name": name})
+
+    def quota_specs(self):
+        return self.store.quota_specs()
+
+    def quota_spec(self, name: str):
+        return self.store.quota_spec(name)
+
+    def quota_usage(self, namespace: str):
+        return self.store.quota_usage(namespace)
+
+    def quota_usages(self):
+        return self.store.quota_usages()
 
     # ------------------------------------------------------------- helpers
 

@@ -3,7 +3,7 @@ spine read.
 
 A copy of the reference's registry entries for them (same names,
 defaults and parsing), read through the typed accessors `get_int` and
-`get_bool`.  Accessors read ``os.environ`` at call time, so tests can
+`get_float` and `get_bool`.  Accessors read ``os.environ`` at call time, so tests can
 set a knob around a block.  An empty string counts as unset.
 """
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Dict, Optional
 
 class Knob:
     """One registered knob: wire default (string form, "" = unset),
-    type name ("int" | "bool"), one-line doc."""
+    type name ("int" | "float" | "bool"), one-line doc."""
 
     __slots__ = ("default", "type", "doc")
 
@@ -61,6 +61,26 @@ KNOBS: Dict[str, Knob] = {
         "2", "int",
         "in-flight commit waves a worker may run ahead of "
         "(double-buffer depth); `0` restores blocking submit"),
+    "NOMAD_TPU_HEARTBEAT_BATCH_MS": Knob(
+        "50", "float",
+        "leader heartbeat-batcher flush interval (one "
+        "`NodeHeartbeatBatch` raft entry per flush)"),
+    "NOMAD_TPU_HB_PENDING_MAX": Knob(
+        "8192", "int",
+        "heartbeat-batcher pending cap; at the cap the writer forces "
+        "a flush"),
+    "NOMAD_TPU_FLEET_AGENTS": Knob(
+        "10000", "int",
+        "in-process client agents the `fleet_soak` bench cells "
+        "register and heartbeat"),
+    # -- event streaming ---------------------------------------------
+    "NOMAD_TPU_SUB_QUEUE": Knob(
+        "1024", "int",
+        "per-subscriber event queue depth before the subscriber is "
+        "marked lagging"),
+    "NOMAD_TPU_EVENT_BUFFER": Knob(
+        "256", "int",
+        "retained event-broker ring size (catch-up window)"),
 }
 
 _FALSE_STRINGS = ("", "0", "false", "no", "off")
@@ -87,6 +107,18 @@ def get_int(name: str, default: Optional[int] = None) -> Optional[int]:
     if default is not None:
         return default
     return int(knob.default) if knob.default else None
+
+
+def get_float(name: str, default: Optional[float] = None
+              ) -> Optional[float]:
+    """The knob as a float; `None` when unset with an empty registry
+    default and no `default=`."""
+    raw, knob = _raw(name)
+    if raw is not None:
+        return float(raw)
+    if default is not None:
+        return default
+    return float(knob.default) if knob.default else None
 
 
 def get_bool(name: str, default: Optional[bool] = None) -> bool:

@@ -592,7 +592,7 @@ import os, sys, tempfile
 os.environ["NOMAD_TPU_PIPELINE_DEPTH"] = "0"
 from nomad_tpu_torch import mock, native
 from nomad_tpu_torch.core.server import Server, ServerConfig
-s = Server(ServerConfig(num_schedulers=1), device="cpu")
+s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0), device="cpu")
 s.start()
 s.register_node(mock.node())
 s.register_job(mock.job())

@@ -48,7 +48,7 @@ _SPINE = r"""
 import sys, time
 from nomad_tpu_torch import mock
 from nomad_tpu_torch.core.server import Server, ServerConfig
-s = Server(ServerConfig(num_schedulers=2), device="cpu")
+s = Server(ServerConfig(num_schedulers=2, heartbeat_ttl=3600.0), device="cpu")
 s.start()
 cfg = s.store.scheduler_config
 cfg.preemption_config.service_scheduler_enabled = True
@@ -72,6 +72,43 @@ print("LOADED:" + ",".join(bad))
 
 def test_server_spine_and_preemption_load_neither_jax_nor_reference():
     assert _loaded(_SPINE) == ["LOADED:"]
+
+
+_LOOPS = r"""
+import sys, time
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.core.server import Server, ServerConfig
+s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0), device="cpu")
+s.start()
+sub = s.event_broker.subscribe({"*": ["*"]})
+nodes = [mock.node() for _ in range(3)]
+for n in nodes:
+    s.register_node(n)
+j = mock.job()
+j.task_groups[0].count = 2
+s.register_job(j)
+assert s.wait_for_idle(30)
+s.node_heartbeats([n.id for n in nodes])
+victim = s.store.allocs_by_job("default", j.id)[0].node_id
+s.drainer.drain_node(victim, deadline_s=0.0)
+deadline = time.time() + 30
+while time.time() < deadline and s.store.node_by_id(victim).drain_strategy:
+    time.sleep(0.05)
+s.scale_job("default", j.id, j.task_groups[0].name, 3)
+assert s.wait_for_idle(30)
+s.core_scheduler.process("force-gc", force=True)
+s.stop()
+assert s.store.node_by_id(victim).scheduling_eligibility == "ineligible"
+assert sub.next(timeout=1.0) is not None
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "nomad_tpu" or m.startswith("nomad_tpu."))
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_control_loops_load_neither_jax_nor_reference():
+    assert _loaded(_LOOPS) == ["LOADED:"]
 
 
 def _imports(path):
@@ -131,7 +168,11 @@ def test_scan_covers_the_spine_modules():
     scanned = {os.path.relpath(p, REPO) for p in _py_files()}
     for mod in ("core/server.py", "core/worker.py", "core/broker.py",
                 "core/blocked.py", "core/plan_queue.py", "raft/fsm.py",
-                "ops/preempt.py", "scheduler/preemption.py"):
+                "ops/preempt.py", "scheduler/preemption.py",
+                "core/heartbeat.py", "core/drainer.py",
+                "core/deployments.py", "core/volumes.py",
+                "core/periodic.py", "core/core_gc.py", "core/events.py",
+                "core/secrets.py", "telemetry.py", "knobs.py"):
         assert os.path.join("nomad_tpu_torch", mod) in scanned, mod
 
 

@@ -6,7 +6,10 @@
    pipelined plan-apply loop, mirroring tests/test_core.py,
    tests/test_plan_pipeline.py and tests/test_wave_pipeline.py.
 2. The dev-mode Server end to end: register, blocked-then-unblocked,
-   node down, and `stop()` leaving no thread behind.
+   node down, and `stop()` leaving no thread behind (the spine's and
+   the control loops').  A server here that can outlive the 10 s
+   default heartbeat TTL under the test runner's parallel workers
+   (every started one) keeps its nodes for an hour.
 3. Parity: the same world and job stream through the reference's
    `Server` and the port's `Server(device="cpu")`, each with one worker
    and NOMAD_TPU_PIPELINE_DEPTH=0, so evals run one at a time in broker
@@ -44,9 +47,11 @@ from nomad_tpu_torch.structs.plan import Plan
 
 torch.set_num_threads(1)
 
-# threads the spine and its engine start
+# threads the spine, its control loops and its engine start
 SPINE_THREADS = ("worker-", "plan-apply", "plan-commit", "eval-reaper",
-                 "dup-blocked-reaper", "placement-engine")
+                 "dup-blocked-reaper", "placement-engine", "heartbeat",
+                 "heartbeat-batch", "deploy-watcher", "volume-watcher",
+                 "drainer", "periodic", "core-gc")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -398,7 +403,8 @@ def test_server_needs_a_card_or_cpu(monkeypatch):
 
 def test_server_end_to_end_spine_and_stop():
     before = set(threading.enumerate())
-    s = Server(ServerConfig(num_schedulers=2), device="cpu")
+    s = Server(ServerConfig(num_schedulers=2, heartbeat_ttl=3600.0),
+               device="cpu")
     s.start()
     eng = s._engine
     try:
@@ -413,6 +419,9 @@ def test_server_end_to_end_spine_and_stop():
         assert any(e.status == EvalStatus.COMPLETE for e in evs)
         assert eng._thread.is_alive()
         assert "plan-apply" in _spine_threads(before)
+        assert {"heartbeat", "heartbeat-batch", "deploy-watcher",
+                "volume-watcher", "drainer", "periodic", "core-gc"} <= \
+            set(_spine_threads(before))
     finally:
         s.stop()
     assert not eng._thread.is_alive()
@@ -432,7 +441,8 @@ def test_server_stops_promptly_with_plans_in_flight(monkeypatch):
 
     monkeypatch.setattr(PlanApplier, "_evaluate", slow_evaluate)
     before = set(threading.enumerate())
-    s = Server(ServerConfig(num_schedulers=8), device="cpu")
+    s = Server(ServerConfig(num_schedulers=8, heartbeat_ttl=3600.0),
+               device="cpu")
     s.start()
     for _ in range(32):
         s.register_node(mock.node())
@@ -460,7 +470,8 @@ def test_worker_counts_failed_evals_by_cause(monkeypatch):
         raise RuntimeError("kernel launch failed")
 
     monkeypatch.setattr(worker_mod.factory, "new_scheduler", launch_error)
-    s = Server(ServerConfig(num_schedulers=1), device="cpu")
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0),
+               device="cpu")
     s.start()
     w = s.workers[0]
     try:
@@ -474,7 +485,8 @@ def test_worker_counts_failed_evals_by_cause(monkeypatch):
 
 
 def test_server_blocked_eval_unblocks_on_new_node():
-    s = Server(ServerConfig(num_schedulers=1), device="cpu")
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0),
+               device="cpu")
     s.start()
     try:
         s.register_node(mock.node())
@@ -499,7 +511,8 @@ def test_server_blocked_eval_unblocks_on_new_node():
 
 
 def test_server_node_down_triggers_replacement():
-    s = Server(ServerConfig(num_schedulers=2), device="cpu")
+    s = Server(ServerConfig(num_schedulers=2, heartbeat_ttl=3600.0),
+               device="cpu")
     s.start()
     try:
         for _ in range(3):
@@ -525,7 +538,8 @@ def test_server_migrates_allocs_off_unhealthy_devices():
     that marks a held device instance unhealthy reschedules the alloc
     onto healthy hardware."""
     from nomad_tpu_torch.structs.resources import DeviceRequest, NodeDevice
-    s = Server(ServerConfig(num_schedulers=1), device="cpu")
+    s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl=3600.0),
+               device="cpu")
     s.start()
     try:
         nodes = []
@@ -567,7 +581,8 @@ def test_server_concurrent_workers_never_overcommit():
     from nomad_tpu_torch.encode.matrixizer import comparable_vec
     prev = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
-    s = Server(ServerConfig(num_schedulers=16), device="cpu")
+    s = Server(ServerConfig(num_schedulers=16, heartbeat_ttl=3600.0),
+               device="cpu")
     s.start()
     try:
         for _ in range(32):
